@@ -4,25 +4,38 @@
 
 Phases, each of which must pass (any failure exits non-zero):
 
-1. build    — compile every CUDA kernel of the serving path from the
-              repository's sources (one nvcc per source, all in parallel).
-2. kernels  — hold each kernel against its plain PyTorch version on the card
-              (flash attention: D 16/128, Hkv = H and 1, ragged S and T,
-              causal with and without q_offset, a window, bf16 and f32).
-3. small    — the smoke model in f32 on the card agrees with the same
+1. build    — compile every CUDA kernel source from the repository (flash
+              attention, STREAM, dpa_matmul: one nvcc per source, all in
+              parallel).
+2. kernels  — hold each kernel against its plain PyTorch version on the card:
+              flash attention (D 16/128, Hkv = H and 1, ragged S and T,
+              causal with and without q_offset, a window, bf16 and f32); the
+              six STREAM kernels in f32 and bf16 at the reference tests'
+              shapes and every shape the benches give them (read at
+              block_rows 8, 16 and 256); dpa_matmul in its three variants
+              at the reference tests' shapes, 512^3 and 4096^3 (dpa4
+              exactly), and lower-precision controls that its limit must
+              reject; the int8 quantized linear against its plain
+              composition.
+3. bench    — the paper's measurement path: the port's bench_bandwidth,
+              bench_peak and bench_launch_latency on the card, three times,
+              plus the bandwidth bench's read/write rows. The launch
+              counts are zeroed just before and read just after; every
+              STREAM and dpa_matmul kernel must have run.
+4. small    — the smoke model in f32 on the card agrees with the same
               weights on the host (plain versions), logits and tokens.
-4. serve    — granite-20b at its published width (bf16 weights made on the
+5. serve    — granite-20b at its published width (bf16 weights made on the
               card from a seed) through ContinuousEngine: 8 requests, batch
               4, max_seq 512, 32 new tokens each, four sharing a 128-token
-              prefix. The kernel launch counts are zeroed just before and
-              read just after; every kernel of the path must have run.
-5. profile  — where the time goes in one full-width decode step and one
+              prefix. The flash launch count is zeroed just before and read
+              just after; it must have run.
+6. profile  — where the time goes in one full-width decode step and one
               256-token prefill: host time, device-busy time, kernel count.
-6. timing   — each kernel at the serve phase's prefill shapes, held
-              against its plain version there (bf16 and f32) and timed
-              beside it, a PyTorch library call computing the same
-              function, and its bound on the card.
-7. cli      — `python -m repro_torch.launch.serve --arch granite-20b
+7. timing   — each kernel held against its plain version and timed beside
+              it, a PyTorch library call computing the same function, and
+              its bound on the card: flash at the serve phase's prefill
+              shapes, STREAM at 128 MiB f32, dpa_matmul at 512^3 and 4096^3.
+8. cli      — `python -m repro_torch.launch.serve --arch granite-20b
               --smoke` on the card.
 
 The line before the last is the kernels JSON, the one before it the card's
@@ -31,6 +44,8 @@ name and power limit; the last line is the device JSON.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import pathlib
@@ -42,9 +57,9 @@ import warnings
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 without them,
-# HBM3 bandwidth
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, f32
+# without them, HBM3 bandwidth
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 SERVE = dict(batch=4, max_seq=512, max_new=32, n_shared=4, shared_len=128,
@@ -137,6 +152,240 @@ def phase_kernels():
                 f"max|err| {err:.3e} (tol {tol:g})")
             if not err <= tol:
                 raise AssertionError(f"flash kernel disagrees: {err} > {tol}")
+
+
+# the reference tests' shapes, the bandwidth bench's 64 KB, 1 MB, 16 MB
+# and 128 MB, and the launch-latency bench's 8x8 copy
+STREAM_SHAPES = [(64, 128), (256, 128), (128, 512), (16, 1024), (256, 1024),
+                 (4096, 1024), (32768, 1024), (8, 8)]
+STREAM_X = 1.7
+# STREAM read sums in another order: held to ref.read_limit per row block
+# (1e-5 of sum(|a|), plus one bf16 ulp of the sum where the output is bf16)
+READ_BLOCK_ROWS = (8, 16, 256)
+DPA_SHAPES = [(128, 256, 128), (256, 512, 128), (64, 128, 64),
+              (512, 512, 512), (4096, 4096, 4096)]
+DPA_IN = {"fma_f32": "float32", "dpa2": "bfloat16", "dpa4": "int8"}
+# the line of each STREAM function that reaches pl.pallas_call
+STREAM_REPLACES = {"stream_copy": 53, "stream_scale": 61, "stream_add": 72,
+                   "stream_triad": 80, "stream_write": 91, "stream_read": 103}
+DPA_NAMES = tuple(f"dpa_matmul/{v}" for v in DPA_IN)
+
+
+def _max_err(got, want) -> float:
+    return (got.double() - want.double()).abs().max().item()
+
+
+def stream_held(a, b, errs):
+    """Each STREAM kernel against its plain version on (a, b); copy,
+    scale, add, triad and write must be equal (the kernel rounds after each
+    operation as eager PyTorch does), read within ``ref.read_limit`` per
+    row block at each of READ_BLOCK_ROWS."""
+    import torch
+    from repro_torch.kernels.stream import ref, stream as sk
+    x, shape, dt = STREAM_X, tuple(a.shape), a.dtype
+    pairs = {
+        "stream_copy": (sk.stream_copy(a), ref.copy(a)),
+        "stream_scale": (sk.stream_scale(a, x), ref.scale(a, x)),
+        "stream_add": (sk.stream_add(a, b), ref.add(a, b)),
+        "stream_triad": (sk.stream_triad(a, b, x), ref.triad(a, b, x)),
+        "stream_write": (sk.stream_write(shape, x, dt),
+                         ref.write(shape, x, dt, "cuda")),
+    }
+    dname = str(dt).replace("torch.", "")
+    read_err = 0.0
+    for name, (got, want) in pairs.items():
+        err = _max_err(got, want)
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not (got.shape == want.shape and got.dtype == want.dtype
+                and torch.equal(got, want)):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {shape} {dname}: max|err| {err}")
+    for br in READ_BLOCK_ROWS:
+        got, want = sk.stream_read(a, block_rows=br), ref.read(a, br)
+        err = _max_err(got, want)
+        read_err = max(read_err, err)
+        errs["stream_read"] = max(errs.get("stream_read", 0.0), err)
+        ok = bool(((got.float() - want.float()).abs()
+                   <= ref.read_limit(a, want, br)).all().item())
+        if not (ok and got.shape == want.shape and got.dtype == want.dtype):
+            raise AssertionError(f"stream_read disagrees at {shape} {dname} "
+                                 f"block_rows {br}: max|err| {err}")
+    log(f"[kernels] stream {dname} {shape}: copy/scale/add/triad/write "
+        f"equal to plain; read max|err| {read_err:.3e} (within "
+        f"ref.read_limit at block_rows {READ_BLOCK_ROWS})")
+
+
+def dpa_inputs(m, k, n, variant, g):
+    import torch
+    if variant == "dpa4":
+        return (torch.randint(-127, 128, (m, k), device="cuda", generator=g,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, (k, n), device="cuda", generator=g,
+                              dtype=torch.int8))
+    dt = getattr(torch, DPA_IN[variant])
+    return (torch.randn(m, k, device="cuda", generator=g).to(dt),
+            torch.randn(k, n, device="cuda", generator=g).to(dt))
+
+
+def dpa_limit(a, b, want):
+    """The largest |got - want| allowed for fma_f32 and dpa2: the reference
+    test's atol 4e-5 + rtol (1e-5*sqrt(k) + 1e-6) times max(|want|,
+    (|a| @ |b|) / sqrt(k)). Only the f32 summation order differs; the
+    second term of the max is the typical size of a sum of k terms of
+    random sign, which |want| falls below where the sum cancels (at
+    k = 4096 that is where the reference's own rule is too tight)."""
+    import torch
+    k = a.shape[1]
+    scale = torch.maximum(want.abs(),
+                          (a.float().abs() @ b.float().abs()) / k ** 0.5)
+    return 4e-5 + (1e-5 * k ** 0.5 + 1e-6) * scale
+
+
+def dpa_held(a, b, variant, errs):
+    """The kernel against its plain version: dpa4 equal; fma_f32 and dpa2
+    within ``dpa_limit``."""
+    import torch
+    from repro_torch.kernels.dpa_matmul import dpa_matmul as dk, ref
+    got, want = dk.dpa_matmul(a, b, variant=variant), ref.matmul(a, b,
+                                                                 variant)
+    err = _max_err(got, want)
+    name = f"dpa_matmul/{variant}"
+    errs[name] = max(errs.get(name, 0.0), err)
+    if variant == "dpa4":
+        ok = got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        ok = got.dtype == torch.float32 and bool(
+            ((got - want).abs() <= dpa_limit(a, b, want)).all().item())
+    if not ok:
+        raise AssertionError(f"{name} disagrees at {tuple(a.shape)} @ "
+                             f"{tuple(b.shape)}: max|err| {err}")
+    return err
+
+
+def dpa_controls(g):
+    """``dpa_limit`` must reject a result of lower precision than the
+    kernel's: fma_f32 against torch.mm with TF32 on (10-bit mantissa
+    inputs), dpa2 against its own output rounded to bf16. Each control must
+    exceed the limit somewhere, or the limit is too loose to catch it."""
+    import torch
+    from repro_torch.kernels.dpa_matmul import dpa_matmul as dk, ref
+    for size in (512, 4096):
+        for variant in ("fma_f32", "dpa2"):
+            a, b = dpa_inputs(size, size, size, variant, g)
+            want = ref.matmul(a, b, variant)
+            got = dk.dpa_matmul(a, b, variant=variant)
+            if variant == "fma_f32":
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    low = torch.mm(a, b)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                what = "torch.mm with TF32"
+            else:
+                low = got.bfloat16().float()
+                what = "the kernel's output rounded to bf16"
+            limit = dpa_limit(a, b, want)
+            over = ((low - want).abs() > limit).float().mean().item()
+            log(f"[kernels] dpa_matmul {variant} {size}^3 control ({what}): "
+                f"max|err| {_max_err(low, want):.3e}, {over:.1%} of entries "
+                f"over the limit; the kernel: max|err| "
+                f"{_max_err(got, want):.3e}; limit {limit.min().item():.3e}"
+                f"-{limit.max().item():.3e}")
+            if not over > 0:
+                raise AssertionError(f"dpa_limit lets {what} through at "
+                                     f"{size}^3")
+
+
+def phase_kernels_measurement():
+    """STREAM, dpa_matmul and the quantized linear against their plain
+    versions; returns the largest error of each kernel."""
+    import torch
+    from repro_torch.kernels.dpa_matmul import ops as dpa_ops, ref as dpa_ref
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    errs = {}
+    for dname in ("float32", "bfloat16"):
+        for shape in STREAM_SHAPES:
+            a = torch.randn(shape, device="cuda", generator=g).to(
+                getattr(torch, dname))
+            b = torch.randn(shape, device="cuda", generator=g).to(a.dtype)
+            stream_held(a, b, errs)
+    for variant in DPA_IN:
+        for m, k, n in DPA_SHAPES:
+            a, b = dpa_inputs(m, k, n, variant, g)
+            err = dpa_held(a, b, variant, errs)
+            log(f"[kernels] dpa_matmul {variant} {m}x{k}x{n}: max|err| "
+                f"{err:.3e}" + (" (exact required)" if variant == "dpa4"
+                                else f" (atol 4e-5, rtol "
+                                     f"{1e-5 * k ** 0.5 + 1e-6:.2e} of "
+                                     f"max(|want|, |a|@|b|/sqrt(k)))"))
+    dpa_controls(g)
+    for m, k, n in ((64, 128, 64), (512, 4096, 4096)):
+        x = torch.randn(m, k, device="cuda", generator=g)
+        w = torch.randn(k, n, device="cuda", generator=g) / k ** 0.5
+        got = dpa_ops.quantized_linear(x, w)
+        xq, xs = dpa_ops.quantize_int8(x, axis=1)
+        wq, ws = dpa_ops.quantize_int8(w, axis=0)
+        want = dpa_ref.matmul(xq, wq, "dpa4").float() * xs * ws
+        ok = torch.equal(got, want)
+        log(f"[kernels] quantized_linear {m}x{k}x{n}: equal to its plain "
+            f"composition {ok}")
+        if not ok:
+            raise AssertionError("quantized_linear disagrees with its plain "
+                                 "composition")
+    torch.cuda.synchronize()
+    return errs
+
+
+BENCH_REPEATS = 3
+
+
+def phase_bench():
+    """The paper's measurement path on the card: the port's three benches
+    (each BENCH_REPEATS times), then the bandwidth bench's read and write
+    rows (its docstring names them; the reference's code emits
+    copy/scale/add/triad only). Launch counts: zeroed before, read after."""
+    import functools
+    import torch
+    from repro_torch.benchmarks import (bench_bandwidth, bench_launch_latency,
+                                        bench_peak)
+    from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
+    from repro_torch.kernels.stream import stream as sk
+    readings = {}
+    for name in sk.launches:
+        sk.launches[name] = 0                 # the bench path starts here
+    for name in dk.launches:
+        dk.launches[name] = 0
+    t0 = time.perf_counter()
+    for rep in range(BENCH_REPEATS):
+        for bench in (bench_bandwidth.run, bench_peak.run,
+                      bench_launch_latency.run,
+                      functools.partial(bench_bandwidth.run,
+                                        ops=("read", "write"))):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rows = bench()
+            for line in buf.getvalue().splitlines():
+                log(f"[bench] run {rep}: {line}")
+            for name, row in rows.rows.items():
+                readings.setdefault(name, []).append(row)
+    torch.cuda.synchronize()
+    launches = {name: sk.launches[name] for name in STREAM_REPLACES}
+    launches.update({f"dpa_matmul/{v}": dk.launches[v] for v in DPA_IN})
+    # ... and ends here
+    log(f"[bench] {BENCH_REPEATS} runs in {time.perf_counter() - t0:.1f} s; "
+        f"launches on the bench path: {launches}")
+    for name, rows in readings.items():
+        us = sorted(r["us_per_call"] for r in rows)
+        log(f"[bench] spread {name}: us_per_call min {us[0]:.1f} median "
+            f"{us[len(us) // 2]:.1f} max {us[-1]:.1f} over {len(us)} runs; "
+            f"derived {[r['derived'] for r in rows]}")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the bench path: "
+                             f"{missing}")
+    return launches
 
 
 def phase_small():
@@ -438,6 +687,99 @@ def phase_timing(cfg, shapes):
     return rows
 
 
+def _row(ms, plain_ms, lib_ms, n_bytes, n_ops, peak_ops, err):
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / peak_ops * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=err)
+
+
+def timing_stream(errs):
+    """The six STREAM kernels at 128 MiB f32 (32768x1024), past the 50 MB
+    L2, beside their plain versions and one library call each."""
+    import torch
+    from repro_torch.kernels.stream import ref, stream as sk
+    shape = (32768, 1024)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    a = torch.randn(shape, device="cuda", generator=g)
+    b = torch.randn(shape, device="cuda", generator=g)
+    stream_held(a, b, errs)                   # held on these very inputs
+    x = STREAM_X
+    xr = ref.scalar(x, a.dtype).item()
+    n = a.numel() * a.element_size()
+    n_blocks = shape[0] // 256
+    cases = {
+        # name: (kernel, plain, library, bytes, operations)
+        "stream_copy": (lambda: sk.stream_copy(a), lambda: ref.copy(a),
+                        lambda: a.clone(), 2 * n, 0),
+        "stream_scale": (lambda: sk.stream_scale(a, x),
+                         lambda: ref.scale(a, x), lambda: torch.mul(a, xr),
+                         2 * n, a.numel()),
+        "stream_add": (lambda: sk.stream_add(a, b), lambda: ref.add(a, b),
+                       lambda: torch.add(a, b), 3 * n, a.numel()),
+        "stream_triad": (lambda: sk.stream_triad(a, b, x),
+                         lambda: ref.triad(a, b, x),
+                         lambda: torch.add(b, a, alpha=xr), 3 * n,
+                         2 * a.numel()),
+        "stream_write": (lambda: sk.stream_write(shape, x),
+                         lambda: ref.write(shape, x, a.dtype, "cuda"),
+                         lambda: torch.full(shape, xr, device="cuda"), n, 0),
+        "stream_read": (lambda: sk.stream_read(a), lambda: ref.read(a),
+                        lambda: a.view(n_blocks, -1).sum(1),
+                        n + n_blocks * 4, a.numel()),
+    }
+    rows = {}
+    for name, (kern, plain, lib, n_bytes, n_ops) in cases.items():
+        ms, plain_ms, lib_ms = (cuda_timed(f) for f in (kern, plain, lib))
+        rows[name] = r = _row(ms, plain_ms, lib_ms, n_bytes, n_ops,
+                              PEAK_OPS["float32"], errs[name])
+        log(f"[timing] {name} f32 {shape}: kernel {ms:.4f} ms "
+            f"({n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}, {n_bytes} bytes); kernel at "
+            f"{r['bound_ms'] / ms:.1%} of the bound")
+    return rows
+
+
+def timing_dpa(errs):
+    """dpa_matmul at 512^3 (the bench's size) and 4096^3 beside its plain
+    version and one library call: torch.mm in f32 with TF32 off, torch.mm
+    in bf16 (which writes bf16, not f32), torch._int_mm (int8 -> int32)."""
+    import torch
+    from repro_torch.kernels.dpa_matmul import dpa_matmul as dk, ref
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    lib = {"fma_f32": torch.mm, "dpa2": torch.mm, "dpa4": torch._int_mm}
+    peak = {v: PEAK_OPS[DPA_IN[v]] for v in DPA_IN}
+    rows = {}
+    for size in (512, 4096):
+        for variant in DPA_IN:
+            a, b = dpa_inputs(size, size, size, variant, g)
+            dpa_held(a, b, variant, errs)
+            iters = 20 if size == 512 else 10
+            ms = cuda_timed(lambda: dk.dpa_matmul(a, b, variant=variant),
+                            iters=iters)
+            plain_ms = cuda_timed(lambda: ref.matmul(a, b, variant),
+                                  iters=iters)
+            lib_ms = cuda_timed(lambda: lib[variant](a, b), iters=iters)
+            n_ops = 2 * size ** 3
+            n_bytes = 2 * size * size * a.element_size() + size * size * 4
+            name = f"dpa_matmul/{variant}"
+            r = _row(ms, plain_ms, lib_ms, n_bytes, n_ops, peak[variant],
+                     errs[name])
+            rows[(name, size)] = r
+            log(f"[timing] {name} {size}^3: kernel {ms:.4f} ms "
+                f"({n_ops / ms / 1e9:.2f} Top/s), plain {plain_ms:.4f} ms, "
+                f"library {lib_ms:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}); kernel at {r['bound_ms'] / ms:.1%} of "
+                f"the bound")
+    return rows
+
+
 def phase_cli():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
@@ -469,13 +811,19 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; nvidia-smi: {card}; before any work "
         f"(power draw, SM clock, max SM clock): {idle}")
+    torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     phase_kernels()
+    errs = phase_kernels_measurement()
+    bench_launches = phase_bench()
     phase_small()
     cfg, eng, launches, shapes = phase_serve(card)
+    launches.update(bench_launches)
     phase_profile(eng)
     del eng                                    # frees the 56 GB of weights
     rows = phase_timing(cfg, shapes)
+    stream_rows = timing_stream(errs)
+    dpa_rows = timing_dpa(errs)
     phase_cli()
     # the kernels line times the serve's largest prefill shape; its error
     # is the largest over all the serve's shapes
@@ -493,6 +841,22 @@ def main() -> int:
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
     }]
+    # STREAM at 128 MiB f32, dpa_matmul at 4096^3; each error is the
+    # largest over every case the kernel was held at
+    for name, line in STREAM_REPLACES.items():
+        kernels.append(dict(name=name, route="cuda",
+                            source="src/repro_torch/csrc/stream.cu",
+                            replaces=f"src/repro/kernels/stream/stream.py:"
+                                     f"{line}",
+                            launches=launches[name],
+                            **stream_rows[name]))
+    for name in DPA_NAMES:
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/dpa_matmul.cu",
+            replaces="src/repro/kernels/dpa_matmul/dpa_matmul.py:42",
+            launches=launches[name],
+            **dpa_rows[(name, 4096)]))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

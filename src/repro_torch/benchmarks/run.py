@@ -1,0 +1,47 @@
+"""Benchmark harness of the port: one module per paper figure.
+
+Prints ``name,us_per_call,derived`` CSV rows. Runs on the CUDA card unless
+asked for the host; with no card and no ``--device cpu`` it fails.
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.run [--only <substr>]
+        [--device cpu]
+"""
+import argparse
+import importlib
+import sys
+import traceback
+
+from repro_torch.core.device import resolve_device
+
+MODULES = [
+    ("bandwidth (Fig. 4/6)", "repro_torch.benchmarks.bench_bandwidth"),
+    ("peak compute (Fig. 5/7)", "repro_torch.benchmarks.bench_peak"),
+    ("launch latency (Fig. 8)", "repro_torch.benchmarks.bench_launch_latency"),
+]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--device", default=None,
+                    help="cpu to run the plain versions on the host "
+                         "(default: the CUDA card)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    print("name,us_per_call,derived")
+    failures = 0
+    for label, mod_name in MODULES:
+        if args.only and args.only not in mod_name:
+            continue
+        print(f"# {label}", file=sys.stderr)
+        try:
+            importlib.import_module(mod_name).run(dev)
+        except Exception:  # noqa: BLE001  (counted: the run exits non-zero)
+            failures += 1
+            traceback.print_exc()
+    if failures:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,20 +1,32 @@
-"""The port on the CUDA card: the flash kernel against its plain version,
-and the smoke engine on the card against the same engine on the host.
+"""The port on the CUDA card: the flash, STREAM and dpa_matmul kernels
+against their plain versions, and the smoke engine on the card against the
+same engine on the host.
 
 Every test here carries the ``cuda`` marker and skips without a card; on
 the card's machine run them with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: 1e-5 in f32 (the kernel does true f32 FMA, no TF32), 2e-2 in
-bf16 (one bf16 rounding of the output on each side).
+Tolerances: flash 1e-5 in f32 (the kernel does true f32 FMA, no TF32),
+2e-2 in bf16 (one bf16 rounding of the output on each side). STREAM copy,
+scale, add, triad and write: equal to the plain version (the kernel rounds
+after each operation, as eager PyTorch does; f32 triad is not contracted
+into an FMA). STREAM read: ``ref.read_limit`` per row block, 1e-5 of
+sum(|a|) plus in bf16 one bf16 ulp of the sum (another summation order).
+dpa_matmul: dpa4 exact; fma_f32 and dpa2
+rtol 1e-5*sqrt(k) + 1e-6, atol 4e-5 (f32 sums in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
+from repro_torch.kernels.dpa_matmul import ops as dpa_ops
+from repro_torch.kernels.dpa_matmul import ref as dpa_ref
 from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.stream import ref as stream_ref
+from repro_torch.kernels.stream import stream as sk
 from repro_torch.models import build_model
 from repro_torch.serve.engine import ContinuousEngine, Request
 
@@ -100,3 +112,101 @@ def test_smoke_engine_on_the_card_matches_the_host():
         assert gpu_stats[key] == cpu_stats[key]
     assert cpu_l == 0                          # the host ran plain versions
     assert gpu_l == cfg.num_layers * gpu_stats["prefills"]
+
+
+# the reference tests' shapes, ragged widths, and the benches' own shapes
+# (bandwidth at 64 KB, 1 MB and 16 MB; the 8x8 launch-latency copy)
+STREAM_SHAPES = [(64, 128), (256, 128), (128, 512), (1, 1001), (3, 333),
+                 (16, 1024), (256, 1024), (4096, 1024), (8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernels_match_plain_versions(dtype):
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    for rows, cols in STREAM_SHAPES:
+        a = torch.randn(rows, cols, device="cuda", generator=g).to(dtype)
+        b = torch.randn(rows, cols, device="cuda", generator=g).to(dtype)
+        pairs = {
+            "stream_copy": (sk.stream_copy(a), stream_ref.copy(a)),
+            "stream_scale": (sk.stream_scale(a, 1.7),
+                             stream_ref.scale(a, 1.7)),
+            "stream_add": (sk.stream_add(a, b), stream_ref.add(a, b)),
+            "stream_triad": (sk.stream_triad(a, b, 1.7),
+                             stream_ref.triad(a, b, 1.7)),
+            "stream_write": (
+                sk.stream_write((rows, cols), 1.7, dtype),
+                stream_ref.write((rows, cols), 1.7, dtype, "cuda")),
+        }
+        for name, (got, want) in pairs.items():
+            assert torch.equal(got, want), (name, rows, cols, dtype)
+        for br in (8, 16, 256):
+            got = sk.stream_read(a, block_rows=br)
+            want = stream_ref.read(a, block_rows=br)
+            assert got.shape == want.shape and got.dtype == dtype
+            assert bool(((got.float() - want.float()).abs()
+                         <= stream_ref.read_limit(a, want, br)).all()), (
+                rows, cols, br, dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_stream_kernels_count_their_launches_and_refuse_ragged_rows():
+    _need_cuda()
+    a = torch.ones(64, 128, device="cuda")
+    before = dict(sk.launches)
+    sk.stream_copy(a)
+    sk.stream_read(a, block_rows=16)
+    assert sk.launches["stream_copy"] == before["stream_copy"] + 1
+    assert sk.launches["stream_read"] == before["stream_read"] + 1
+    with pytest.raises(ValueError, match="block_rows"):
+        sk.stream_copy(torch.ones(300, 128, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.stream_copy(torch.ones(128, 64, device="cuda").t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fma_f32", "dpa2", "dpa4"])
+def test_dpa_matmul_kernel_matches_plain_version(variant):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    for m, k, n in [(128, 256, 128), (256, 512, 128), (64, 128, 64),
+                    (512, 512, 512)]:
+        if variant == "dpa4":
+            a = torch.randint(-127, 128, (m, k), device="cuda", generator=g,
+                              dtype=torch.int8)
+            b = torch.randint(-127, 128, (k, n), device="cuda", generator=g,
+                              dtype=torch.int8)
+        else:
+            a = torch.randn(m, k, device="cuda", generator=g)
+            b = torch.randn(k, n, device="cuda", generator=g)
+        before = dk.launches[variant]
+        got = dk.dpa_matmul(a, b, variant=variant)
+        assert dk.launches[variant] == before + 1
+        want = dpa_ref.matmul(a, b, variant)
+        torch.cuda.synchronize()
+        if variant == "dpa4":
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want,
+                                       rtol=1e-5 * k ** 0.5 + 1e-6,
+                                       atol=4e-5)
+
+
+@pytest.mark.cuda
+def test_quantized_linear_on_the_card_matches_its_plain_composition():
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    x = torch.randn(64, 128, device="cuda", generator=g)
+    w = torch.randn(128, 64, device="cuda", generator=g) / 128 ** 0.5
+    got = dpa_ops.quantized_linear(x, w)
+    xq, xs = dpa_ops.quantize_int8(x, axis=1)
+    wq, ws = dpa_ops.quantize_int8(w, axis=0)
+    want = dpa_ref.matmul(xq, wq, "dpa4").float() * xs * ws
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
