@@ -13,10 +13,13 @@ Phases, each of which must pass (any failure exits non-zero):
               six STREAM kernels in f32 and bf16 at the reference tests'
               shapes and every shape the benches give them (read at
               block_rows 8, 16 and 256); dpa_matmul in its three variants
-              at the reference tests' shapes, 512^3 and 4096^3 (dpa4
-              exactly), and lower-precision controls that its limit must
-              reject; the int8 quantized linear against its plain
-              composition.
+              at the reference tests' shapes, 512^3, 4096^3 and shapes at
+              the edges of its routes (ragged against the tile and the
+              64-deep stage, M below 64, rows TMA cannot describe), on the
+              route and tile its plan picks (dpa4 exactly), every tile of
+              the wgmma and FFMA routes at those edges, and
+              lower-precision controls that its limit must reject; the
+              int8 quantized linear against its plain composition.
 3. bench    — the paper's measurement path: the port's bench_bandwidth,
               bench_peak and bench_launch_latency on the card, three times,
               plus the bandwidth bench's read/write rows. The launch
@@ -34,7 +37,10 @@ Phases, each of which must pass (any failure exits non-zero):
 7. timing   — each kernel held against its plain version and timed beside
               it, a PyTorch library call computing the same function, and
               its bound on the card: flash at the serve phase's prefill
-              shapes, STREAM at 128 MiB f32, dpa_matmul at 512^3 and 4096^3.
+              shapes, STREAM at 128 MiB f32, dpa_matmul at 512^3 and 4096^3
+              (with each kernel's device time under the profiler beside
+              the library call's, and at 512^3 that of every tile of the
+              wgmma and FFMA routes).
 8. cli      — `python -m repro_torch.launch.serve --arch granite-20b
               --smoke` on the card.
 
@@ -106,6 +112,12 @@ def phase_build():
         build.load(name)
     log(f"[build] {len(sources)} kernel source(s) {sources} built in "
         f"{time.perf_counter() - t0:.1f} s: {[p.name for p in paths]}")
+    from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
+    for variant, routes in dk.ROUTES.items():
+        for route in routes:
+            for bm, bn in dk.TILES[route]:
+                log(f"[build] dpa_matmul {variant} route {route} tile "
+                    f"{bm}x{bn}: {dk.kernel_attributes(variant, route, bm, bn)}")
     return sources
 
 
@@ -162,8 +174,18 @@ STREAM_X = 1.7
 # STREAM read sums in another order: held to ref.read_limit per row block
 # (1e-5 of sum(|a|), plus one bf16 ulp of the sum where the output is bf16)
 READ_BLOCK_ROWS = (8, 16, 256)
+# (M, K, N): the reference tests' shapes, the bench's 512^3, 4096^3, then
+# the routes' edges: ragged against the wgmma tile and its 64-deep stage,
+# M below 64, A or B rows of 200 bytes, which TMA cannot describe, and K
+# and N odd (fma_f32's rows not 16-byte aligned: its 4-byte copies)
 DPA_SHAPES = [(128, 256, 128), (256, 512, 128), (64, 128, 64),
-              (512, 512, 512), (4096, 4096, 4096)]
+              (512, 512, 512), (4096, 4096, 4096), (96, 200, 640),
+              (8, 128, 64), (64, 100, 64), (64, 64, 100), (72, 99, 117)]
+# every tile of the wgmma and FFMA routes is held at these: one 64^3
+# tile, the edges above, a shape ragged every way, and 4096^3
+DPA_TILE_SHAPES = [(64, 64, 64), (96, 200, 640), (8, 128, 64),
+                   (300, 1000, 520), (4096, 4096, 4096)]
+DPA_NEW_ROUTES = (("dpa2", "wgmma"), ("fma_f32", "ffma"))
 DPA_IN = {"fma_f32": "float32", "dpa2": "bfloat16", "dpa4": "int8"}
 # the line of each STREAM function that reaches pl.pallas_call
 STREAM_REPLACES = {"stream_copy": 53, "stream_scale": 61, "stream_add": 72,
@@ -241,13 +263,15 @@ def dpa_limit(a, b, want):
     return 4e-5 + (1e-5 * k ** 0.5 + 1e-6) * scale
 
 
-def dpa_held(a, b, variant, errs):
+def dpa_held(a, b, variant, errs, tile=None):
     """The kernel against its plain version: dpa4 equal; fma_f32 and dpa2
-    within ``dpa_limit``."""
+    within ``dpa_limit``. ``tile`` (route, bm, bn) launches that plan in
+    place of the one ``dpa_matmul`` picks."""
     import torch
     from repro_torch.kernels.dpa_matmul import dpa_matmul as dk, ref
-    got, want = dk.dpa_matmul(a, b, variant=variant), ref.matmul(a, b,
-                                                                 variant)
+    got = (dk.launch(a, b, variant, *tile) if tile else
+           dk.dpa_matmul(a, b, variant=variant))
+    want = ref.matmul(a, b, variant)
     err = _max_err(got, want)
     name = f"dpa_matmul/{variant}"
     errs[name] = max(errs.get(name, 0.0), err)
@@ -300,7 +324,8 @@ def phase_kernels_measurement():
     """STREAM, dpa_matmul and the quantized linear against their plain
     versions; returns the largest error of each kernel."""
     import torch
-    from repro_torch.kernels.dpa_matmul import ops as dpa_ops, ref as dpa_ref
+    from repro_torch.kernels.dpa_matmul import (dpa_matmul as dk, ops as
+                                                dpa_ops, ref as dpa_ref)
     assert torch.backends.cuda.matmul.allow_tf32 is False
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -311,15 +336,38 @@ def phase_kernels_measurement():
                 getattr(torch, dname))
             b = torch.randn(shape, device="cuda", generator=g).to(a.dtype)
             stream_held(a, b, errs)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for variant in DPA_IN:
         for m, k, n in DPA_SHAPES:
             a, b = dpa_inputs(m, k, n, variant, g)
             err = dpa_held(a, b, variant, errs)
-            log(f"[kernels] dpa_matmul {variant} {m}x{k}x{n}: max|err| "
-                f"{err:.3e}" + (" (exact required)" if variant == "dpa4"
-                                else f" (atol 4e-5, rtol "
-                                     f"{1e-5 * k ** 0.5 + 1e-6:.2e} of "
-                                     f"max(|want|, |a|@|b|/sqrt(k)))"))
+            route, bm, bn = dk.plan(m, n, k, variant, sms)
+            log(f"[kernels] dpa_matmul {variant} {m}x{k}x{n} (route {route}, "
+                f"tile {bm}x{bn}, {-(-m // bm) * -(-n // bn)} blocks): "
+                f"max|err| {err:.3e}" + (
+                    " (exact required)" if variant == "dpa4" else
+                    f" (atol 4e-5, rtol {1e-5 * k ** 0.5 + 1e-6:.2e} of "
+                    f"max(|want|, |a|@|b|/sqrt(k)))"))
+    for variant, route in DPA_NEW_ROUTES:
+        # odd K and N only where the route takes rows of any alignment
+        shapes = DPA_TILE_SHAPES + ([(72, 99, 117)] if route == "ffma"
+                                    else [])
+        for bm, bn in dk.TILES[route]:
+            worst = max(dpa_held(*dpa_inputs(m, k, n, variant, g), variant,
+                                 errs, tile=(route, bm, bn))
+                        for m, k, n in shapes)
+            log(f"[kernels] dpa_matmul {variant} route {route} tile "
+                f"{bm}x{bn} at {shapes}: max|err| {worst:.3e} "
+                f"(within dpa_limit)")
+    for m, k, n in ((64, 100, 64), (64, 64, 100)):
+        a, b = dpa_inputs(m, k, n, "dpa2", g)
+        try:
+            dk.launch(a, b, "dpa2", "wgmma", 64, 64)
+        except RuntimeError as e:
+            log(f"[kernels] dpa_matmul dpa2 wgmma refuses {m}x{k}x{n}: {e}")
+        else:
+            raise AssertionError(f"the wgmma route took {m}x{k}x{n}, whose "
+                                 f"rows TMA cannot describe")
     dpa_controls(g)
     for m, k, n in ((64, 128, 64), (512, 4096, 4096)):
         x = torch.randn(m, k, device="cuda", generator=g)
@@ -357,6 +405,8 @@ def phase_bench():
         sk.launches[name] = 0                 # the bench path starts here
     for name in dk.launches:
         dk.launches[name] = 0
+    for name in dk.route_launches:
+        dk.route_launches[name] = 0
     t0 = time.perf_counter()
     for rep in range(BENCH_REPEATS):
         for bench in (bench_bandwidth.run, bench_peak.run,
@@ -373,15 +423,18 @@ def phase_bench():
     torch.cuda.synchronize()
     launches = {name: sk.launches[name] for name in STREAM_REPLACES}
     launches.update({f"dpa_matmul/{v}": dk.launches[v] for v in DPA_IN})
+    routes = dict(dk.route_launches)
     # ... and ends here
     log(f"[bench] {BENCH_REPEATS} runs in {time.perf_counter() - t0:.1f} s; "
-        f"launches on the bench path: {launches}")
+        f"launches on the bench path: {launches}; dpa_matmul by route: "
+        f"{routes}")
     for name, rows in readings.items():
         us = sorted(r["us_per_call"] for r in rows)
         log(f"[bench] spread {name}: us_per_call min {us[0]:.1f} median "
             f"{us[len(us) // 2]:.1f} max {us[-1]:.1f} over {len(us)} runs; "
             f"derived {[r['derived'] for r in rows]}")
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = [n for n, c in {**launches, "dpa_matmul/dpa2/wgmma":
+                              routes["dpa2/wgmma"]}.items() if c <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the bench path: "
                              f"{missing}")
@@ -577,6 +630,28 @@ def _profiled(fn, n=3):
     return host_ms, sum(by_name.values()), count / n, by_name
 
 
+def _device_ms(fn, n=10):
+    """Device time of one call of ``fn`` under ``torch.profiler``: the
+    median duration of each CUDA kernel it launches, summed over its
+    kernels. (The profiler has been seen to drop one call's events, so no
+    total over the calls is divided by their count.)"""
+    import statistics
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(statistics.median(v) for v in by_name.values()) / 1e3
+
+
 def phase_profile(eng):
     """Where the time goes in the serve phase's two steps at full width:
     one decode step of the whole batch and one cold 256-token prefill (the
@@ -747,12 +822,18 @@ def timing_stream(errs):
 def timing_dpa(errs):
     """dpa_matmul at 512^3 (the bench's size) and 4096^3 beside its plain
     version and one library call: torch.mm in f32 with TF32 off, torch.mm
-    in bf16 (which writes bf16, not f32), torch._int_mm (int8 -> int32)."""
+    in bf16 (which writes bf16, not f32), torch._int_mm (int8 -> int32).
+    Logged beside them, as yardsticks only: torch.mm in bf16 with
+    out_dtype f32 where this torch takes it, and the device time of one
+    kernel call and of one library call under the profiler (at 512^3 the
+    events time of back-to-back calls is mostly the host's dispatch). The
+    route each call took is read from the per-route launch counts."""
     import torch
     from repro_torch.kernels.dpa_matmul import dpa_matmul as dk, ref
     assert torch.backends.cuda.matmul.allow_tf32 is False
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib = {"fma_f32": torch.mm, "dpa2": torch.mm, "dpa4": torch._int_mm}
     peak = {v: PEAK_OPS[DPA_IN[v]] for v in DPA_IN}
     rows = {}
@@ -761,22 +842,50 @@ def timing_dpa(errs):
             a, b = dpa_inputs(size, size, size, variant, g)
             dpa_held(a, b, variant, errs)
             iters = 20 if size == 512 else 10
+            route, bm, bn = dk.plan(size, size, size, variant, sms)
+            before = dict(dk.route_launches)
             ms = cuda_timed(lambda: dk.dpa_matmul(a, b, variant=variant),
                             iters=iters)
+            taken = {r: c - before[r] for r, c in dk.route_launches.items()
+                     if c != before[r]}
+            if set(taken) != {f"{variant}/{route}"}:
+                raise AssertionError(f"{variant} {size}^3 planned route "
+                                     f"{route}, took {taken}")
             plain_ms = cuda_timed(lambda: ref.matmul(a, b, variant),
                                   iters=iters)
             lib_ms = cuda_timed(lambda: lib[variant](a, b), iters=iters)
+            dev_ms = _device_ms(lambda: dk.dpa_matmul(a, b, variant=variant))
+            dev_lib_ms = _device_ms(lambda: lib[variant](a, b))
+            extra = ""
+            if size == 512 and len(dk.TILES[route]) > 1:
+                # every tile of the route at the bench's size, the reading
+                # plan's tile rule rests on
+                tiles = {f"{tm}x{tn}": _device_ms(lambda: dk.launch(
+                    a, b, variant, route, tm, tn))
+                    for tm, tn in dk.TILES[route]}
+                extra += (", device time a call by tile: " + ", ".join(
+                    f"{t} {v:.4f} ms" for t, v in tiles.items()))
+            if variant == "dpa2":
+                try:
+                    f32_ms = cuda_timed(lambda: torch.mm(
+                        a, b, out_dtype=torch.float32), iters=iters)
+                    extra += f", torch.mm out_dtype=f32 {f32_ms:.4f} ms"
+                except (TypeError, RuntimeError) as e:
+                    extra += (f", torch.mm out_dtype=f32 not taken "
+                              f"({type(e).__name__})")
             n_ops = 2 * size ** 3
             n_bytes = 2 * size * size * a.element_size() + size * size * 4
             name = f"dpa_matmul/{variant}"
             r = _row(ms, plain_ms, lib_ms, n_bytes, n_ops, peak[variant],
                      errs[name])
             rows[(name, size)] = r
-            log(f"[timing] {name} {size}^3: kernel {ms:.4f} ms "
+            log(f"[timing] {name} {size}^3 (route {route}, tile {bm}x{bn}, "
+                f"launches by route {taken}): kernel {ms:.4f} ms "
                 f"({n_ops / ms / 1e9:.2f} Top/s), plain {plain_ms:.4f} ms, "
-                f"library {lib_ms:.4f} ms, bound {r['bound_ms']:.5f} ms "
-                f"({r['bound_by']}); kernel at {r['bound_ms'] / ms:.1%} of "
-                f"the bound")
+                f"library {lib_ms:.4f} ms{extra}, bound {r['bound_ms']:.5f} "
+                f"ms ({r['bound_by']}); kernel at {r['bound_ms'] / ms:.1%} "
+                f"of the bound; device time a call under the profiler: "
+                f"kernel {dev_ms:.4f} ms, library {dev_lib_ms:.4f} ms")
     return rows
 
 

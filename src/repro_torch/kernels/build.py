@@ -41,22 +41,22 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def library_path(name: str, src_dir: pathlib.Path = CSRC) -> pathlib.Path:
+    src = (src_dir / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library's path."""
-    out = library_path(name)
+def build(name: str, src_dir: pathlib.Path = CSRC) -> pathlib.Path:
+    """Compile ``<src_dir>/<name>.cu`` (``csrc`` by default) unless its
+    library is already built; returns the library's path."""
+    out = library_path(name, src_dir)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+           str(src_dir / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")

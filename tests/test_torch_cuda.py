@@ -14,7 +14,11 @@ after each operation, as eager PyTorch does; f32 triad is not contracted
 into an FMA). STREAM read: ``ref.read_limit`` per row block, 1e-5 of
 sum(|a|) plus in bf16 one bf16 ulp of the sum (another summation order).
 dpa_matmul: dpa4 exact; fma_f32 and dpa2
-rtol 1e-5*sqrt(k) + 1e-6, atol 4e-5 (f32 sums in another order).
+rtol 1e-5*sqrt(k) + 1e-6, atol 4e-5 (f32 sums in another order) at the
+reference tests' shapes; at the edges of the routes and on every tile,
+``_dpa_limit`` (``chip_smoke.py``'s ``dpa_limit``: the same rule with the
+rtol scaled by max(|want|, (|a| @ |b|) / sqrt(k)), since a K-term sum of
+random sign can cancel to near zero).
 """
 import numpy as np
 import pytest
@@ -210,3 +214,85 @@ def test_quantized_linear_on_the_card_matches_its_plain_composition():
     want = dpa_ref.matmul(xq, wq, "dpa4").float() * xs * ws
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _dpa_inputs(m, k, n, variant, g):
+    if variant == "dpa4":
+        return (torch.randint(-127, 128, (m, k), device="cuda", generator=g,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, (k, n), device="cuda", generator=g,
+                              dtype=torch.int8))
+    dt = torch.float32 if variant == "fma_f32" else torch.bfloat16
+    return (torch.randn(m, k, device="cuda", generator=g).to(dt),
+            torch.randn(k, n, device="cuda", generator=g).to(dt))
+
+
+def _dpa_limit(a, b, want):
+    k = a.shape[1]
+    scale = torch.maximum(want.abs(),
+                          (a.float().abs() @ b.float().abs()) / k ** 0.5)
+    return 4e-5 + (1e-5 * k ** 0.5 + 1e-6) * scale
+
+
+def _dpa_holds(got, want, a, b, variant):
+    if variant == "dpa4":
+        return got.dtype == torch.int32 and torch.equal(got, want)
+    return got.dtype == torch.float32 and bool(
+        ((got - want).abs() <= _dpa_limit(a, b, want)).all())
+
+
+# (M, K, N): ragged against the wgmma tile and its 64-deep stage, M below
+# 64, A rows and B rows of 200 bytes (TMA cannot describe them), and K and
+# N odd (fma_f32's rows are not 16-byte aligned: its 4-byte copies)
+DPA_EDGES = [(96, 200, 640), (8, 128, 64), (64, 100, 64), (64, 64, 100),
+             (72, 99, 117)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["fma_f32", "dpa2", "dpa4"])
+def test_dpa_matmul_edges_take_their_planned_route(variant):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, k, n in DPA_EDGES:
+        a, b = _dpa_inputs(m, k, n, variant, g)
+        route, _, _ = dk.plan(m, n, k, variant, sms)
+        before = dict(dk.route_launches)
+        got = dk.dpa_matmul(a, b, variant=variant)
+        assert {r: c - before[r] for r, c in dk.route_launches.items()
+                if c != before[r]} == {f"{variant}/{route}": 1}
+        want = dpa_ref.matmul(a, b, variant)
+        torch.cuda.synchronize()
+        assert _dpa_holds(got, want, a, b, variant), (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,route", [("dpa2", "wgmma"),
+                                           ("fma_f32", "ffma")])
+def test_dpa_matmul_every_tile_matches_plain_version(variant, route):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    # odd K and N only where the route takes rows of any alignment
+    odd = [(72, 99, 117)] if route == "ffma" else []
+    for bm, bn in dk.TILES[route]:
+        for m, k, n in [(64, 64, 64), (96, 200, 640), (8, 128, 64),
+                        (300, 1000, 520), (1024, 1024, 1024)] + odd:
+            a, b = _dpa_inputs(m, k, n, variant, g)
+            got = dk.launch(a, b, variant, route, bm, bn)
+            want = dpa_ref.matmul(a, b, variant)
+            torch.cuda.synchronize()
+            assert _dpa_holds(got, want, a, b, variant), (bm, bn, m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 100, 64), (64, 64, 100)])
+def test_dpa2_wgmma_route_refuses_rows_tma_cannot_describe(m, k, n):
+    _need_cuda()
+    a = torch.zeros(m, k, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(k, n, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        dk.launch(a, b, "dpa2", "wgmma", 64, 64)

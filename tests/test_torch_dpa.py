@@ -166,7 +166,121 @@ def test_one_compile_per_new_signature_like_the_reference():
 
 def test_cpu_path_is_the_plain_version_and_not_counted():
     (_, _), (at, bt) = _inputs(np.random.default_rng(9), 64, 128, 64, "dpa4")
-    before = dict(dk.launches)
+    before, before_routes = dict(dk.launches), dict(dk.route_launches)
     assert torch.equal(dk.dpa_matmul(at, bt, variant="dpa4"),
                        ref.matmul(at, bt, "dpa4"))
     assert dk.launches == before
+    assert dk.route_launches == before_routes
+
+
+# the kernel's route and tile planner (``dpa_matmul.plan``): pure Python,
+# so its rules are held here on every shape the wrapper accepts (M and N
+# below 128 or multiples of 128, K below 256 or a multiple of 256)
+H100_SMS = 132
+_dim = {
+    "mn": st.one_of(st.integers(1, 127), st.integers(1, 64).map(
+        lambda j: 128 * j)),
+    "k": st.one_of(st.integers(1, 255), st.integers(1, 32).map(
+        lambda j: 256 * j)),
+}
+
+
+def _blocks(m, n, bm, bn):
+    return -(-m // bm) * -(-n // bn)
+
+
+@pytest.mark.parametrize("variant", ["fma_f32", "dpa2", "dpa4"])
+@settings(max_examples=200, deadline=None)
+@given(m=_dim["mn"], n=_dim["mn"], k=_dim["k"],
+       sms=st.sampled_from([1, 16, H100_SMS, 1000]))
+def test_plan_maps_every_accepted_shape_to_one_route_and_tile_property(
+        variant, m, n, k, sms):
+    route, bm, bn = dk.plan(m, n, k, variant, sms)
+    assert route in dk.ROUTES[variant]
+    assert (bm, bn) in dk.TILES[route]
+    # the shape alone decides: the same answer every time
+    assert dk.plan(m, n, k, variant, sms) == (route, bm, bn)
+    # the largest tile that fills sms blocks, else the smallest
+    filling = [t for t in dk.TILES[route] if _blocks(m, n, *t) >= sms]
+    assert (bm, bn) == (filling[0] if filling else dk.TILES[route][-1])
+
+
+@settings(max_examples=300, deadline=None)
+@given(m=_dim["mn"], n=_dim["mn"], k=_dim["k"])
+def test_plan_gives_tma_only_shapes_it_can_describe_property(m, n, k):
+    """dpa2 takes wgmma exactly where TMA can describe A [M,K] and B [K,N]
+    in bf16: row strides of a multiple of 16 bytes."""
+    route, _, _ = dk.plan(m, n, k, "dpa2", H100_SMS)
+    describable = (2 * k) % 16 == 0 and (2 * n) % 16 == 0
+    assert (route == "wgmma") == describable
+    assert route == ("wgmma" if describable else "mma")
+
+
+@pytest.mark.parametrize("m,k,n,route", [
+    (64, 100, 64, "mma"),        # A rows of 200 bytes
+    (64, 64, 100, "mma"),        # B rows of 200 bytes
+    (96, 200, 640, "wgmma"),     # ragged against the tile and the stage
+    (8, 128, 64, "wgmma"),       # M below 64
+    (72, 99, 117, "mma"),        # K and N odd
+    (4096, 4096, 4096, "wgmma"),
+])
+def test_plan_routes_dpa2_edge_shapes(m, k, n, route):
+    assert dk.plan(m, n, k, "dpa2", H100_SMS)[0] == route
+
+
+@pytest.mark.parametrize("variant", ["fma_f32", "dpa2"])
+def test_plan_fills_the_card_at_the_bench_size(variant):
+    """512^3 gets at least 32 blocks on an H100's 132 SMs (a 128x128 tile
+    gives 16)."""
+    route, bm, bn = dk.plan(512, 512, 512, variant, H100_SMS)
+    assert _blocks(512, 512, bm, bn) >= 32
+    # and the largest tile where it fills the card
+    assert dk.plan(4096, 4096, 4096, variant, H100_SMS)[1:] == \
+        dk.TILES[route][0]
+
+
+@settings(max_examples=200, deadline=None)
+@given(m=_dim["mn"], n=_dim["mn"], k=_dim["k"],
+       sms=st.integers(1, 2000))
+def test_plan_keeps_fma_off_the_tensor_cores_and_dpa4_on_mma_property(
+        m, n, k, sms):
+    assert dk.plan(m, n, k, "fma_f32", sms)[0] == "ffma"
+    assert dk.plan(m, n, k, "dpa4", sms) == ("mma", 128, 128)
+
+
+def test_plan_refuses_an_unknown_variant():
+    with pytest.raises(ValueError):
+        dk.plan(64, 64, 64, "fp8", H100_SMS)
+
+
+def test_route_counts_cover_every_route_of_every_variant():
+    assert set(dk.route_launches) == {
+        f"{v}/{r}" for v, rs in dk.ROUTES.items() for r in rs}
+    assert set(dk.ROUTES) == set(dk.VARIANTS)
+    assert all(r in dk.TILES and r in dk.ROUTE_CODES
+               for rs in dk.ROUTES.values() for r in rs)
+
+
+@pytest.mark.parametrize("case", ["cpu", "inner", "rank", "device",
+                                  "route", "tile", "variant"])
+def test_launch_checks_its_operands_and_plan(case):
+    """``launch`` runs only [M,K] @ [K,N] CUDA tensors of one device, on a
+    route and tile the variant has; anything else raises ValueError before
+    the library is loaded (no kernel reads past B or takes a host
+    pointer)."""
+    a, b = torch.zeros(64, 64), torch.zeros(64, 64)
+    variant, route, tile = "dpa2", "wgmma", (64, 64)
+    if case == "inner":
+        b = torch.zeros(32, 64)
+    elif case == "rank":
+        a = torch.zeros(1, 64, 64)
+    elif case == "device":
+        b = b.to("meta")
+    elif case == "route":
+        variant = "fma_f32"
+    elif case == "tile":
+        tile = (128, 128)
+    elif case == "variant":
+        variant = "fp8"
+    with pytest.raises(ValueError):
+        dk.launch(a, b, variant, route, *tile)
