@@ -8,8 +8,13 @@ Phases, each of which must pass (any failure exits non-zero):
               attention, STREAM, dpa_matmul: one nvcc per source, all in
               parallel).
 2. kernels  — hold each kernel against its plain PyTorch version on the card:
-              flash attention (D 16/128, Hkv = H and 1, ragged S and T,
-              causal with and without q_offset, a window, bf16 and f32); the
+              flash attention (D 16/64/128, Hkv = H, 8 and 1, ragged S and
+              T, S = 1, T below 64, causal with and without q_offset, a
+              window with and without a prefix, 64-row tiles crossing a
+              head boundary, bf16 and f32) on the route and tile its plan
+              picks (counted by route) and on every route and tile that
+              takes the inputs, and bf16 views that start off a 16-byte
+              boundary (planned onto ffma); the
               six STREAM kernels in f32 and bf16 at the reference tests'
               shapes and every shape the benches give them (read at
               block_rows 8, 16 and 256); dpa_matmul in its three variants
@@ -26,18 +31,26 @@ Phases, each of which must pass (any failure exits non-zero):
               counts are zeroed just before and read just after; every
               STREAM and dpa_matmul kernel must have run.
 4. small    — the smoke model in f32 on the card agrees with the same
-              weights on the host (plain versions), logits and tokens.
+              weights on the host (plain versions), logits and tokens. Its
+              prefill attention is the f32 path of the flash kernel: the
+              ffma route's launches are zeroed before and read after.
 5. serve    — granite-20b at its published width (bf16 weights made on the
               card from a seed) through ContinuousEngine: 8 requests, batch
               4, max_seq 512, 32 new tokens each, four sharing a 128-token
-              prefix. The flash launch count is zeroed just before and read
-              just after; it must have run.
+              prefix. The flash launch counts are zeroed just before and
+              read just after: every prefill layer on the wgmma route,
+              none on ffma.
 6. profile  — where the time goes in one full-width decode step and one
               256-token prefill: host time, device-busy time, kernel count.
 7. timing   — each kernel held against its plain version and timed beside
               it, a PyTorch library call computing the same function, and
               its bound on the card: flash at the serve phase's prefill
-              shapes, STREAM at 128 MiB f32, dpa_matmul at 512^3 and 4096^3
+              shapes on both routes (CUDA events over back-to-back calls,
+              and the device time of one call under the profiler for each
+              route and tile and for sdpa with a mask and, at q_offset 0,
+              with is_causal) and the ffma route at the f32 smoke model's
+              prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
+              and 4096^3
               (with each kernel's device time under the profiler beside
               the library call's, and at 512^3 that of every tile of the
               wgmma and FFMA routes).
@@ -53,6 +66,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -112,6 +126,16 @@ def phase_build():
         build.load(name)
     log(f"[build] {len(sources)} kernel source(s) {sources} built in "
         f"{time.perf_counter() - t0:.1f} s: {[p.name for p in paths]}")
+    from repro_torch.kernels.flash_attention import ops as fops
+    import torch
+    for route, tiles in fops.TILES.items():
+        for bm in tiles:
+            for dt in ((torch.bfloat16,) if route == "wgmma" else
+                       (torch.bfloat16, torch.float32)):
+                for d in (64, 128):
+                    log(f"[build] flash {route} tile {bm} D{d} "
+                        f"{str(dt)[6:]}: "
+                        f"{fops.kernel_attributes(route, bm, d, dt)}")
     from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
     for variant, routes in dk.ROUTES.items():
         for route in routes:
@@ -137,33 +161,98 @@ FLASH_CASES = [
     (1, 48, 1, 64, 512, 128, True, None, 0),
     (1, 48, 1, 256, 512, 128, True, None, 0),
     (1, 48, 1, 128, 512, 128, True, None, 128),
+    # the wgmma route's edges: 64-row tiles across a head boundary (S 200
+    # cold; S 100, S 130), S = 1, T below and not a multiple of the 64-key
+    # tile, a window after a prefix, Hkv 8 (g = 6), D 64
+    (1, 48, 1, 200, 200, 128, True, None, 0),
+    (1, 48, 1, 1, 300, 128, True, None, 299),
+    (1, 8, 2, 20, 40, 64, True, None, 20),
+    (1, 48, 1, 100, 130, 128, True, None, 30),
+    (1, 48, 1, 96, 512, 128, True, 80, 200),
+    (1, 48, 8, 130, 300, 128, True, None, 100),
+    (2, 48, 8, 77, 77, 64, True, None, 0),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
+def flash_routes(dt, d):
+    """Every (route, tile) of the flash kernel that takes these inputs."""
+    from repro_torch.kernels.flash_attention import ops
+    return [(r, bm) for r, tiles in ops.TILES.items() for bm in tiles
+            if r == "ffma" or (dt == "bfloat16" and d in ops.WGMMA_HEAD_DIMS)]
+
+
 def phase_kernels():
+    """Each FLASH_CASES entry in f32 and bf16: the planned call (its route
+    read from the launch counts) and every route and tile that takes the
+    inputs, against ``ref.attention``. Returns the largest error of each
+    route."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {}
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
+        tol = FLASH_TOL[dname]
         for (b, h, hkv, s, t, d, causal, win, off) in FLASH_CASES:
             q = torch.randn(b, h, s, d, device="cuda", generator=g).to(dt)
             k = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dt)
             v = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dt)
+            want = ref.attention(q, k, v, causal=causal, window=win,
+                                 q_offset=off).float()
+            planned = ops.plan(b, h, hkv, s, t, d, dt, sms)
+            before = dict(ops.route_launches)
             got = ops.flash_attention(q, k, v, causal=causal, window=win,
                                       q_offset=off)
-            want = ref.attention(q, k, v, causal=causal, window=win,
-                                 q_offset=off)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = FLASH_TOL[dname]
+            taken = {r: c - before[r] for r, c in ops.route_launches.items()
+                     if c != before[r]}
+            if taken != {planned[0]: 1}:
+                raise AssertionError(f"flash planned {planned}, took "
+                                     f"{taken}")
+            by_tile = {}
+            for route, bm in flash_routes(dname, d):
+                out = got if (route, bm) == planned else ops.launch(
+                    q, k, v, causal=causal, window=win, q_offset=off,
+                    route=route, block_m=bm)
+                torch.cuda.synchronize()
+                by_tile[(route, bm)] = err = (
+                    out.float() - want).abs().max().item()
+                errs[route] = max(errs.get(route, 0.0), err)
+                if not (err <= tol and out.dtype == dt):
+                    raise AssertionError(
+                        f"flash {route} tile {bm} disagrees at B{b} H{h} "
+                        f"Hkv{hkv} S{s} T{t} D{d} {dname}: {err} > {tol}")
             log(f"[kernels] flash {dname} B{b} H{h} Hkv{hkv} S{s} T{t} D{d} "
-                f"causal={causal} window={win} q_offset={off}: "
-                f"max|err| {err:.3e} (tol {tol:g})")
-            if not err <= tol:
-                raise AssertionError(f"flash kernel disagrees: {err} > {tol}")
+                f"causal={causal} window={win} q_offset={off} (plan "
+                f"{planned[0]} tile {planned[1]}): max|err| by route and "
+                f"tile " + ", ".join(f"{r}/{bm} {e:.3e}" for (r, bm), e in
+                                     by_tile.items()) + f" (tol {tol:g})")
+    # bf16 at the serve's largest prefill, one of q, k, v a contiguous view
+    # that starts one element past a 16-byte boundary: TMA cannot read it,
+    # so the plan sends it to ffma
+    tol = FLASH_TOL["bfloat16"]
+    for which in range(3):
+        x = []
+        for i, shape in enumerate(((1, 48, 256, 128), (1, 1, 512, 128),
+                                   (1, 1, 512, 128))):
+            shift = int(i == which)
+            x.append(torch.randn(shift + math.prod(shape), device="cuda",
+                                 generator=g).to(torch.bfloat16)[shift:]
+                     .view(shape))
+        before = dict(ops.route_launches)
+        got = ops.flash_attention(*x)
+        taken = {r: c - before[r] for r, c in ops.route_launches.items()
+                 if c != before[r]}
+        err = (got.float() - ref.attention(*x).float()).abs().max().item()
+        errs["ffma"] = max(errs["ffma"], err)
+        log(f"[kernels] flash bf16 with {'qkv'[which]} off a 16-byte "
+            f"boundary: took {taken}, max|err| {err:.3e} (tol {tol:g})")
+        if taken != {"ffma": 1} or not err <= tol:
+            raise AssertionError("an unaligned bf16 view was not planned "
+                                 "onto ffma, or disagrees")
+    return errs
 
 
 # the reference tests' shapes, the bandwidth bench's 64 KB, 1 MB, 16 MB
@@ -447,6 +536,7 @@ def phase_small():
     import numpy as np
     import torch
     from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = configs.get_smoke("granite-20b").replace(dtype="float32")
@@ -455,6 +545,8 @@ def phase_small():
     gpu = _to_cuda(cpu)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 37))
     out = {}
+    for route in flash_ops.route_launches:
+        flash_ops.route_launches[route] = 0        # the f32 path starts here
     for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
         caches = model.init_cache(1, 64, torch.float32, device=dev)
         t = torch.as_tensor(toks, device=dev)
@@ -467,10 +559,18 @@ def phase_small():
     same_tok = all(torch.equal(a.argmax(-1), b.argmax(-1))
                    for a, b in zip(out["cpu"], out["cuda"]))
     finite = all(torch.isfinite(x).all().item() for x in out["cuda"])
+    routes = dict(flash_ops.route_launches)        # ... and ends here
     log(f"[small] smoke f32 card vs host: max|logit err| {err:.3e} "
-        f"(tol 1e-4), same argmax {same_tok}, finite {finite}")
+        f"(tol 1e-4), same argmax {same_tok}, finite {finite}; flash "
+        f"launches by route {routes}")
     if not (err <= 1e-4 and same_tok and finite):
         raise AssertionError("card and host disagree on the smoke model")
+    # two prefills of each layer, all f32: the ffma route only
+    if routes != {"ffma": 2 * cfg.num_layers, "wgmma": 0}:
+        raise AssertionError(f"the f32 path took flash routes {routes}")
+    # the first prefill's flash shape: q [1,H,29,D], kv [1,Hkv,64,D]
+    return routes["ffma"], (cfg.num_heads, cfg.num_kv_heads, 29, 64,
+                            cfg.head_dim)
 
 
 def serve_requests(vocab):
@@ -530,6 +630,8 @@ def phase_serve(card):
     reqs = serve_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     flash_ops.launches = 0                       # the main path starts here
+    for route in flash_ops.route_launches:
+        flash_ops.route_launches[route] = 0
     t0 = time.perf_counter()
     # count the host syncs: the designed ones are one per prefill (the
     # first token) and one per decode step (the [B, 1] token fetch)
@@ -543,10 +645,13 @@ def phase_serve(card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_ops.launches}   # ... and ends here
+    routes = dict(flash_ops.route_launches)
+    launches["flash_attention/wgmma"] = routes["wgmma"]
     n_syncs = sum("synchronizing CUDA operation" in str(w.message)
                   for w in caught)
     n_tok = stats["tokens_decoded"]
     energy = stats["energy_j"]
+    log(f"[serve] flash launches by route: {routes}")
     log(f"[serve] {stats['completed']} completed, {stats['shed']} shed, "
         f"{stats['prefills']} prefills, {stats['decode_steps']} decode steps, "
         f"prefill_compiles {stats['prefill_compiles']}, decode_compiles "
@@ -583,6 +688,9 @@ def phase_serve(card):
         "flash launches == layers x prefills": (
             launches["flash_attention"]
             == cfg.num_layers * stats["prefills"] > 0),
+        "flash wgmma launches == layers x prefills, ffma 0": (
+            routes == {"wgmma": cfg.num_layers * stats["prefills"],
+                       "ffma": 0}),
         "every request has energy > 0": all(r.energy_j > 0 for r in reqs),
         "joule partition (1e-6 J)": abs(parts - slot_j) <= 1e-6,
         "tokens in vocab": all(0 <= t < cfg.vocab_size
@@ -630,26 +738,38 @@ def _profiled(fn, n=3):
     return host_ms, sum(by_name.values()), count / n, by_name
 
 
-def _device_ms(fn, n=10):
-    """Device time of one call of ``fn`` under ``torch.profiler``: the
-    median duration of each CUDA kernel it launches, summed over its
-    kernels. (The profiler has been seen to drop one call's events, so no
-    total over the calls is divided by their count.)"""
+def _device_ms(fn, n=10, sessions=3):
+    """Device time of one call of ``fn`` under ``torch.profiler``: in each
+    of ``sessions`` profiled runs of ``n`` calls, the median duration of
+    each CUDA kernel it launches, summed over its kernels; then the median
+    over the sessions that recorded any kernel. (The profiler has been seen
+    to drop one call's events, once a whole session's, and once to read a
+    session wrong: so no total over the calls is divided by their count,
+    and no single session is trusted.)"""
     import statistics
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    return sum(statistics.median(v) for v in by_name.values()) / 1e3
+    readings = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name:
+            readings.append(sum(statistics.median(v)
+                                for v in by_name.values()) / 1e3)
+    if not readings:
+        raise AssertionError("the profiler recorded no kernel in "
+                             f"{sessions} sessions")
+    return statistics.median(readings)
 
 
 def phase_profile(eng):
@@ -711,55 +831,143 @@ def flash_work(s, t, d, h, hkv, q_offset, itemsize):
 
 
 def phase_timing(cfg, shapes):
+    """Flash at each of the serve phase's prefill shapes, bf16: the planned
+    call (wgmma) and the ffma route beside the plain version and sdpa with
+    the causal mask as a tensor (the same function at any q_offset), by
+    CUDA events over back-to-back calls; and the device time of one call
+    under the profiler of each route and tile, of sdpa with the mask and,
+    at q_offset 0, of sdpa with is_causal (the call PyTorch's own flash
+    backend takes). Held at the stated tolerances on the same inputs.
+    Returns {route: [row per shape]}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     h, hkv, d, t = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                     SERVE["max_seq"])
-    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {"wgmma": [], "ffma": []}
     for s, off in shapes:
         g = torch.Generator(device="cuda")
         g.manual_seed(s + off)
-        q = torch.randn(1, h, s, d, device="cuda", generator=g,
-                        dtype=torch.bfloat16)
-        k = torch.randn(1, hkv, t, d, device="cuda", generator=g,
-                        dtype=torch.bfloat16)
-        v = torch.randn(1, hkv, t, d, device="cuda", generator=g,
-                        dtype=torch.bfloat16)
+        q, k, v = (torch.randn(1, n, m, d, device="cuda", generator=g,
+                               dtype=torch.bfloat16)
+                   for n, m in ((h, s), (hkv, t), (hkv, t)))
         mask = (torch.arange(t, device="cuda")[None, :]
                 <= torch.arange(s, device="cuda")[:, None] + off)
-        ms = cuda_timed(lambda: ops.flash_attention(q, k, v, q_offset=off))
+        planned = ops.plan(1, h, hkv, s, t, d, torch.bfloat16, sms)
+        if planned[0] != "wgmma":
+            raise AssertionError(f"the serve's bf16 prefill planned "
+                                 f"{planned}")
+        calls = {
+            "wgmma": lambda: ops.flash_attention(q, k, v, q_offset=off),
+            "ffma": lambda: ops.launch(q, k, v, causal=True, window=None,
+                                       q_offset=off, route="ffma",
+                                       block_m=64),
+        }
+        before = dict(ops.route_launches)
+        events = {r: cuda_timed(fn) for r, fn in calls.items()}
+        taken = {r: c - before[r] for r, c in ops.route_launches.items()}
+        if taken != {"wgmma": 23, "ffma": 23}:
+            raise AssertionError(f"timed calls took routes {taken}")
+        device = {f"wgmma/{bm}": _device_ms(lambda: ops.launch(
+            q, k, v, causal=True, window=None, q_offset=off, route="wgmma",
+            block_m=bm)) for bm in ops.TILES["wgmma"]}
+        device["ffma/64"] = _device_ms(calls["ffma"])
         plain_ms = cuda_timed(lambda: ref.attention(q, k, v, q_offset=off),
                               iters=5)
-        lib_ms = cuda_timed(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True))
-        # held at the stated tolerance on these very inputs, in bf16 and f32
+        sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+        lib = {"mask": (cuda_timed(sdpa), _device_ms(sdpa))}
+        if off == 0:
+            causal = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+            lib["is_causal"] = (cuda_timed(causal), _device_ms(causal))
+        # held at the stated tolerances on these very inputs: bf16 on both
+        # routes, f32 (the ffma route's own dtype) on the planned call
         errs = {}
-        for dname in ("bfloat16", "float32"):
-            qq, kk, vv = (x.to(getattr(torch, dname)) for x in (q, k, v))
-            errs[dname] = (ops.flash_attention(qq, kk, vv, q_offset=off)
-                           .float() - ref.attention(qq, kk, vv, q_offset=off)
-                           .float()).abs().max().item()
-            if not errs[dname] <= FLASH_TOL[dname]:
-                raise AssertionError(
-                    f"flash kernel disagrees at S {s} q_offset {off} in "
-                    f"{dname}: {errs[dname]} > {FLASH_TOL[dname]}")
-        err = errs["bfloat16"]
+        for route in calls:
+            errs[route] = (calls[route]().float() - ref.attention(
+                q, k, v, q_offset=off).float()).abs().max().item()
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        errs["float32"] = (ops.flash_attention(qf, kf, vf, q_offset=off)
+                           - ref.attention(qf, kf, vf, q_offset=off)
+                           ).abs().max().item()
+        for name, err in errs.items():
+            tol = FLASH_TOL["float32" if name == "float32" else "bfloat16"]
+            if not err <= tol:
+                raise AssertionError(f"flash {name} disagrees at S {s} "
+                                     f"q_offset {off}: {err} > {tol}")
         n_bytes, n_ops = flash_work(s, t, d, h, hkv, off, 2)
         t_bytes = n_bytes / PEAK_BYTES * 1e3
         t_ops = n_ops / PEAK_OPS["bfloat16"] * 1e3
-        row = dict(s=s, q_offset=off, t=t, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes > t_ops else "operations",
-                   max_abs_err=float(err))
-        rows.append(row)
+        for route, bm in (planned, ("ffma", 64)):
+            rows[route].append(dict(
+                s=s, q_offset=off, t=t, ms=events[route],
+                device_ms=device[f"{route}/{bm}"], plain_ms=plain_ms,
+                library_ms=lib["mask"][0],
+                library_device_ms=lib["mask"][1],
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes > t_ops else "operations",
+                max_abs_err=max(errs[route], errs["float32"])
+                if route == "ffma" else errs[route]))
         log(f"[timing] flash bf16 q[1,{h},{s},{d}] kv[1,{hkv},{t},{d}] "
-            f"q_offset {off}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']}), max|err| bf16 {err:.3e} (tol "
+            f"q_offset {off} (plan {planned[0]} tile {planned[1]}): events "
+            f"wgmma {events['wgmma']:.4f} ms, ffma {events['ffma']:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, " + ", ".join(
+                f"sdpa {n} {e:.4f} ms" for n, (e, _) in lib.items())
+            + "; device time a call: " + ", ".join(
+                f"{n} {v:.4f} ms" for n, v in device.items()) + ", "
+            + ", ".join(f"sdpa {n} {dv:.4f} ms" for n, (_, dv) in
+                        lib.items())
+            + f"; bound {max(t_bytes, t_ops):.5f} ms "
+            f"({'bytes' if t_bytes > t_ops else 'operations'}); max|err| "
+            f"bf16 wgmma {errs['wgmma']:.3e}, ffma {errs['ffma']:.3e} (tol "
             f"{FLASH_TOL['bfloat16']:g}), f32 {errs['float32']:.3e} (tol "
             f"{FLASH_TOL['float32']:g})")
     return rows
+
+
+def timing_flash_f32(shape):
+    """The ffma route on its own path: f32 at the smoke model's first
+    prefill shape (q [1,H,S,D], kv [1,Hkv,T,D], q_offset 0), planned and
+    counted, by CUDA events and device time beside the plain version and
+    sdpa with the mask; held at the f32 tolerance."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    h, hkv, s, t, d = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(s)
+    q, k, v = (torch.randn(1, n, m, d, device="cuda", generator=g)
+               for n, m in ((h, s), (hkv, t), (hkv, t)))
+    mask = (torch.arange(t, device="cuda")[None, :]
+            <= torch.arange(s, device="cuda")[:, None])
+    call = lambda: ops.flash_attention(q, k, v)             # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(          # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    before = dict(ops.route_launches)
+    ms = cuda_timed(call)
+    taken = {r: c - before[r] for r, c in ops.route_launches.items()
+             if c != before[r]}
+    if taken != {"ffma": 23}:
+        raise AssertionError(f"the f32 calls took routes {taken}")
+    err = (call() - ref.attention(q, k, v)).abs().max().item()
+    if not err <= FLASH_TOL["float32"]:
+        raise AssertionError(f"flash ffma f32 disagrees: {err}")
+    n_bytes, n_ops = flash_work(s, t, d, h, hkv, 0, 4)
+    row = dict(_row(ms, cuda_timed(lambda: ref.attention(q, k, v), iters=5),
+                    cuda_timed(sdpa), n_bytes, n_ops, PEAK_OPS["float32"],
+                    err),
+               device_ms=_device_ms(call), library_device_ms=_device_ms(sdpa),
+               timed_at=f"f32 q[1,{h},{s},{d}] kv[1,{hkv},{t},{d}] "
+                        f"q_offset 0 (the f32 smoke model's prefill)")
+    log(f"[timing] flash ffma {row['timed_at']}: events {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, sdpa mask {row['library_ms']:.4f} "
+        f"ms; device {row['device_ms']:.4f} ms, sdpa mask "
+        f"{row['library_device_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}); max|err| {err:.3e} (tol "
+        f"{FLASH_TOL['float32']:g})")
+    return row
 
 
 def _row(ms, plain_ms, lib_ms, n_bytes, n_ops, peak_ops, err):
@@ -922,34 +1130,48 @@ def main() -> int:
         f"(power draw, SM clock, max SM clock): {idle}")
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    phase_kernels()
+    flash_errs = phase_kernels()
     errs = phase_kernels_measurement()
     bench_launches = phase_bench()
-    phase_small()
+    f32_launches, f32_shape = phase_small()
     cfg, eng, launches, shapes = phase_serve(card)
     launches.update(bench_launches)
     phase_profile(eng)
     del eng                                    # frees the 56 GB of weights
-    rows = phase_timing(cfg, shapes)
+    flash_rows = phase_timing(cfg, shapes)
+    ffma_row = timing_flash_f32(f32_shape)
     stream_rows = timing_stream(errs)
     dpa_rows = timing_dpa(errs)
     phase_cli()
-    # the kernels line times the serve's largest prefill shape; its error
-    # is the largest over all the serve's shapes
-    top = max(rows, key=lambda r: (r["s"], r["q_offset"]))
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:22",
-        "launches": launches["flash_attention"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": top["ms"],
-        "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"],
-        "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"],
-    }]
+    # flash on each route at its own path's shape: wgmma at the serve's
+    # largest prefill (bf16), launches from the serve phase; ffma at the
+    # f32 smoke model's prefill, launches from that model (its bf16 times
+    # at the serve shapes are in the log); ms, plain and library by CUDA
+    # events, the device times beside them; each error the largest over
+    # the kernels phase and the timing shapes
+    top = max(flash_rows["wgmma"], key=lambda r: (r["s"], r["q_offset"]))
+    top["timed_at"] = (
+        f"bf16 q[1,{cfg.num_heads},{top['s']},{cfg.head_dim}] "
+        f"kv[1,{cfg.num_kv_heads},{top['t']},{cfg.head_dim}] q_offset "
+        f"{top['q_offset']} (the serve's largest prefill)")
+    timed = {"wgmma": (launches["flash_attention/wgmma"], top),
+             "ffma": (f32_launches, ffma_row)}
+    kernels = []
+    for route, (n, top) in timed.items():
+        kernels.append({
+            "name": f"flash_attention/{route}",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:22",
+            "launches": n,
+            "max_abs_err": max([flash_errs[route], top["max_abs_err"]]
+                               + [r["max_abs_err"]
+                                  for r in flash_rows[route]]),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "device_ms",
+                                   "library_device_ms", "timed_at")},
+        })
     # STREAM at 128 MiB f32, dpa_matmul at 4096^3; each error is the
     # largest over every case the kernel was held at
     for name, line in STREAM_REPLACES.items():

@@ -64,19 +64,16 @@
 // overlapping the next tile's loads), clusters with TMA multicast of the
 // shared A or B tile, and dpa4 on wgmma s8, which takes B only K-major and
 // so needs the transpose that bf16 does not.
-#include <cuda.h>              // CUtensorMap and its enums; no libcuda call
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "sm90.cuh"            // smem addresses, mbarriers, TMA, wgmma fences
 
 namespace {
 
+using namespace sm90;
+
 constexpr int BM = 128, BN = 128;          // mma_kernel's tile
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes of a row starting at element `col`, zeros beyond `ncols` or when
 // the row is outside the matrix
@@ -411,77 +408,6 @@ __host__ __device__ constexpr int wgmma_smem() {
     return W_STAGES * wgmma_stage<NWG, TBN>() + 16 * W_STAGES + 1024;
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("{\n.reg .b64 state;\n"
-                 "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-                 :: "r"(bar) : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile("{\n.reg .pred p;\n"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     "selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    } while (!done);
-}
-
-// the box of `map` at (c0 inner, c1 outer) into shared `dst`; completes
-// its bytes on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-           "r"(bar)
-        : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units. K-major A: the stride is
-// 1024 bytes between groups of 8 rows (the leading offset is unused).
-// MN-major B: the leading offset steps between 64-column boxes, the stride
-// between groups of 8 k rows.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
-           | ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator registers across the
-// asynchronous wgmma
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 // wgmma m64nNk16, f32 += bf16 x bf16, A and B from shared memory; A
 // K-major (trans-a 0), B MN-major (trans-b 1). d holds N/2 f32 a thread.
 __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
@@ -579,7 +505,7 @@ dpa2_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
             mbar_init(full + 8 * s, 1);
             mbar_init(empty + 8 * s, NWG * 128);
         }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        mbar_fence_init();
     }
     __syncthreads();
 
@@ -642,49 +568,12 @@ dpa2_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
-// the driver's cuTensorMapEncodeTiled, through the runtime's entry-point
-// lookup (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        const cudaError_t e = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-        const cudaError_t e = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-        return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-    }();
-    return fn;
-}
-
 // a row-major bf16 [rows, cols] matrix in boxes of box_rows x 64 columns
 // (128 bytes), 128-byte swizzle, zeros past the matrix
 bool encode(CUtensorMap* map, const void* base, int rows, int cols,
             int box_rows) {
-    const EncodeTiled fn = encode_tiled();
-    if (fn == nullptr) return false;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-    const cuuint32_t step[2] = {1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-              const_cast<void*>(base), dims, strides, box, step,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    return encode_bf16(map, base, 2, dims, box_rows);
 }
 
 // routes: 0 = FFMA tiles, 1 = mma.sync, 2 = wgmma fed by TMA

@@ -3,8 +3,9 @@ it with ``ctypes``.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` at its first use, into
 ``build/`` at the repository root, under a name keyed by a hash of the
-source and the flags: an edited source builds anew, an unchanged one loads
-the library already built. The library exposes a plain C interface, so no
+source, of the headers it includes by a quoted name (``csrc/sm90.cuh``) and
+of the flags: an edited source or header builds anew, an unchanged one
+loads the library already built. The library exposes a plain C interface, so no
 PyTorch header is compiled.
 """
 from __future__ import annotations
@@ -13,10 +14,11 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -41,9 +43,31 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(path: pathlib.Path) -> List[pathlib.Path]:
+    """``path`` and every header it includes by a quoted name that lies
+    beside the including file, recursively, each once, in the order
+    first reached."""
+    found: List[pathlib.Path] = []
+    todo = [path]
+    while todo:
+        p = todo.pop(0)
+        if p in found:
+            continue
+        found.append(p)
+        names = _INCLUDE.findall(p.read_bytes())
+        todo += [p.parent / n.decode() for n in names
+                 if (p.parent / n.decode()).is_file()]
+    return found
+
+
 def library_path(name: str, src_dir: pathlib.Path = CSRC) -> pathlib.Path:
-    src = (src_dir / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of ``<src_dir>/<name>.cu``, named by a hash of the
+    source, its headers (``sources``) and the flags."""
+    text = b"".join(p.read_bytes() for p in sources(src_dir / f"{name}.cu"))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

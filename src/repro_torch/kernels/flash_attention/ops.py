@@ -1,14 +1,23 @@
-"""Wrapper for the Hopper flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper for the Hopper flash attention kernels
+(``csrc/flash_attention.cu``).
 
-``flash_attention`` checks its inputs, allocates the output, launches the
-kernel on the current CUDA stream and counts the launch in ``launches``.
-A CPU tensor goes to the plain version (``ref.attention``); a CUDA tensor
-goes to the kernel or raises.
+``flash_attention`` checks its inputs, picks the kernel's route and tile
+with ``plan`` from the shape, dtype and the inputs' alignment and hands
+them to ``launch``, which
+allocates the output, launches the kernel on the current CUDA stream and
+counts the launch in ``launches`` and ``route_launches[route]``. A CPU
+tensor goes to the plain version (``ref.attention``); a CUDA tensor goes to
+the planned kernel or raises.
+
+Routes: ``wgmma`` (bf16 with D 64 or 128 on 16-byte-aligned tensors:
+tensor cores, GQA-packed query tiles fed by a TMA ring) and ``ffma`` (f32,
+and other bf16: f32 FMA on the CUDA cores, true f32 for f32 inputs).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,19 +26,65 @@ from repro_torch.kernels.flash_attention import ref
 
 #: kernel launches since the last reset (plain integer; callers zero it)
 launches = 0
+#: the same launches by route (callers zero them)
+route_launches: Dict[str, int] = {"ffma": 0, "wgmma": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's routes and their codes
+ROUTE_CODES = {"ffma": 0, "wgmma": 1}
+#: query rows a block takes on each route (packed rows on wgmma)
+TILES = {"ffma": (64,), "wgmma": (64,)}
+#: the head dims the wgmma route takes (bf16 only): a row of 64 or 128
+#: elements is one or two 128-byte TMA boxes
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def plan(b: int, h: int, hkv: int, s: int, t: int, d: int,
+         dtype: torch.dtype, sm_count: int,
+         aligned: bool = True) -> Tuple[str, int]:
+    """(route, block_m) of the kernel for q [b,h,s,d], k/v [b,hkv,t,d].
+
+    bf16 with d in ``WGMMA_HEAD_DIMS`` and q, k, v 16-byte aligned
+    (``aligned``: TMA reads from such addresses only) -> wgmma; f32, bf16
+    with d 16 or 32, and unaligned bf16 -> ffma. Each route has one tile
+    (``TILES``): a 128-row wgmma tile was slower than or level with the
+    64-row one at every serve shape (PERF.md), so the shape and
+    ``sm_count`` do not change the choice."""
+    route = ("wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
+             and aligned else "ffma")
+    return route, TILES[route][0]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _kernel():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_attributes(route: str, block_m: int, d: int,
+                      dtype: torch.dtype) -> Dict[str, int]:
+    """What the compiler gave the kernel of (route, block_m, d, dtype):
+    registers and local (spill) bytes a thread, static shared bytes, the
+    dynamic shared bytes a launch asks, threads a block."""
+    fn = build.load("flash_attention").flash_attention_attributes
+    out = (ctypes.c_int * 5)()
+    rc = fn(ctypes.c_int(ROUTE_CODES[route]), ctypes.c_int(block_m),
+            ctypes.c_int(d), ctypes.c_int(_DTYPES[dtype]), out)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_attributes failed: "
+                           f"cudaError {rc}")
+    return dict(zip(("regs", "local_bytes", "static_smem", "dynamic_smem",
+                     "threads"), out))
 
 
 def _check(q, k, v, q_offset, window):
@@ -61,13 +116,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Causal and sliding-window masks use query position ``q_offset + i`` and
     key position j; query head h reads kv head ``h // (H // Hkv)``. The
-    kernel keeps the running max, denominator and accumulator in f32 and
-    writes q's dtype."""
-    global launches
+    kernels keep the running max, denominator and accumulator in f32 and
+    write q's dtype (the wgmma route rounds the softmax weights to bf16
+    before multiplying them with v)."""
     _check(q, k, v, q_offset, window)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    b, h, s, d = q.shape
+    index = q.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v))
+    route, block_m = plan(b, h, k.shape[1], s, k.shape[2], d, q.dtype,
+                          _sm_count(index), aligned)
+    return _launch(q, k, v, causal, window, q_offset, route, block_m)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: Optional[int], q_offset: int, route: str,
+           block_m: int) -> torch.Tensor:
+    """The kernel of ``route`` with ``block_m``-row tiles on CUDA tensors;
+    counts the launch. ``flash_attention`` calls it with ``plan``'s
+    choice; the card's tests call it with every route and tile. Raises
+    ValueError for an unknown route or tile, a tensor off the card or not
+    contiguous, and RuntimeError where the kernel refuses the plan (the
+    wgmma route on f32, on D 16 or 32, on unaligned tensors) or the launch
+    fails."""
+    _check(q, k, v, q_offset, window)
+    if route not in TILES or block_m not in TILES[route]:
+        raise ValueError(f"flash_attention has no kernel on route {route} "
+                         f"with {block_m}-row tiles")
+    return _launch(q, k, v, causal, window, q_offset, route, block_m)
+
+
+def _launch(q, k, v, causal, window, q_offset, route, block_m):
+    """``launch`` on inputs that ``_check`` has passed."""
+    global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -78,10 +165,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), b, h, k.shape[1], s, k.shape[2], d,
                        int(q_offset), int(causal), int(window or 0),
-                       _DTYPES[q.dtype],
+                       _DTYPES[q.dtype], ROUTE_CODES[route], block_m,
                        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention kernel launch failed ({route}, "
+                           f"{block_m}-row tiles, {q.dtype}, D {d}): "
                            f"cudaError {rc}")
     launches += 1
+    route_launches[route] += 1
     return out

@@ -8,10 +8,11 @@ the card's machine run them with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: flash 1e-5 in f32 (the kernel does true f32 FMA, no TF32),
-2e-2 in bf16 (one bf16 rounding of the output on each side). STREAM copy,
-scale, add, triad and write: equal to the plain version (the kernel rounds
-after each operation, as eager PyTorch does; f32 triad is not contracted
-into an FMA). STREAM read: ``ref.read_limit`` per row block, 1e-5 of
+2e-2 in bf16 (one bf16 rounding of the output on each side; the wgmma
+route also rounds the softmax weights to bf16, at most 2^-9 relative).
+STREAM copy, scale, add, triad and write: equal to the plain version (the
+kernel rounds after each operation, as eager PyTorch does; f32 triad is
+not contracted into an FMA). STREAM read: ``ref.read_limit`` per row block, 1e-5 of
 sum(|a|) plus in bf16 one bf16 ulp of the sum (another summation order).
 dpa_matmul: dpa4 exact; fma_f32 and dpa2
 rtol 1e-5*sqrt(k) + 1e-6, atol 4e-5 (f32 sums in another order) at the
@@ -81,6 +82,122 @@ def test_flash_kernel_refuses_non_contiguous_input():
     k = torch.zeros(1, 4, 8, 16, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q, k, k)
+
+
+# the edges of the wgmma route: 64-row tiles crossing a head boundary (S
+# 200, S 100, S 130), S 64 with Hkv 1, S = 1, T below and not a multiple
+# of the 64-key tile, a window after a prefix, Hkv 8 of 48 (g = 6), D 64,
+# no causal mask
+ROUTE_CASES = CASES + [
+    (1, 48, 1, 64, 512, 128, True, None, 0),
+    (1, 48, 1, 256, 512, 128, True, None, 0),
+    (1, 48, 1, 1, 300, 128, True, None, 299),
+    (1, 8, 2, 20, 40, 64, True, None, 20),
+    (1, 48, 1, 100, 130, 128, True, None, 30),
+    (1, 48, 1, 96, 512, 128, True, 80, 200),
+    (1, 48, 8, 130, 300, 128, True, None, 100),
+    (2, 48, 8, 77, 77, 64, True, None, 0),
+    (1, 48, 1, 33, 77, 128, False, None, 0),
+]
+
+
+def _routes(dtype, d):
+    """Every (route, tile) that takes these inputs."""
+    out = [("ffma", bm) for bm in ops.TILES["ffma"]]
+    if dtype == torch.bfloat16 and d in ops.WGMMA_HEAD_DIMS:
+        out += [("wgmma", bm) for bm in ops.TILES["wgmma"]]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_every_route_and_tile_matches_plain_version(dtype):
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    for (b, h, hkv, s, t, d, causal, window, off) in ROUTE_CASES:
+        q = torch.randn(b, h, s, d, device="cuda", generator=g).to(dtype)
+        k = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dtype)
+        v = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dtype)
+        want = ref.attention(q, k, v, causal=causal, window=window,
+                             q_offset=off)
+        for route, bm in _routes(dtype, d):
+            before = dict(ops.route_launches)
+            got = ops.launch(q, k, v, causal=causal, window=window,
+                             q_offset=off, route=route, block_m=bm)
+            assert ops.route_launches[route] == before[route] + 1
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == q.shape
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[dtype], (route, bm, b, h, hkv, s, t, d, causal,
+                                       window, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16, 16),
+    (torch.float32, 128)])
+def test_flash_counts_the_planned_route(dtype, d):
+    _need_cuda()
+    q = torch.randn(1, 48, 70, d, device="cuda").to(dtype)
+    k = torch.randn(1, 1, 90, d, device="cuda").to(dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route, _ = ops.plan(1, 48, 1, 70, 90, d, dtype, sms)
+    before, total = dict(ops.route_launches), ops.launches
+    ops.flash_attention(q, k, k, q_offset=20)
+    assert ops.launches == total + 1
+    assert {r: c - before[r] for r, c in ops.route_launches.items()
+            if c != before[r]} == {route: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,route,bm,shift,err", [
+    (torch.float32, 128, "wgmma", 64, 0, RuntimeError),  # wgmma is bf16 only
+    (torch.bfloat16, 32, "wgmma", 64, 0, RuntimeError),  # rows below a box
+    (torch.bfloat16, 128, "wgmma", 64, 1, RuntimeError),  # TMA: 16 B aligned
+    (torch.bfloat16, 128, "ffma", 128, 0, ValueError),   # no such tile
+    (torch.bfloat16, 128, "wgmma", 128, 0, ValueError),
+    (torch.bfloat16, 128, "wgmma", 256, 0, ValueError),
+])
+def test_flash_launch_refuses_a_plan_it_cannot_run(dtype, d, route, bm,
+                                                   shift, err):
+    _need_cuda()
+    n = 8 * 16 * d
+    q = torch.zeros(shift + n, device="cuda", dtype=dtype)[shift:].view(
+        1, 8, 16, d)
+    k = torch.zeros(1, 1, 16, d, device="cuda", dtype=dtype)
+    before = dict(ops.route_launches)
+    with pytest.raises(err):
+        ops.launch(q, k, k, causal=True, window=None, q_offset=0,
+                   route=route, block_m=bm)
+    assert ops.route_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_sends_an_offset_view_to_the_ffma_route(which):
+    """A contiguous bf16 D-128 view whose start is not 16-byte aligned is
+    planned onto ffma (TMA cannot read it), counted there and right."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    shapes = {"q": (1, 48, 256, 128), "k": (1, 1, 512, 128),
+              "v": (1, 1, 512, 128)}
+    x = {}
+    for name, shape in shapes.items():
+        n = shape[0] * shape[1] * shape[2] * shape[3]
+        shift = 1 if name == which else 0
+        x[name] = torch.randn(shift + n, device="cuda", generator=g).to(
+            torch.bfloat16)[shift:].view(shape)
+    assert x[which].is_contiguous() and x[which].data_ptr() % 16 != 0
+    before = dict(ops.route_launches)
+    got = ops.flash_attention(x["q"], x["k"], x["v"], q_offset=0)
+    assert {r: c - before[r] for r, c in ops.route_launches.items()
+            if c != before[r]} == {"ffma": 1}
+    torch.cuda.synchronize()
+    want = ref.attention(x["q"], x["k"], x["v"], q_offset=0)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16]
 
 
 def _to(tree, dev):

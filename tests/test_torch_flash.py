@@ -153,3 +153,111 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q, k = q.to("meta"), k.to("meta")
     with pytest.raises((TypeError, ValueError)):
         ops.flash_attention(q, k, k, **kw)
+
+
+# --- the route and tile plan, and the wgmma route's packing, on the CPU ----
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "ffma"), (torch.bfloat16, 16, "ffma"),
+    (torch.float32, 128, "ffma"), (torch.float32, 64, "ffma"),
+    (torch.float32, 32, "ffma"), (torch.float32, 16, "ffma"),
+])
+def test_plan_route_by_dtype_and_head_dim(dtype, d, route):
+    """bf16 with D 64 or 128 takes the tensor cores; f32 stays true f32 on
+    the FFMA kernel, and bf16 with D 16 or 32 (rows narrower than one
+    128-byte TMA box) goes there too."""
+    got, bm = ops.plan(1, 48, 1, 256, 512, d, dtype, 132)
+    assert got == route and bm in ops.TILES[route]
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16, 32),
+    (torch.float32, 128), (torch.float32, 16)])
+def test_plan_sends_unaligned_tensors_to_ffma(dtype, d):
+    """TMA reads only from 16-byte-aligned addresses: inputs that are not
+    (an offset view) go to the FFMA kernel, which loads element by
+    element, never to the wgmma kernel, which would refuse them."""
+    assert ops.plan(1, 48, 1, 256, 512, d, dtype, 132,
+                    aligned=False) == ("ffma", 64)
+
+
+# the serve's prefill shapes on granite-20b (48 q heads, 1 kv head, D 128,
+# T 512) on 132 SMs: (S, q_offset, blocks of 64 packed rows)
+@pytest.mark.parametrize("s,off,n_blocks", [(64, 0, 48), (128, 128, 96),
+                                            (256, 0, 192)])
+def test_plan_tile_and_grid_at_the_serve_shapes(s, off, n_blocks):
+    route, bm = ops.plan(1, 48, 1, s, 512, 128, torch.bfloat16, 132)
+    assert (route, bm) == ("wgmma", 64)
+    assert -(-48 * s // bm) == n_blocks
+
+
+@pytest.mark.parametrize("b,h,hkv,s,t,d,sms", [
+    (1, 48, 1, 512, 512, 128, 132), (1, 48, 1, 4096, 4096, 128, 132),
+    (2, 48, 8, 100, 100, 64, 132), (1, 8, 8, 1, 9, 64, 132),
+    (1, 48, 1, 256, 512, 128, 1), (1, 48, 1, 256, 512, 128, 1000)])
+def test_plan_keeps_one_tile_on_each_route(b, h, hkv, s, t, d, sms):
+    """The 128-row wgmma tile lost to the 64-row one at every serve shape
+    (PERF.md), so no shape or SM count picks another tile."""
+    assert ops.TILES == {"ffma": (64,), "wgmma": (64,)}
+    assert ops.plan(b, h, hkv, s, t, d, torch.bfloat16, sms) == ("wgmma", 64)
+    assert ops.plan(b, h, hkv, s, t, d, torch.float32, sms) == ("ffma", 64)
+
+
+@pytest.mark.parametrize("b,h,hkv,s", [(1, 48, 1, 200), (2, 48, 8, 77),
+                                       (1, 8, 2, 1)])
+def test_gqa_packing_groups_the_heads_of_one_kv_head(b, h, hkv, s):
+    """The wgmma route views contiguous q [B,H,S,D] as [B*Hkv, g*S, D]:
+    packed row r of group b*Hkv + hk must be query head hk*g + r // s at
+    position r % s, the head that reads kv head hk in ``ref.attention``."""
+    g = h // hkv
+    q = torch.arange(b * h * s * 2, dtype=torch.float32).view(b, h, s, 2)
+    packed = q.view(b * hkv, g * s, 2)
+    for grp in range(b * hkv):
+        bb, hk = divmod(grp, hkv)
+        for r in range(g * s):
+            head = hk * g + r // s
+            assert head // (h // hkv) == hk
+            assert torch.equal(packed[grp, r], q[bb, head, r % s])
+
+
+def test_cpu_path_counts_no_route():
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+               .bfloat16() for sh in [(1, 8, 9, 128), (1, 1, 12, 128),
+                                      (1, 1, 12, 128)])
+    before = dict(ops.route_launches), ops.launches
+    got = ops.flash_attention(q, k, v, q_offset=3)
+    assert torch.equal(got, ref.attention(q, k, v, q_offset=3))
+    assert (dict(ops.route_launches), ops.launches) == before
+
+
+@pytest.mark.parametrize("offset", [1, 3, 7])
+def test_cpu_path_takes_offset_views(offset):
+    """A contiguous view that starts off a 16-byte boundary is valid input:
+    on the CPU it goes to the plain version like any other."""
+    rng = np.random.default_rng(offset)
+    n = 1 * 8 * 9 * 128
+    buf = torch.from_numpy(rng.normal(size=offset + n).astype(np.float32))
+    q = buf.bfloat16()[offset:].view(1, 8, 9, 128)
+    k = torch.from_numpy(rng.normal(size=(1, 1, 12, 128)).astype(
+        np.float32)).bfloat16()
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = dict(ops.route_launches), ops.launches
+    got = ops.flash_attention(q, k, k, q_offset=3)
+    assert torch.equal(got, ref.attention(q, k, k, q_offset=3))
+    assert (dict(ops.route_launches), ops.launches) == before
+
+
+@pytest.mark.parametrize("route,bm,err", [
+    ("wgmma", 64, ValueError),      # a CPU tensor has no kernel
+    ("wgmma", 32, ValueError),      # no such tile
+    ("wgmma", 128, ValueError),
+    ("ffma", 128, ValueError),
+    ("mma", 64, ValueError),        # no such route
+])
+def test_launch_refuses_what_it_has_no_kernel_for(route, bm, err):
+    q = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(err):
+        ops.launch(q, q[:, :1], q[:, :1], causal=True, window=None,
+                   q_offset=0, route=route, block_m=bm)
