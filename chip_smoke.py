@@ -17,19 +17,24 @@ Phases, each of which must pass (any failure exits non-zero):
               boundary (planned onto ffma); the
               six STREAM kernels in f32 and bf16 at the reference tests'
               shapes and every shape the benches give them (read at
-              block_rows 8, 16 and 256); dpa_matmul in its three variants
+              block_rows 8, 16 and 256) and on views off a 16-byte
+              boundary; dpa_matmul in its three variants
               at the reference tests' shapes, 512^3, 4096^3 and shapes at
               the edges of its routes (ragged against the tile and the
-              64-deep stage, M below 64, rows TMA cannot describe), on the
+              stage, M below 64, rows TMA cannot describe), on the
               route and tile its plan picks (dpa4 exactly), every tile of
-              the wgmma and FFMA routes at those edges, and
-              lower-precision controls that its limit must reject; the
-              int8 quantized linear against its plain composition.
+              the wgmma and FFMA routes at those edges (dpa4's own: K a
+              multiple of 16), a forced wgmma launch TMA cannot describe
+              (it must raise), dpa4's int8 transpose alone (equal to
+              b.t()), and lower-precision controls that its limit must
+              reject; the int8 quantized linear against its plain
+              composition.
 3. bench    — the paper's measurement path: the port's bench_bandwidth,
               bench_peak and bench_launch_latency on the card, three times,
               plus the bandwidth bench's read/write rows. The launch
               counts are zeroed just before and read just after; every
-              STREAM and dpa_matmul kernel must have run.
+              STREAM and dpa_matmul kernel must have run, every dpa4
+              launch on the wgmma route with its transpose.
 4. small    — the smoke model in f32 on the card agrees with the same
               weights on the host (plain versions), logits and tokens. Its
               prefill attention is the f32 path of the flash kernel: the
@@ -50,10 +55,12 @@ Phases, each of which must pass (any failure exits non-zero):
               route and tile and for sdpa with a mask and, at q_offset 0,
               with is_causal) and the ffma route at the f32 smoke model's
               prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
-              and 4096^3
-              (with each kernel's device time under the profiler beside
-              the library call's, and at 512^3 that of every tile of the
-              wgmma and FFMA routes).
+              and 4096^3, dpa4's transpose at 4096^2 on four inputs in
+              turn, so that each call reads and writes past the L2 (with
+              each kernel's device time under the profiler beside the
+              library call's and the names of the kernels it launched, at
+              512^3 that of every tile of the wgmma and FFMA routes, and
+              for dpa4 the mma route's and the transpose's share).
 8. cli      — `python -m repro_torch.launch.serve --arch granite-20b
               --smoke` on the card.
 
@@ -95,6 +102,16 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def alloc_counts():
+    """(segments the caching allocator has taken from the driver, its
+    retries after a failed cudaMalloc) so far: a change across a timed
+    loop means the loop paid a synchronising cudaMalloc or cache flush."""
+    import torch
+    stats = torch.cuda.memory_stats()
+    return (stats.get("segment.all.allocated", 0),
+            stats.get("num_alloc_retries", 0))
 
 
 def cuda_timed(fn, iters=20, warmup=3) -> float:
@@ -274,12 +291,23 @@ DPA_SHAPES = [(128, 256, 128), (256, 512, 128), (64, 128, 64),
 # tile, the edges above, a shape ragged every way, and 4096^3
 DPA_TILE_SHAPES = [(64, 64, 64), (96, 200, 640), (8, 128, 64),
                    (300, 1000, 520), (4096, 4096, 4096)]
-DPA_NEW_ROUTES = (("dpa2", "wgmma"), ("fma_f32", "ffma"))
+# dpa4 on wgmma takes K % 16 == 0 and any M and N: one 64^3 tile, M and N
+# ragged against both tiles (K 16 x 63), M below 64 (K 16 x 13), K 16 x 7
+# with M and N odd (the transpose's byte loads, the epilogue's single
+# stores), and 4096^3
+DPA4_TILE_SHAPES = [(64, 64, 64), (300, 1008, 520), (8, 208, 72),
+                    (72, 112, 117), (4096, 4096, 4096)]
+DPA_NEW_ROUTES = (("dpa2", "wgmma"), ("fma_f32", "ffma"), ("dpa4", "wgmma"))
+# (K, N) of dpa4's transpose alone: ragged against its 128 x 128 tile, N
+# not a multiple of 16, and 4096^2; the last also from an offset view
+TRANSPOSE_SHAPES = [(16, 1), (112, 117), (208, 72), (1008, 520),
+                    (4096, 4096)]
 DPA_IN = {"fma_f32": "float32", "dpa2": "bfloat16", "dpa4": "int8"}
 # the line of each STREAM function that reaches pl.pallas_call
 STREAM_REPLACES = {"stream_copy": 53, "stream_scale": 61, "stream_add": 72,
                    "stream_triad": 80, "stream_write": 91, "stream_read": 103}
 DPA_NAMES = tuple(f"dpa_matmul/{v}" for v in DPA_IN)
+TRANSPOSE_NAME = "dpa_matmul/dpa4_transpose"
 
 
 def _max_err(got, want) -> float:
@@ -409,6 +437,26 @@ def dpa_controls(g):
                                      f"{size}^3")
 
 
+def transpose_held(g, errs):
+    """dpa4's int8 transpose alone against ``b.t().contiguous()``, bitwise,
+    at TRANSPOSE_SHAPES and on a view of the last one off a 16-byte
+    boundary (its byte loads)."""
+    import torch
+    from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
+    cases = [(k, n, 0) for k, n in TRANSPOSE_SHAPES]
+    cases.append(TRANSPOSE_SHAPES[-1] + (1,))
+    for k, n, shift in cases:
+        b = torch.randint(-128, 128, (shift + k * n,), device="cuda",
+                          generator=g, dtype=torch.int8)[shift:].view(k, n)
+        got, want = dk.transpose_int8(b), b.t().contiguous()
+        if not torch.equal(got, want):
+            raise AssertionError(f"the int8 transpose disagrees at K {k} "
+                                 f"N {n} (offset {shift})")
+    errs[TRANSPOSE_NAME] = 0.0
+    log(f"[kernels] dpa4 transpose (K, N, offset) {cases}: equal to "
+        f"b.t().contiguous()")
+
+
 def phase_kernels_measurement():
     """STREAM, dpa_matmul and the quantized linear against their plain
     versions; returns the largest error of each kernel."""
@@ -425,6 +473,15 @@ def phase_kernels_measurement():
                 getattr(torch, dname))
             b = torch.randn(shape, device="cuda", generator=g).to(a.dtype)
             stream_held(a, b, errs)
+        # contiguous views one element past a 16-byte boundary: the
+        # kernels' single-element path
+        for which in range(2):
+            a, b = (torch.randn(int(i == which) + 64 * 1000, device="cuda",
+                                generator=g).to(getattr(torch, dname))
+                    [int(i == which):].view(64, 1000) for i in range(2))
+            log(f"[kernels] stream {dname}: {'ab'[which]} off a 16-byte "
+                f"boundary")
+            stream_held(a, b, errs)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for variant in DPA_IN:
         for m, k, n in DPA_SHAPES:
@@ -439,38 +496,48 @@ def phase_kernels_measurement():
                     f"max(|want|, |a|@|b|/sqrt(k)))"))
     for variant, route in DPA_NEW_ROUTES:
         # odd K and N only where the route takes rows of any alignment
-        shapes = DPA_TILE_SHAPES + ([(72, 99, 117)] if route == "ffma"
-                                    else [])
+        shapes = (DPA4_TILE_SHAPES if variant == "dpa4" else
+                  DPA_TILE_SHAPES + ([(72, 99, 117)] if route == "ffma"
+                                     else []))
         for bm, bn in dk.TILES[route]:
             worst = max(dpa_held(*dpa_inputs(m, k, n, variant, g), variant,
                                  errs, tile=(route, bm, bn))
                         for m, k, n in shapes)
             log(f"[kernels] dpa_matmul {variant} route {route} tile "
                 f"{bm}x{bn} at {shapes}: max|err| {worst:.3e} "
-                f"(within dpa_limit)")
-    for m, k, n in ((64, 100, 64), (64, 64, 100)):
-        a, b = dpa_inputs(m, k, n, "dpa2", g)
+                + ("(exact required)" if variant == "dpa4" else
+                   "(within dpa_limit)"))
+    for variant, (m, k, n) in (("dpa2", (64, 100, 64)),
+                               ("dpa2", (64, 64, 100)),
+                               ("dpa4", (64, 200, 64))):
+        a, b = dpa_inputs(m, k, n, variant, g)
         try:
-            dk.launch(a, b, "dpa2", "wgmma", 64, 64)
+            dk.launch(a, b, variant, "wgmma", 64, 64)
         except RuntimeError as e:
-            log(f"[kernels] dpa_matmul dpa2 wgmma refuses {m}x{k}x{n}: {e}")
+            log(f"[kernels] dpa_matmul {variant} wgmma refuses "
+                f"{m}x{k}x{n}: {e}")
         else:
-            raise AssertionError(f"the wgmma route took {m}x{k}x{n}, whose "
-                                 f"rows TMA cannot describe")
+            raise AssertionError(f"the {variant} wgmma route took "
+                                 f"{m}x{k}x{n}, whose rows TMA cannot "
+                                 f"describe")
+    transpose_held(g, errs)
     dpa_controls(g)
     for m, k, n in ((64, 128, 64), (512, 4096, 4096)):
         x = torch.randn(m, k, device="cuda", generator=g)
         w = torch.randn(k, n, device="cuda", generator=g) / k ** 0.5
+        before = dict(dk.route_launches)
         got = dpa_ops.quantized_linear(x, w)
+        taken = {r: c - before[r] for r, c in dk.route_launches.items()
+                 if c != before[r]}
         xq, xs = dpa_ops.quantize_int8(x, axis=1)
         wq, ws = dpa_ops.quantize_int8(w, axis=0)
         want = dpa_ref.matmul(xq, wq, "dpa4").float() * xs * ws
-        ok = torch.equal(got, want)
-        log(f"[kernels] quantized_linear {m}x{k}x{n}: equal to its plain "
-            f"composition {ok}")
+        ok = torch.equal(got, want) and taken == {"dpa4/wgmma": 1}
+        log(f"[kernels] quantized_linear {m}x{k}x{n} (route {taken}): "
+            f"equal to its plain composition {torch.equal(got, want)}")
         if not ok:
             raise AssertionError("quantized_linear disagrees with its plain "
-                                 "composition")
+                                 "composition or left the wgmma route")
     torch.cuda.synchronize()
     return errs
 
@@ -496,6 +563,7 @@ def phase_bench():
         dk.launches[name] = 0
     for name in dk.route_launches:
         dk.route_launches[name] = 0
+    dk.transposes["launches"] = 0
     t0 = time.perf_counter()
     for rep in range(BENCH_REPEATS):
         for bench in (bench_bandwidth.run, bench_peak.run,
@@ -513,6 +581,7 @@ def phase_bench():
     launches = {name: sk.launches[name] for name in STREAM_REPLACES}
     launches.update({f"dpa_matmul/{v}": dk.launches[v] for v in DPA_IN})
     routes = dict(dk.route_launches)
+    launches[TRANSPOSE_NAME] = dk.transposes["launches"]
     # ... and ends here
     log(f"[bench] {BENCH_REPEATS} runs in {time.perf_counter() - t0:.1f} s; "
         f"launches on the bench path: {launches}; dpa_matmul by route: "
@@ -527,6 +596,12 @@ def phase_bench():
     if missing:
         raise AssertionError(f"kernels never launched on the bench path: "
                              f"{missing}")
+    # every dpa4 launch on wgmma, each with its transpose
+    if not (routes["dpa4/mma"] == 0
+            and routes["dpa4/wgmma"] == launches["dpa_matmul/dpa4"]
+            == launches[TRANSPOSE_NAME]):
+        raise AssertionError(f"dpa4 on the bench path: routes {routes}, "
+                             f"transposes {launches[TRANSPOSE_NAME]}")
     return launches
 
 
@@ -738,38 +813,17 @@ def _profiled(fn, n=3):
     return host_ms, sum(by_name.values()), count / n, by_name
 
 
-def _device_ms(fn, n=10, sessions=3):
-    """Device time of one call of ``fn`` under ``torch.profiler``: in each
-    of ``sessions`` profiled runs of ``n`` calls, the median duration of
-    each CUDA kernel it launches, summed over its kernels; then the median
-    over the sessions that recorded any kernel. (The profiler has been seen
-    to drop one call's events, once a whole session's, and once to read a
-    session wrong: so no total over the calls is divided by their count,
-    and no single session is trusted.)"""
-    import statistics
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    readings = []
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(
-                    e.time_range.elapsed_us())
-        if by_name:
-            readings.append(sum(statistics.median(v)
-                                for v in by_name.values()) / 1e3)
-    if not readings:
-        raise AssertionError("the profiler recorded no kernel in "
-                             f"{sessions} sessions")
-    return statistics.median(readings)
+def _device_ms(fn, n=10, sessions=3, by_kernel=False):
+    """``repro_torch.benchmarks.common.device_ms``: one call's device time
+    under ``torch.profiler``, median over three sessions."""
+    from repro_torch.benchmarks.common import device_ms
+    return device_ms(fn, n, sessions, by_kernel)
+
+
+def _names(by_kernel) -> str:
+    """The kernels of a ``_device_ms(..., by_kernel=True)`` reading, each
+    with its device ms, names cut to 72 characters."""
+    return "; ".join(f"{k[:72]} {v:.4f} ms" for k, v in by_kernel.items())
 
 
 def phase_profile(eng):
@@ -1016,14 +1070,24 @@ def timing_stream(errs):
     }
     rows = {}
     for name, (kern, plain, lib, n_bytes, n_ops) in cases.items():
-        ms, plain_ms, lib_ms = (cuda_timed(f) for f in (kern, plain, lib))
+        before = alloc_counts()
+        ms = cuda_timed(kern)
+        allocs = [b - a for a, b in zip(before, alloc_counts())]
+        plain_ms, lib_ms = cuda_timed(plain), cuda_timed(lib)
         rows[name] = r = _row(ms, plain_ms, lib_ms, n_bytes, n_ops,
                               PEAK_OPS["float32"], errs[name])
+        r["device_ms"] = _device_ms(kern)
+        r["library_device_ms"], lib_by = _device_ms(lib, by_kernel=True)
         log(f"[timing] {name} f32 {shape}: kernel {ms:.4f} ms "
             f"({n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}, {n_bytes} bytes); kernel at "
-            f"{r['bound_ms'] / ms:.1%} of the bound")
+            f"{r['bound_ms'] / ms:.1%} of the bound; device time a call: "
+            f"kernel {r['device_ms']:.4f} ms "
+            f"({r['bound_ms'] / r['device_ms']:.1%} of the bound), library "
+            f"{r['library_device_ms']:.4f} ms ({_names(lib_by)}); "
+            f"allocator in the kernel's events loop: {allocs[0]} new "
+            f"segments, {allocs[1]} retries")
     return rows
 
 
@@ -1052,8 +1116,10 @@ def timing_dpa(errs):
             iters = 20 if size == 512 else 10
             route, bm, bn = dk.plan(size, size, size, variant, sms)
             before = dict(dk.route_launches)
+            allocs = alloc_counts()
             ms = cuda_timed(lambda: dk.dpa_matmul(a, b, variant=variant),
                             iters=iters)
+            allocs = [y - x for x, y in zip(allocs, alloc_counts())]
             taken = {r: c - before[r] for r, c in dk.route_launches.items()
                      if c != before[r]}
             if set(taken) != {f"{variant}/{route}"}:
@@ -1062,9 +1128,23 @@ def timing_dpa(errs):
             plain_ms = cuda_timed(lambda: ref.matmul(a, b, variant),
                                   iters=iters)
             lib_ms = cuda_timed(lambda: lib[variant](a, b), iters=iters)
-            dev_ms = _device_ms(lambda: dk.dpa_matmul(a, b, variant=variant))
-            dev_lib_ms = _device_ms(lambda: lib[variant](a, b))
+            dev_ms, dev_by = _device_ms(
+                lambda: dk.dpa_matmul(a, b, variant=variant), by_kernel=True)
+            dev_lib_ms, lib_by = _device_ms(lambda: lib[variant](a, b),
+                                            by_kernel=True)
             extra = ""
+            if variant == "dpa4":
+                # the transpose's share of the call, and the mma route on
+                # the same inputs: plan's route rule rests on this reading
+                t_ms = sum(v for k, v in dev_by.items() if "transpose" in k)
+                mma_ms = _device_ms(lambda: dk.launch(a, b, "dpa4", "mma",
+                                                      128, 128))
+                extra += (f", device time by kernel: {_names(dev_by)} "
+                          f"(transpose {t_ms / dev_ms:.1%} of the call), "
+                          f"mma route 128x128 {mma_ms:.4f} ms")
+                if not dev_ms < mma_ms:
+                    raise AssertionError(f"dpa4 {size}^3: wgmma {dev_ms} ms "
+                                         f"is not below mma {mma_ms} ms")
             if size == 512 and len(dk.TILES[route]) > 1:
                 # every tile of the route at the bench's size, the reading
                 # plan's tile rule rests on
@@ -1086,6 +1166,9 @@ def timing_dpa(errs):
             name = f"dpa_matmul/{variant}"
             r = _row(ms, plain_ms, lib_ms, n_bytes, n_ops, peak[variant],
                      errs[name])
+            r.update(device_ms=dev_ms, library_device_ms=dev_lib_ms)
+            if variant == "dpa4":
+                r.update(transpose_device_ms=t_ms, mma_device_ms=mma_ms)
             rows[(name, size)] = r
             log(f"[timing] {name} {size}^3 (route {route}, tile {bm}x{bn}, "
                 f"launches by route {taken}): kernel {ms:.4f} ms "
@@ -1093,8 +1176,54 @@ def timing_dpa(errs):
                 f"library {lib_ms:.4f} ms{extra}, bound {r['bound_ms']:.5f} "
                 f"ms ({r['bound_by']}); kernel at {r['bound_ms'] / ms:.1%} "
                 f"of the bound; device time a call under the profiler: "
-                f"kernel {dev_ms:.4f} ms, library {dev_lib_ms:.4f} ms")
+                f"kernel {dev_ms:.4f} ms, library {dev_lib_ms:.4f} ms "
+                f"({_names(lib_by)}); allocator in the kernel's events "
+                f"loop: {allocs[0]} new segments, {allocs[1]} retries")
     return rows
+
+
+def timing_transpose(errs, in_call_ms):
+    """dpa4's int8 transpose alone at 4096^2 (B of the 4096^3 product)
+    beside its plain version, ``b.t().contiguous()``, which is also the one
+    PyTorch call computing it; bound by bytes, K N read and K N written.
+    Each timed call takes the next of four inputs and its output stays
+    alive for four calls, so what a call reads and writes was last touched
+    at least 96 MiB of traffic before, past the 50 MB L2 (back to back on
+    one B, B and B^T stay there and the time reads below the HBM bound).
+    ``in_call_ms`` is its device time inside the 4096^3 dpa4 call."""
+    import collections
+    import itertools
+    import torch
+    from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    k = n = 4096
+    bs = [torch.randint(-128, 128, (k, n), device="cuda", generator=g,
+                        dtype=torch.int8) for _ in range(4)]
+    for b in bs:
+        if not torch.equal(dk.transpose_int8(b), b.t().contiguous()):
+            raise AssertionError("the int8 transpose disagrees at 4096^2")
+
+    def rotating(fn):
+        inputs, outs = itertools.cycle(bs), collections.deque(maxlen=4)
+        return lambda: outs.append(fn(next(inputs)))
+    kern = rotating(dk.transpose_int8)
+    plain = rotating(lambda b: b.t().contiguous())
+    ms, plain_ms = cuda_timed(kern), cuda_timed(plain)
+    r = _row(ms, plain_ms, plain_ms, 2 * k * n, 0, PEAK_OPS["int8"],
+             errs[TRANSPOSE_NAME])
+    r["device_ms"] = _device_ms(kern)
+    r["device_ms_in_dpa4_call"] = in_call_ms
+    r["library_device_ms"], lib_by = _device_ms(plain, by_kernel=True)
+    log(f"[timing] {TRANSPOSE_NAME} int8 [{k},{n}] -> [{n},{k}], four "
+        f"inputs in turn: kernel {ms:.4f} ms, plain = library "
+        f"(b.t().contiguous()) {plain_ms:.4f} ms, bound "
+        f"{r['bound_ms']:.5f} ms (bytes); device time a call: kernel "
+        f"{r['device_ms']:.4f} ms ({r['bound_ms'] / r['device_ms']:.1%} of "
+        f"the bound), inside the 4096^3 dpa4 call {in_call_ms:.4f} ms "
+        f"({r['bound_ms'] / in_call_ms:.1%}), library "
+        f"{r['library_device_ms']:.4f} ms ({_names(lib_by)})")
+    return r
 
 
 def phase_cli():
@@ -1142,6 +1271,14 @@ def main() -> int:
     ffma_row = timing_flash_f32(f32_shape)
     stream_rows = timing_stream(errs)
     dpa_rows = timing_dpa(errs)
+    # the paper's Fig. 5/7 ladder (FMA -> DPA2 -> DPA4) at 4096^3
+    log("[timing] ladder at 4096^3, Top/s by events / by device time: "
+        + ", ".join(f"{v} {2 * 4096 ** 3 / r['ms'] / 1e9:.1f} / "
+                    f"{2 * 4096 ** 3 / r['device_ms'] / 1e9:.1f}"
+                    for v, r in ((v, dpa_rows[(f"dpa_matmul/{v}", 4096)])
+                                 for v in DPA_IN)))
+    transpose_row = timing_transpose(
+        errs, dpa_rows[("dpa_matmul/dpa4", 4096)]["transpose_device_ms"])
     phase_cli()
     # flash on each route at its own path's shape: wgmma at the serve's
     # largest prefill (bf16), launches from the serve phase; ffma at the
@@ -1188,6 +1325,14 @@ def main() -> int:
             replaces="src/repro/kernels/dpa_matmul/dpa_matmul.py:42",
             launches=launches[name],
             **dpa_rows[(name, 4096)]))
+    # the transpose that dpa4's wgmma route runs before each product: no
+    # TPU kernel of its own, half of the port of dpa_matmul's dpa4 variant
+    kernels.append(dict(
+        name=TRANSPOSE_NAME, route="cuda",
+        source="src/repro_torch/csrc/dpa_matmul.cu",
+        replaces="src/repro/kernels/dpa_matmul/dpa_matmul.py:42",
+        part_of="dpa_matmul/dpa4",
+        launches=launches[TRANSPOSE_NAME], **transpose_row))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

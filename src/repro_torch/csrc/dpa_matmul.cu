@@ -3,7 +3,10 @@
 //   fma_f32  f32 x f32 -> f32     FFMA tiles on the CUDA cores (never TF32)
 //   dpa2     bf16 x bf16 -> f32   wgmma fed by a TMA ring; mma.sync where
 //                                 TMA cannot describe A or B
-//   dpa4     int8 x int8 -> int32 mma.sync m16n8k32, s32 accumulator (exact)
+//   dpa4     int8 x int8 -> int32 wgmma s8 fed by the same ring, after B
+//                                 is transposed to K-major; mma.sync
+//                                 m16n8k32 where K % 16 != 0 (exact either
+//                                 way)
 //
 // Replaces src/repro/kernels/dpa_matmul/dpa_matmul.py:42 dpa_matmul
 // (pl.pallas_call at :66, body _matmul_kernel :25): a (M/bm, N/bn, K/bk)
@@ -24,23 +27,29 @@
 // not the loop, sets the time.
 //
 // What the designs do about it.
-// - dpa2, wgmma route (dpa2_wgmma_kernel): only wgmma reaches the tensor
-//   cores' full rate. One producer thread issues TMA loads
-//   (cp.async.bulk.tensor) of 64-deep K stages of A and B into a ring of
-//   four stages in shared memory, with mbarrier expect-tx completion; one
-//   or two consumer warpgroups (64 rows each) run wgmma m64nBNk16 on each
-//   stage that has arrived and release it through a second mbarrier while
-//   the next group of wgmma runs. A is K-major: 128-byte rows, 128-byte
-//   swizzle. B is [K,N] row-major, so MN-major: TMA boxes of 64 k x 64 n
+// - dpa2 and dpa4, wgmma route (wgmma_kernel<E, NWG, TBN>): only wgmma
+//   reaches the tensor cores' full rate. One producer thread issues TMA
+//   loads (cp.async.bulk.tensor) of stages 128 bytes of K deep (64 bf16,
+//   128 int8) of A and B into a ring of four stages in shared memory, with
+//   mbarrier expect-tx completion; one or two consumer warpgroups (64 rows
+//   each) run four wgmma (m64nBNk16 bf16, m64nBNk32 s8) on each stage that
+//   has arrived and release it through a second mbarrier while the next
+//   group of wgmma runs. A is K-major: 128-byte rows, 128-byte swizzle.
+//   bf16 B is [K,N] row-major, so MN-major: TMA boxes of 64 k x 64 n
 //   (128-byte rows, 128-byte swizzle) that wgmma reads through its
-//   transpose-B flag, with no transpose pass. The accumulator stays in
-//   registers and the epilogue stores f32 from its layout, masking rows
-//   and columns past M and N; TMA fills the box past the matrix with
-//   zeros. TMA needs 16-byte row strides (K % 8 == 0 and N % 8 == 0) and
-//   16-byte-aligned bases: other shapes take the mma.sync route, chosen by
-//   shape before the launch. cuTensorMapEncodeTiled is a driver function:
-//   it is fetched through cudaGetDriverEntryPoint, so the library links no
-//   libcuda.
+//   transpose-B flag, with no transpose pass. The integer wgmma has no
+//   transpose flag: both operands must be K-major, so dpa4 first runs
+//   transpose_i8_kernel (B [K,N] -> B^T [N,K] in scratch the wrapper
+//   allocates, 2 K N bytes of extra traffic, launched by the same C call on
+//   the same stream) and TMA loads B^T in boxes of BN n x 128 k bytes,
+//   read like A. The accumulator stays in registers and the epilogue
+//   stores f32 or s32 from its layout, masking rows and columns past M and
+//   N; TMA fills the box past the matrix with zeros. TMA needs 16-byte
+//   row strides and 16-byte-aligned bases: dpa2 K % 8 == 0 and N % 8 ==
+//   0, dpa4 K % 16 == 0 (B^T's rows are K bytes too; the transpose takes
+//   any N). Other shapes take the mma.sync route, chosen by shape before
+//   the launch. cuTensorMapEncodeTiled is a driver function: it is fetched
+//   through cudaGetDriverEntryPoint, so the library links no libcuda.
 // - fma_f32 (fma_f32_kernel): 32-deep K slices through a ring of shared
 //   stages (four at the 128x128 tile, three at the 64x64 tile that gives
 //   64 blocks at 512^3) that cp.async fills ahead of the slice being
@@ -52,19 +61,21 @@
 //   across, so neither the copies into shared memory nor the fragment
 //   loads meet a bank conflict (the first design transposed A by scalar
 //   stores with a two-way conflict).
-// - dpa4, and dpa2 where TMA cannot describe it (mma_kernel): a 128x128
+// - dpa2 and dpa4 where TMA cannot describe them (mma_kernel): a 128x128
 //   tile of mma.sync fragments, 8 warps of 64x32, fed from shared memory
 //   holding one 64-byte K slice of A and of B (B transposed on its way in,
 //   rows padded to 80 bytes); the next slice is fetched into registers
 //   while the current one is multiplied. Its loop time is set per slice
-//   by those loads, stores and barriers, not by the tensor cores, so dpa2
-//   there (32 bf16 a slice) takes twice dpa4's time (64 int8 a slice).
+//   by those loads, stores and barriers, not by the tensor cores.
 //
 // What it leaves for later designs: persistent blocks (one epilogue
 // overlapping the next tile's loads), clusters with TMA multicast of the
-// shared A or B tile, and dpa4 on wgmma s8, which takes B only K-major and
-// so needs the transpose that bf16 does not.
+// shared A or B tile, and for dpa4 a transpose inside the ring (TMA loads
+// B's MN-major box, byte permutes write the K-major stage) in place of the
+// extra pass through device memory.
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"            // smem addresses, mbarriers, TMA, wgmma fences
 
@@ -388,17 +399,21 @@ mma_kernel(const E* __restrict__ A, const E* __restrict__ B,
 }
 
 // ---------------------------------------------------------------------------
-// dpa2 on wgmma: W_STAGES stages of W_BK = 64 bf16 (128-byte rows), each
-// holding A [BM rows][64 k] (one TMA box) and B as BN/64 boxes of
-// [64 k][64 n]; NWG consumer warpgroups of 64 rows, then a producer
-// warpgroup of which one thread issues the TMA loads
+// dpa2 and dpa4 on wgmma: W_STAGES stages of 128 bytes of K a row (64 bf16
+// or 128 int8). A stage holds A [64 NWG rows][128 bytes] (one TMA box,
+// K-major) and TBN columns of B: bf16 as TBN/64 boxes of [64 k][64 n]
+// (MN-major, read through wgmma's transpose-B flag), int8 as one box of
+// [TBN n][128 k bytes] of B^T (K-major: the integer wgmma has no transpose
+// flag, so the wrapper's B [K,N] is transposed into scratch first). NWG
+// consumer warpgroups of 64 rows, then a producer warpgroup of which one
+// thread issues the TMA loads.
 
-constexpr int W_BK = 64;
+constexpr int W_STAGE_K = 128;             // bytes of K a stage row
 constexpr int W_STAGES = 4;
 
 template <int NWG, int TBN>
 __host__ __device__ constexpr int wgmma_stage() {
-    return 64 * NWG * 128 + TBN * 128;
+    return 64 * NWG * W_STAGE_K + TBN * W_STAGE_K;
 }
 
 // the ring, its 2 x W_STAGES mbarriers, and 1 KB to align the ring to the
@@ -408,96 +423,107 @@ __host__ __device__ constexpr int wgmma_smem() {
     return W_STAGES * wgmma_stage<NWG, TBN>() + 16 * W_STAGES + 1024;
 }
 
+// the accumulator type of an input type: f32 for bf16, s32 for int8
+template <typename E>
+using acc_t = typename std::conditional<sizeof(E) == 1, int, float>::type;
+
+// the operands of a wgmma accumulator d[0..32) or d[0..128), constraint c
+#define WG_D4(c, i) "+" c(d[i]), "+" c(d[(i) + 1]), "+" c(d[(i) + 2]), \
+                    "+" c(d[(i) + 3])
+#define WG_D16(c, i) WG_D4(c, i), WG_D4(c, (i) + 4), WG_D4(c, (i) + 8), \
+                     WG_D4(c, (i) + 12)
+#define WG_D32(c, i) WG_D16(c, i), WG_D16(c, (i) + 16)
+#define WG_D128(c) WG_D32(c, 0), WG_D32(c, 32), WG_D32(c, 64), WG_D32(c, 96)
+#define WG_R32                                                              \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                              \
+    "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                    \
+    "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R128                                                             \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                              \
+    "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                    \
+    "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "                    \
+    "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "                    \
+    "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "                    \
+    "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                    \
+    "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "                    \
+    "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                    \
+    "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "                    \
+    "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "                    \
+    "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "          \
+    "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "          \
+    "%120, %121, %122, %123, %124, %125, %126, %127"
+
 // wgmma m64nNk16, f32 += bf16 x bf16, A and B from shared memory; A
 // K-major (trans-a 0), B MN-major (trans-b 1). d holds N/2 f32 a thread.
 __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da,
                                       uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
         "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+        : WG_D32("f", 0) : "l"(da), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
                                       uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
-        "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" WG_R128
         "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(1));
+        : WG_D128("f") : "l"(da), "l"(db), "r"(1));
 }
 
-template <int NWG, int TBN>
+// wgmma m64nNk32, s32 += s8 x s8 (exact, wrapping), A and B from shared
+// memory, both K-major. d holds N/2 s32 a thread, laid out as the f32 form.
+__device__ __forceinline__ void wgmma(int (&d)[32], uint64_t da,
+                                      uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" WG_R32
+        "}, %32, %33, p;\n}\n"
+        : WG_D32("r", 0) : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma(int (&d)[128], uint64_t da,
+                                      uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" WG_R128
+        "}, %128, %129, p;\n}\n"
+        : WG_D128("r") : "l"(da), "l"(db), "r"(1));
+}
+
+// (v0, v1) into columns n, n + 1 of a row of C (n even, n < N): one 8-byte
+// store where N is even (so n + 1 < N and the row pitch keeps it aligned),
+// else one at a time
+template <typename Acc>
+__device__ __forceinline__ void store_pair(Acc* row, int n, int N, Acc v0,
+                                           Acc v1) {
+    using P = typename std::conditional<std::is_same<Acc, int>::value, int2,
+                                        float2>::type;
+    if (N % 2 == 0) {
+        *reinterpret_cast<P*>(row + n) = P{v0, v1};
+        return;
+    }
+    row[n] = v0;
+    if (n + 1 < N) row[n + 1] = v1;
+}
+
+template <typename E, int NWG, int TBN>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
-dpa2_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                  const __grid_constant__ CUtensorMap tma_b,
-                  float* __restrict__ C, int M, int N, int K) {
-    constexpr int A_BYTES = 64 * NWG * 128;
+wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+             const __grid_constant__ CUtensorMap tma_b,
+             acc_t<E>* __restrict__ C, int M, int N, int K) {
+    constexpr bool INT8 = sizeof(E) == 1;
+    constexpr int BK = W_STAGE_K / sizeof(E);          // K elements a stage
+    constexpr int A_BYTES = 64 * NWG * W_STAGE_K;
     constexpr int STAGE = wgmma_stage<NWG, TBN>();
     extern __shared__ __align__(16) uint8_t wsm[];
     const uint32_t ring = (smem_u32(wsm) + 1023) & ~1023u;
     const uint32_t full = ring + W_STAGES * STAGE;      // TMA -> consumers
     const uint32_t empty = full + 8 * W_STAGES;         // consumers -> TMA
     const int wg = threadIdx.x / 128;
-    const int nk = (K + W_BK - 1) / W_BK;
+    const int nk = (K + BK - 1) / BK;
     const int m0 = blockIdx.y * 64 * NWG, n0 = blockIdx.x * TBN;
     if (threadIdx.x == 0) {
 #pragma unroll
@@ -518,30 +544,37 @@ dpa2_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                 mbar_wait(empty + 8 * s, ((kb / W_STAGES) & 1) ^ 1);
                 const uint32_t st = ring + s * STAGE, bar = full + 8 * s;
                 mbar_expect_tx(bar, STAGE);
-                tma_load(st, &tma_a, kb * W_BK, m0, bar);
+                tma_load(st, &tma_a, kb * BK, m0, bar);
+                if (INT8) {
+                    tma_load(st + A_BYTES, &tma_b, kb * BK, n0, bar);
+                } else {
 #pragma unroll
-                for (int j = 0; j < TBN / 64; ++j)
-                    tma_load(st + A_BYTES + j * 8192, &tma_b, n0 + j * 64,
-                             kb * W_BK, bar);
+                    for (int j = 0; j < TBN / 64; ++j)
+                        tma_load(st + A_BYTES + j * 8192, &tma_b,
+                                 n0 + j * 64, kb * BK, bar);
+                }
             }
         }
         return;
     }
 
-    float acc[TBN / 2];
+    acc_t<E> acc[TBN / 2];
 #pragma unroll
-    for (int i = 0; i < TBN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < TBN / 2; ++i) acc[i] = 0;
     for (int kb = 0; kb < nk; ++kb) {
         const int s = kb % W_STAGES;
         mbar_wait(full + 8 * s, (kb / W_STAGES) & 1);
-        const uint32_t sa = ring + s * STAGE + wg * 64 * 128;
+        const uint32_t sa = ring + s * STAGE + wg * 64 * W_STAGE_K;
         const uint32_t sb = ring + s * STAGE + A_BYTES;
         fence_acc(acc);
         wgmma_fence();
+        // four instructions of 32 bytes of K: A +32 bytes along its rows;
+        // B^T (int8) the same, B (bf16) +16 k rows
 #pragma unroll
-        for (int kk = 0; kk < W_BK / 16; ++kk)     // A: +32 bytes along K;
-            wgmma(acc, wgmma_desc(sa + kk * 32, 16, 1024),    // B: +16 rows
-                  wgmma_desc(sb + kk * 16 * 128, 8192, 1024));
+        for (int kk = 0; kk < W_STAGE_K / 32; ++kk)
+            wgmma(acc, wgmma_desc(sa + kk * 32, 16, 1024),
+                  INT8 ? wgmma_desc(sb + kk * 32, 16, 1024)
+                       : wgmma_desc(sb + kk * 16 * 128, 8192, 1024));
         wgmma_commit();
         fence_acc(acc);
         wgmma_wait<1>();                   // stage kb-1 is read: release it
@@ -550,8 +583,7 @@ dpa2_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     wgmma_wait<0>();
     fence_acc(acc);
     // accumulator layout: acc[4i..4i+3] at rows (r, r, r+8, r+8), columns
-    // (c, c+1, c, c+1) + 8i, r = 16 * warp + lane / 4, c = 2 * (lane % 4);
-    // N % 8 == 0, so c < N gives c + 1 < N
+    // (c, c+1, c, c+1) + 8i, r = 16 * warp + lane / 4, c = 2 * (lane % 4)
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int r = m0 + wg * 64 + warp * 16 + lane / 4;
     const int c = n0 + (lane % 4) * 2;
@@ -560,20 +592,93 @@ dpa2_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
         const int n = c + i * 8;
         if (n >= N) continue;
         if (r < M)
-            *reinterpret_cast<float2*>(C + (long long)r * N + n) =
-                make_float2(acc[4 * i], acc[4 * i + 1]);
+            store_pair(C + (long long)r * N, n, N, acc[4 * i],
+                       acc[4 * i + 1]);
         if (r + 8 < M)
-            *reinterpret_cast<float2*>(C + (long long)(r + 8) * N + n) =
-                make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+            store_pair(C + (long long)(r + 8) * N, n, N, acc[4 * i + 2],
+                       acc[4 * i + 3]);
     }
 }
 
-// a row-major bf16 [rows, cols] matrix in boxes of box_rows x 64 columns
-// (128 bytes), 128-byte swizzle, zeros past the matrix
+// ---------------------------------------------------------------------------
+// int8 B [K,N] -> B^T [N,K] (K % 16 == 0) for dpa4's wgmma route: a block
+// moves a 128 k x 128 n tile through 16 KB of shared memory. In: 16-byte
+// loads along n (byte loads where N % 16 != 0 or B is not 16-byte
+// aligned), four a thread, stored as tile rows of 128 bytes whose 16-byte
+// chunks are XOR-swizzled by (row / 16) & 7. Out: a thread reads one
+// 4-byte word (4 n) from each of 16 consecutive k rows, transposes the
+// 4x4 byte blocks with byte permutes, and writes 16 k bytes to each of 4
+// rows of B^T; a warp is 8 threads along k by 4 along n, so its reads fall
+// in 32 distinct banks and its stores are 4 rows of 128 contiguous bytes.
+
+constexpr int T_TILE = 128;
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+transpose_i8_kernel(const int8_t* __restrict__ B, int8_t* __restrict__ Bt,
+                    int K, int N) {
+    __shared__ __align__(16) uint8_t tile[T_TILE * T_TILE];
+    const int k0 = blockIdx.y * T_TILE, n0 = blockIdx.x * T_TILE;
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < T_TILE * T_TILE / 16 / THREADS; ++i) {
+        const int c = tid + i * THREADS, r = c / 8, ch = c % 8;
+        const uint4 v = load_chunk<int8_t>(B, k0 + r, N, k0 + r < K,
+                                           n0 + ch * 16, N, VEC);
+        *reinterpret_cast<uint4*>(&tile[r * T_TILE +
+                                        (ch ^ ((r / 16) & 7)) * 16]) = v;
+    }
+    __syncthreads();
+    const int kg = tid % 8, ng = tid / 8;   // k rows 16 kg.., n cols 4 ng..
+    if (k0 + 16 * kg >= K) return;          // K % 16 == 0: whole or none
+    uint32_t out[4][4];                     // [n of 4][4 k bytes of 16]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        uint32_t w[4];                      // k row 16 kg + 4 j + q, 4 n
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int r = 16 * kg + 4 * j + q;
+            w[q] = *reinterpret_cast<const uint32_t*>(
+                &tile[r * T_TILE + ((ng / 4) ^ kg) * 16 + (ng % 4) * 4]);
+        }
+        const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+        const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+        const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+        const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+        out[0][j] = __byte_perm(t0, t2, 0x5410);
+        out[1][j] = __byte_perm(t0, t2, 0x7632);
+        out[2][j] = __byte_perm(t1, t3, 0x5410);
+        out[3][j] = __byte_perm(t1, t3, 0x7632);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int n = n0 + 4 * ng + q;
+        if (n < N)
+            *reinterpret_cast<uint4*>(Bt + (long long)n * K + k0 + 16 * kg) =
+                make_uint4(out[q][0], out[q][1], out[q][2], out[q][3]);
+    }
+}
+
+cudaError_t launch_transpose(const void* b, void* bt, int K, int N,
+                             cudaStream_t st) {
+    const dim3 grid((N + T_TILE - 1) / T_TILE, (K + T_TILE - 1) / T_TILE);
+    const int8_t* src = static_cast<const int8_t*>(b);
+    int8_t* dst = static_cast<int8_t*>(bt);
+    if (aligned16(b) && N % 16 == 0)
+        transpose_i8_kernel<true><<<grid, THREADS, 0, st>>>(src, dst, K, N);
+    else
+        transpose_i8_kernel<false><<<grid, THREADS, 0, st>>>(src, dst, K, N);
+    return cudaGetLastError();
+}
+
+// a row-major [rows, cols] matrix in boxes of box_rows x 128 bytes,
+// 128-byte swizzle, zeros past the matrix: bf16 or int8
 bool encode(CUtensorMap* map, const void* base, int rows, int cols,
-            int box_rows) {
+            int box_rows, bool int8) {
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    return encode_bf16(map, base, 2, dims, box_rows);
+    return int8 ? encode_128b(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2,
+                              dims, box_rows)
+                : encode_bf16(map, base, 2, dims, box_rows);
 }
 
 // routes: 0 = FFMA tiles, 1 = mma.sync, 2 = wgmma fed by TMA
@@ -581,6 +686,16 @@ struct Kernel {
     const void* fn;
     int threads, smem;
 };
+
+template <typename E>
+Kernel wgmma_of(int bm, int bn) {
+    if (bm == 128 && bn == 256)
+        return {(const void*)wgmma_kernel<E, 2, 256>, 384,
+                wgmma_smem<2, 256>()};
+    if (bm == 64 && bn == 64)
+        return {(const void*)wgmma_kernel<E, 1, 64>, 256, wgmma_smem<1, 64>()};
+    return {nullptr, 0, 0};
+}
 
 // the kernel of (variant, route, tile), or fn == nullptr where that
 // combination does not exist; vec: the FFMA kernel for 16-byte-aligned rows
@@ -602,14 +717,8 @@ Kernel kernel_of(int variant, int route, int bm, int bn, bool vec) {
         if (variant == 2)
             return {(const void*)mma_kernel<int8_t, int>, THREADS, 0};
     }
-    if (variant == 1 && route == 2) {
-        if (tile(128, 256))
-            return {(const void*)dpa2_wgmma_kernel<2, 256>, 384,
-                    wgmma_smem<2, 256>()};
-        if (tile(64, 64))
-            return {(const void*)dpa2_wgmma_kernel<1, 64>, 256,
-                    wgmma_smem<1, 64>()};
-    }
+    if (route == 2 && variant == 1) return wgmma_of<__nv_bfloat16>(bm, bn);
+    if (route == 2 && variant == 2) return wgmma_of<int8_t>(bm, bn);
     return {nullptr, 0, 0};
 }
 
@@ -618,11 +727,13 @@ Kernel kernel_of(int variant, int route, int bm, int bn, bool vec) {
 // variant: 0 = fma_f32 (f32 in, f32 out), 1 = dpa2 (bf16 in, f32 out),
 // 2 = dpa4 (int8 in, int32 out); route and tile (bm x bn) as the wrapper's
 // plan() chose them. A [M,K], B [K,N], C [M,N], row-major and contiguous.
+// scratch: [N,K] int8 for dpa4 on wgmma (B^T, written here by the
+// transpose kernel on the same stream before the product), else unused.
 // Returns the cudaError_t of the launch (0 on success);
 // cudaErrorInvalidValue for a shape or plan no kernel takes.
 extern "C" int dpa_matmul(const void* a, const void* b, void* c, int M, int N,
                           int K, int variant, int route, int bm, int bn,
-                          void* stream) {
+                          void* scratch, void* stream) {
     const int in_size = variant == 0 ? 4 : variant == 1 ? 2 : 1;
     int vec_a = aligned16(a) && ((long long)K * in_size) % 16 == 0;
     int vec_b = aligned16(b) && ((long long)N * in_size) % 16 == 0;
@@ -639,11 +750,21 @@ extern "C" int dpa_matmul(const void* a, const void* b, void* c, int M, int N,
     }
     cudaError_t e;
     if (route == 2) {
-        // TMA: 16-byte-aligned bases and row strides
-        if (!vec_a || !vec_b) return (int)cudaErrorInvalidValue;
+        // TMA: 16-byte-aligned bases and row strides. dpa4 reads A [M,K]
+        // and B^T [N,K] (scratch), rows of K bytes; dpa2 A [M,K], B [K,N]
         CUtensorMap ta, tb;
-        if (!encode(&ta, a, M, K, bm) || !encode(&tb, b, K, N, 64))
+        const bool int8 = variant == 2;
+        if (int8 ? !(vec_a && scratch != nullptr && aligned16(scratch))
+                 : !(vec_a && vec_b))
             return (int)cudaErrorInvalidValue;
+        if (!encode(&ta, a, M, K, bm, int8)
+            || !(int8 ? encode(&tb, scratch, N, K, bn, true)
+                      : encode(&tb, b, K, N, 64, false)))
+            return (int)cudaErrorInvalidValue;
+        if (int8) {
+            e = launch_transpose(b, scratch, K, N, st);
+            if (e != cudaSuccess) return (int)e;
+        }
         void* args[] = {&ta, &tb, &c, &M, &N, &K};
         e = cudaLaunchKernel(k.fn, grid, k.threads, args, k.smem, st);
     } else if (route == 0) {
@@ -654,6 +775,16 @@ extern "C" int dpa_matmul(const void* a, const void* b, void* c, int M, int N,
         e = cudaLaunchKernel(k.fn, grid, k.threads, args, k.smem, st);
     }
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// the transpose dpa4's wgmma route runs first, alone: int8 B [K,N] ->
+// bt [N,K], K % 16 == 0, bt 16-byte aligned. Returns a cudaError_t.
+extern "C" int dpa_transpose_int8(const void* b, void* bt, int K, int N,
+                                  void* stream) {
+    if (K <= 0 || N <= 0 || K % 16 != 0 || !aligned16(bt))
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_transpose(b, bt, K, N,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // what the compiler gave the kernel of (variant, route, tile), the FFMA

@@ -98,9 +98,10 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units. K-major: the stride is
-// 1024 bytes between groups of 8 rows (the leading offset is unused).
-// MN-major: the leading offset steps between 64-column boxes, the stride
-// between groups of 8 k rows.
+// 1024 bytes between groups of 8 rows (the leading offset is unused), and
+// each 32-byte K step inside the 128-byte row moves the start address by
+// 32. MN-major: the leading offset steps between 64-column boxes, the
+// stride between groups of 8 k rows.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
     return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16)
@@ -126,6 +127,12 @@ template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // the driver's cuTensorMapEncodeTiled, through the runtime's entry-point
@@ -154,27 +161,34 @@ inline EncodeTiled encode_tiled() {
     return fn;
 }
 
-// a contiguous bf16 tensor of `rank` dims (`dims` innermost first) in boxes
-// of 64 inner elements (128 bytes) by `box_rows` by 1 ..., 128-byte swizzle,
-// zeros past the tensor on loads
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+// a contiguous tensor of `rank` dims (`dims` innermost first) of `type`,
+// `elem_bytes` an element, in boxes of 128 bytes of inner elements by
+// `box_rows` by 1 ..., 128-byte swizzle, zeros past the tensor on loads
+inline bool encode_128b(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType type, int elem_bytes, int rank,
                         const cuuint64_t* dims, int box_rows) {
     const EncodeTiled fn = encode_tiled();
     if (fn == nullptr || rank < 2 || rank > 5) return false;
     cuuint64_t strides[4];
     cuuint32_t box[5], step[5];
-    cuuint64_t stride = 2;
+    cuuint64_t stride = elem_bytes;
     for (int i = 0; i < rank; ++i) {
         if (i > 0) strides[i - 1] = stride;
         stride *= dims[i];
-        box[i] = i == 0 ? 64 : i == 1 ? (cuuint32_t)box_rows : 1;
+        box[i] = i == 0 ? 128 / elem_bytes : i == 1 ? (cuuint32_t)box_rows : 1;
         step[i] = 1;
     }
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-              const_cast<void*>(base), dims, strides, box, step,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+    return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+              step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16: boxes of 64 inner elements
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, int box_rows) {
+    return encode_128b(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rank,
+                       dims, box_rows);
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }

@@ -10,10 +10,18 @@
 // operations per byte: the bound is bytes, the HBM rate (3.35 TB/s on the
 // H100 SXM data sheet), or the 50 MB L2's rate for buffers that fit there.
 // The design therefore only has to keep enough bytes in flight:
-//   * elementwise ops: one grid-stride loop over the flat buffer, each
-//     thread moving 16 bytes per access (float4 / 8 bf16) when all pointers
-//     are 16-byte aligned, a scalar loop for the tail; the grid is capped at
-//     16 blocks of 256 threads per SM, so each thread walks several vectors;
+//   * elementwise ops (copy, scale, add, triad, write): one kernel,
+//     stream_ew_kernel<T, OP, VEC>, one 16-byte access (float4 / 8 bf16)
+//     a thread and input over one pass of ceil(n / (256 threads x 16
+//     bytes)) blocks with no grid stride: a block that ends is replaced by
+//     the next, so no second wave of long blocks trails behind a grid
+//     capped below the work. Eight resident blocks an SM keep 32 KB an
+//     input in flight, more than the HBM's rate times its latency asks:
+//     2 and 4 accesses a thread and the evict-first hints (ld/st.global.cs)
+//     measured no faster at 128 MiB on the H100
+//     (benchmarks/stream_designs.py keeps them as a yardstick). Where a
+//     pointer is not 16-byte aligned the same kernel moves single
+//     elements; the vector path's last n % V elements go by block 0;
 //   * read: one block of 1024 threads per row block (the block's elements
 //     are contiguous), an f32 accumulator per thread over 16-byte loads,
 //     then a warp-shuffle and shared-memory tree; each output belongs to
@@ -30,12 +38,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
 enum Op { COPY = 0, SCALE = 1, ADD = 2, TRIAD = 3, WRITE = 4 };
 
 constexpr int EW_THREADS = 256;
-constexpr int EW_BLOCKS_PER_SM = 16;
 constexpr int READ_THREADS = 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -58,30 +68,35 @@ __device__ __forceinline__ T apply(T a, T b, float x) {
     return from_f32<T>(__fadd_rn(to_f32(p), to_f32(b)));
 }
 
-template <typename T, int OP>
+// one access of C (16-byte uint4 where every pointer is 16-byte aligned,
+// else one element) a thread and input; one pass of blocks over the
+// buffer, no grid stride. VEC: the n % V elements past the last 16-byte
+// access go by block 0.
+template <typename T, int OP, bool VEC>
 __global__ void __launch_bounds__(EW_THREADS)
 stream_ew_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                 T* __restrict__ o, float x, long long n, int vec) {
-    constexpr int V = 16 / sizeof(T);
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long nv = vec ? n / V : 0;
-    const bool reads_a = OP != WRITE;
-    const bool reads_b = OP == ADD || OP == TRIAD;
-    for (long long i = tid; i < nv; i += stride) {
-        uint4 ra = make_uint4(0, 0, 0, 0), rb = make_uint4(0, 0, 0, 0), ro;
-        if (reads_a) ra = reinterpret_cast<const uint4*>(a)[i];
-        if (reads_b) rb = reinterpret_cast<const uint4*>(b)[i];
+                 T* __restrict__ o, float x, long long n) {
+    using C = typename std::conditional<VEC, uint4, T>::type;
+    constexpr int E = sizeof(C) / sizeof(T);           // elements an access
+    constexpr bool reads_a = OP != WRITE;
+    constexpr bool reads_b = OP == ADD || OP == TRIAD;
+    const long long items = n / E;
+    const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+    if (i < items) {
+        C ra = {}, rb = {}, ro;
+        if (reads_a) ra = reinterpret_cast<const C*>(a)[i];
+        if (reads_b) rb = reinterpret_cast<const C*>(b)[i];
         const T* pa = reinterpret_cast<const T*>(&ra);
         const T* pb = reinterpret_cast<const T*>(&rb);
         T* po = reinterpret_cast<T*>(&ro);
 #pragma unroll
-        for (int j = 0; j < V; ++j) po[j] = apply<T, OP>(pa[j], pb[j], x);
-        reinterpret_cast<uint4*>(o)[i] = ro;
+        for (int j = 0; j < E; ++j) po[j] = apply<T, OP>(pa[j], pb[j], x);
+        reinterpret_cast<C*>(o)[i] = ro;
     }
-    for (long long e = nv * V + tid; e < n; e += stride) {
-        T va = reads_a ? a[e] : from_f32<T>(0.f);
-        T vb = reads_b ? b[e] : from_f32<T>(0.f);
+    if (VEC && blockIdx.x == 0 && threadIdx.x < n - items * E) {
+        const long long e = items * E + threadIdx.x;
+        const T va = reads_a ? a[e] : from_f32<T>(0.f);
+        const T vb = reads_b ? b[e] : from_f32<T>(0.f);
         o[e] = apply<T, OP>(va, vb, x);
     }
 }
@@ -119,32 +134,26 @@ stream_read_kernel(const T* __restrict__ a, T* __restrict__ o,
     }
 }
 
-int ew_grid(long long work) {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        if (cudaGetDevice(&dev) != cudaSuccess ||
-            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-            sms = 132;
-    }
-    long long blocks = (work + EW_THREADS - 1) / EW_THREADS;
-    long long cap = (long long)sms * EW_BLOCKS_PER_SM;
-    if (blocks > cap) blocks = cap;
-    return blocks < 1 ? 1 : (int)blocks;
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 template <typename T, int OP>
 int launch_ew(const void* a, const void* b, void* o, float x, long long n,
               cudaStream_t st) {
     constexpr int V = 16 / sizeof(T);
-    const int vec = aligned16(o) && (a == nullptr || aligned16(a)) &&
-                    (b == nullptr || aligned16(b));
-    const long long work = vec ? n / V + (n % V) : n;
-    stream_ew_kernel<T, OP><<<ew_grid(work), EW_THREADS, 0, st>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b),
-        static_cast<T*>(o), x, n, vec);
+    const bool vec = aligned16(o) && (a == nullptr || aligned16(a)) &&
+                     (b == nullptr || aligned16(b));
+    const long long items = vec ? n / V : n;
+    const long long blocks = std::max(1LL, (items + EW_THREADS - 1) / EW_THREADS);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const T* ta = static_cast<const T*>(a);
+    const T* tb = static_cast<const T*>(b);
+    T* to = static_cast<T*>(o);
+    if (vec)
+        stream_ew_kernel<T, OP, true><<<(unsigned)blocks, EW_THREADS, 0, st>>>(
+            ta, tb, to, x, n);
+    else
+        stream_ew_kernel<T, OP, false><<<(unsigned)blocks, EW_THREADS, 0, st>>>(
+            ta, tb, to, x, n);
     return (int)cudaGetLastError();
 }
 

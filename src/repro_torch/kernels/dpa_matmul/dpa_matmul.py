@@ -5,9 +5,11 @@
 49-60``), checks the reference's block divisibility (raising
 ``ValueError`` where the reference asserts), picks the kernel's route and
 tile with ``plan`` from the shape alone, and hands them to ``launch``,
-which allocates the output, launches the kernel on the current CUDA stream
-and counts the launch in ``launches[variant]`` and
-``route_launches["variant/route"]``. A CPU tensor goes to the plain version
+which allocates the output (and for dpa4 on wgmma the ``[N,K]`` scratch
+that its transpose kernel fills with B^T), launches the kernel on the
+current CUDA stream with one C call and counts the launch in
+``launches[variant]`` and ``route_launches["variant/route"]``. A CPU
+tensor goes to the plain version
 (``ref.matmul``); a CUDA tensor goes to the kernel or raises. The block
 sizes are the reference's TPU tiling: they only decide which shapes are
 accepted, the kernel tiles by ``plan``'s sizes.
@@ -33,9 +35,10 @@ VARIANTS = {
 #: the kernel's routes and their codes: FFMA tiles on the CUDA cores,
 #: mma.sync, wgmma fed by a TMA ring
 ROUTE_CODES = {"ffma": 0, "mma": 1, "wgmma": 2}
-#: the routes each variant may take; dpa2 takes mma only where TMA cannot
-#: describe its operands
-ROUTES = {"fma_f32": ("ffma",), "dpa2": ("wgmma", "mma"), "dpa4": ("mma",)}
+#: the routes each variant may take; dpa2 and dpa4 take mma only where TMA
+#: cannot describe their operands (``tma_ok``)
+ROUTES = {"fma_f32": ("ffma",), "dpa2": ("wgmma", "mma"),
+          "dpa4": ("wgmma", "mma")}
 #: (block_m, block_n) tiles the kernel has for each route, largest first
 TILES = {"ffma": ((128, 128), (64, 64)),
          "mma": ((128, 128),),
@@ -46,12 +49,18 @@ launches: Dict[str, int] = dict.fromkeys(VARIANTS, 0)
 #: the same launches by "variant/route"
 route_launches: Dict[str, int] = {f"{v}/{r}": 0 for v, rs in ROUTES.items()
                                   for r in rs}
+#: launches of the int8 transpose kernel: one with every dpa4 launch on
+#: wgmma, one with every ``transpose_int8`` call
+transposes: Dict[str, int] = {"launches": 0}
 
 
-def tma_ok(n: int, k: int) -> bool:
-    """Whether TMA can describe bf16 A [M,K] and B [K,N] row-major: each
-    row's byte stride a multiple of 16 (``launch`` makes the bases 16-byte
-    aligned)."""
+def tma_ok(n: int, k: int, variant: str) -> bool:
+    """Whether TMA can describe the wgmma route's operands of ``variant``:
+    each row's byte stride a multiple of 16 (``launch`` makes the bases
+    16-byte aligned). dpa2 reads bf16 A [M,K] and B [K,N]; dpa4 reads int8
+    A [M,K] and B^T [N,K], which its transpose writes (any N)."""
+    if variant == "dpa4":
+        return k % 16 == 0
     return (2 * k) % 16 == 0 and (2 * n) % 16 == 0
 
 
@@ -59,12 +68,12 @@ def plan(m: int, n: int, k: int, variant: str,
          sm_count: int) -> Tuple[str, int, int]:
     """(route, block_m, block_n) of the kernel for C[m,n] = A[m,k] @ B[k,n].
 
-    The route follows the variant and the shape: fma_f32 -> ffma, dpa4 ->
-    mma, dpa2 -> wgmma where ``tma_ok(n, k)``, else mma. The tile is the
-    largest of the route's ``TILES`` whose grid has at least ``sm_count``
-    blocks, else the route's smallest (the most blocks)."""
-    if variant == "dpa2":
-        route = "wgmma" if tma_ok(n, k) else "mma"
+    The route follows the variant and the shape: fma_f32 -> ffma; dpa2 and
+    dpa4 -> wgmma where ``tma_ok(n, k, variant)``, else mma. The tile is
+    the largest of the route's ``TILES`` whose grid has at least
+    ``sm_count`` blocks, else the route's smallest (the most blocks)."""
+    if variant in ("dpa2", "dpa4"):
+        route = "wgmma" if tma_ok(n, k, variant) else "mma"
     elif variant in ROUTES:
         route = ROUTES[variant][0]
     else:
@@ -85,7 +94,7 @@ def _kernel():
     fn = build.load("dpa_matmul").dpa_matmul
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -161,9 +170,14 @@ def launch(a, b, variant, route, bm, bn):
     a = _aligned(a.to(in_dtype).contiguous())
     b = _aligned(b.to(in_dtype).contiguous())
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    # dpa4 on wgmma: B^T, which the C call writes before the product
+    transposed = variant == "dpa4" and route == "wgmma"
+    scratch = (torch.empty((n, k), dtype=torch.int8, device=a.device)
+               if transposed else None)
     with torch.cuda.device(a.device):
         rc = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
                        code, ROUTE_CODES[route], bm, bn,
+                       scratch.data_ptr() if transposed else None,
                        torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dpa_matmul kernel launch failed ({variant}, "
@@ -171,4 +185,36 @@ def launch(a, b, variant, route, bm, bn):
                            f"cudaError {rc}")
     launches[variant] += 1
     route_launches[f"{variant}/{route}"] += 1
+    if transposed:
+        transposes["launches"] += 1
+    return out
+
+
+def transpose_int8(b):
+    """int8 b [K,N] -> [N,K] by the transpose kernel that dpa4's wgmma
+    route runs before its product (K a multiple of 16); counts the launch
+    in ``transposes``. A CPU tensor goes to the plain version,
+    ``b.t().contiguous()``."""
+    if b.dim() != 2 or b.dtype != torch.int8:
+        raise ValueError(f"transpose_int8 takes an int8 [K,N] matrix, got "
+                         f"{b.dtype} {tuple(b.shape)}")
+    if b.device.type == "cpu":
+        return b.t().contiguous()
+    if b.device.type != "cuda":
+        raise ValueError(f"transpose_int8: no kernel for {b.device}")
+    k, n = b.shape
+    b = b.contiguous()
+    out = torch.empty((n, k), dtype=torch.int8, device=b.device)
+    fn = build.load("dpa_matmul").dpa_transpose_int8
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(b.device):
+        rc = fn(b.data_ptr(), out.data_ptr(), k, n,
+                torch.cuda.current_stream(b.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"transpose_int8 launch failed (K {k} N {n}): "
+                           f"cudaError {rc}")
+    transposes["launches"] += 1
     return out

@@ -273,6 +273,55 @@ def test_stream_kernels_match_plain_versions(dtype):
     torch.cuda.synchronize()
 
 
+def _stream_pairs(a, b, x):
+    shape, dt = tuple(a.shape), a.dtype
+    return {
+        "stream_copy": (sk.stream_copy(a), stream_ref.copy(a)),
+        "stream_scale": (sk.stream_scale(a, x), stream_ref.scale(a, x)),
+        "stream_add": (sk.stream_add(a, b), stream_ref.add(a, b)),
+        "stream_triad": (sk.stream_triad(a, b, x),
+                         stream_ref.triad(a, b, x)),
+        "stream_write": (sk.stream_write(shape, x, dt),
+                         stream_ref.write(shape, x, dt, "cuda")),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_elementwise_at_16_mib_matches_plain_versions(dtype):
+    """16 MiB, the bandwidth bench's size that fits in L2: bitwise."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    rows = (16 << 20) // (1024 * torch.tensor([], dtype=dtype).element_size())
+    a = torch.randn(rows, 1024, device="cuda", generator=g).to(dtype)
+    b = torch.randn(rows, 1024, device="cuda", generator=g).to(dtype)
+    for name, (got, want) in _stream_pairs(a, b, 1.7).items():
+        assert torch.equal(got, want), (name, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_stream_elementwise_on_unaligned_views_matches_plain_versions(
+        dtype, which):
+    """Contiguous views that start one element past a 16-byte boundary
+    take the kernel's single-element path: bitwise."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    shape = (64, 1000)
+    x = {}
+    for name in ("a", "b"):
+        shift = int(name == which)
+        x[name] = torch.randn(shift + 64 * 1000, device="cuda",
+                              generator=g).to(dtype)[shift:].view(shape)
+    assert x[which].data_ptr() % 16 != 0
+    for name, (got, want) in _stream_pairs(x["a"], x["b"], 1.7).items():
+        if name != "stream_write":
+            assert torch.equal(got, want), (name, dtype, which)
+
+
 @pytest.mark.cuda
 def test_stream_kernels_count_their_launches_and_refuse_ragged_rows():
     _need_cuda()
@@ -385,9 +434,18 @@ def test_dpa_matmul_edges_take_their_planned_route(variant):
         assert _dpa_holds(got, want, a, b, variant), (m, k, n)
 
 
+# dpa4 on wgmma takes K % 16 == 0 and any M and N: one 64^3 tile, M and N
+# ragged against both tiles with K 16 x 63, M below 64 with K 16 x 13, K
+# 16 x 7 with M and N odd (odd rows: the transpose's byte loads, the
+# epilogue's single stores), and 1024^3
+DPA4_TILE_SHAPES = [(64, 64, 64), (300, 1008, 520), (8, 208, 72),
+                    (72, 112, 117), (1024, 1024, 1024)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,route", [("dpa2", "wgmma"),
-                                           ("fma_f32", "ffma")])
+                                           ("fma_f32", "ffma"),
+                                           ("dpa4", "wgmma")])
 def test_dpa_matmul_every_tile_matches_plain_version(variant, route):
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -395,9 +453,11 @@ def test_dpa_matmul_every_tile_matches_plain_version(variant, route):
     g.manual_seed(5)
     # odd K and N only where the route takes rows of any alignment
     odd = [(72, 99, 117)] if route == "ffma" else []
+    shapes = ([(64, 64, 64), (96, 200, 640), (8, 128, 64), (300, 1000, 520),
+               (1024, 1024, 1024)] + odd if variant != "dpa4"
+              else DPA4_TILE_SHAPES)
     for bm, bn in dk.TILES[route]:
-        for m, k, n in [(64, 64, 64), (96, 200, 640), (8, 128, 64),
-                        (300, 1000, 520), (1024, 1024, 1024)] + odd:
+        for m, k, n in shapes:
             a, b = _dpa_inputs(m, k, n, variant, g)
             got = dk.launch(a, b, variant, route, bm, bn)
             want = dpa_ref.matmul(a, b, variant)
@@ -413,3 +473,46 @@ def test_dpa2_wgmma_route_refuses_rows_tma_cannot_describe(m, k, n):
     b = torch.zeros(k, n, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="cudaError"):
         dk.launch(a, b, "dpa2", "wgmma", 64, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,tile", [(200, (64, 64)), (200, (128, 256)),
+                                    (72, (64, 64))])
+def test_dpa4_wgmma_route_refuses_k_tma_cannot_describe(k, tile):
+    """int8 rows of A and B^T are K bytes: K % 16 != 0 raises, and neither
+    the product nor the transpose is counted."""
+    _need_cuda()
+    a = torch.zeros(64, k, device="cuda", dtype=torch.int8)
+    b = torch.zeros(k, 64, device="cuda", dtype=torch.int8)
+    before = (dict(dk.route_launches), dict(dk.transposes))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        dk.launch(a, b, "dpa4", "wgmma", *tile)
+    assert (dict(dk.route_launches), dict(dk.transposes)) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,shift", [(16, 1, 0), (112, 117, 0),
+                                       (208, 72, 0), (1008, 520, 0),
+                                       (2048, 4096, 0), (1008, 520, 1)])
+def test_transpose_int8_kernel_matches_plain_version(k, n, shift):
+    """The transpose dpa4's wgmma route runs first, alone: bitwise equal to
+    ``b.t().contiguous()``, K and N ragged against its 128 x 128 tile, N
+    not a multiple of 16 (byte loads), and B off a 16-byte boundary."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    b = torch.randint(-128, 128, (shift + k * n,), device="cuda",
+                      generator=g, dtype=torch.int8)[shift:].view(k, n)
+    before = dk.transposes["launches"]
+    got = dk.transpose_int8(b)
+    assert dk.transposes["launches"] == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (n, k) and torch.equal(got, b.t().contiguous())
+
+
+@pytest.mark.cuda
+def test_transpose_int8_refuses_k_not_a_multiple_of_16():
+    _need_cuda()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        dk.transpose_int8(torch.zeros(200, 64, device="cuda",
+                                      dtype=torch.int8))

@@ -228,7 +228,20 @@ def test_plan_routes_dpa2_edge_shapes(m, k, n, route):
     assert dk.plan(m, n, k, "dpa2", H100_SMS)[0] == route
 
 
-@pytest.mark.parametrize("variant", ["fma_f32", "dpa2"])
+@pytest.mark.parametrize("m,k,n,route", [
+    (96, 200, 640, "mma"),       # A and B^T rows of 200 bytes
+    (64, 100, 64, "mma"),        # rows of 100 bytes
+    (72, 99, 117, "mma"),        # K odd
+    (64, 64, 100, "wgmma"),      # N is free: the transpose takes any N
+    (300, 1008, 520, "wgmma"),   # K 16 x 63, M and N ragged
+    (8, 208, 72, "wgmma"),       # M below 64
+    (4096, 4096, 4096, "wgmma"),
+])
+def test_plan_routes_dpa4_edge_shapes(m, k, n, route):
+    assert dk.plan(m, n, k, "dpa4", H100_SMS)[0] == route
+
+
+@pytest.mark.parametrize("variant", ["fma_f32", "dpa2", "dpa4"])
 def test_plan_fills_the_card_at_the_bench_size(variant):
     """512^3 gets at least 32 blocks on an H100's 132 SMs (a 128x128 tile
     gives 16)."""
@@ -242,10 +255,16 @@ def test_plan_fills_the_card_at_the_bench_size(variant):
 @settings(max_examples=200, deadline=None)
 @given(m=_dim["mn"], n=_dim["mn"], k=_dim["k"],
        sms=st.integers(1, 2000))
-def test_plan_keeps_fma_off_the_tensor_cores_and_dpa4_on_mma_property(
+def test_plan_keeps_fma_on_ffma_and_dpa4_on_wgmma_where_tma_reads_it_property(
         m, n, k, sms):
+    """fma_f32 stays on FFMA; dpa4 takes wgmma exactly where TMA can
+    describe int8 A [M,K] and B^T [N,K] (rows of K bytes, a multiple of
+    16), else mma.sync's 128x128 tile."""
     assert dk.plan(m, n, k, "fma_f32", sms)[0] == "ffma"
-    assert dk.plan(m, n, k, "dpa4", sms) == ("mma", 128, 128)
+    route, bm, bn = dk.plan(m, n, k, "dpa4", sms)
+    assert (route == "wgmma") == dk.tma_ok(n, k, "dpa4") == (k % 16 == 0)
+    if route == "mma":
+        assert (bm, bn) == (128, 128)
 
 
 def test_plan_refuses_an_unknown_variant():
@@ -284,3 +303,26 @@ def test_launch_checks_its_operands_and_plan(case):
         variant = "fp8"
     with pytest.raises(ValueError):
         dk.launch(a, b, variant, route, *tile)
+
+
+def test_transpose_int8_on_the_host_is_the_plain_transpose_and_not_counted():
+    b = torch.from_numpy(np.random.default_rng(10).integers(
+        -128, 128, (208, 77)).astype(np.int8))
+    before = dict(dk.transposes)
+    got = dk.transpose_int8(b)
+    assert got.shape == (77, 208) and got.is_contiguous()
+    assert torch.equal(got, b.t())
+    assert dk.transposes == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "rank", "device"])
+def test_transpose_int8_checks_its_operand(case):
+    b = torch.zeros(32, 16, dtype=torch.int8)
+    if case == "dtype":
+        b = b.float()
+    elif case == "rank":
+        b = b.view(2, 16, 16)
+    elif case == "device":
+        b = b.to("meta")
+    with pytest.raises(ValueError):
+        dk.transpose_int8(b)
