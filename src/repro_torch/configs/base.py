@@ -111,6 +111,9 @@ class ModelConfig:
 #: adds the ones it serves)
 ARCH_NAMES = [
     "granite-20b",
+    "deepseek-coder-33b",
+    "gemma3-27b",
+    "qwen3-32b",
 ]
 
 

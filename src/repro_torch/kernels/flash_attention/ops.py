@@ -3,9 +3,9 @@
 
 ``flash_attention`` checks its inputs, picks the kernel's route and tile
 with ``plan`` from the shape, dtype and the inputs' alignment and hands
-them to ``launch``, which
-allocates the output, launches the kernel on the current CUDA stream and
-counts the launch in ``launches`` and ``route_launches[route]``. A CPU
+them to ``launch``, which allocates the output, launches the kernel on the
+current CUDA stream and counts the launch in ``launches``,
+``route_launches[route]`` and, with a window, ``window_launches``. A CPU
 tensor goes to the plain version (``ref.attention``); a CUDA tensor goes to
 the planned kernel or raises.
 
@@ -28,6 +28,9 @@ from repro_torch.kernels.flash_attention import ref
 launches = 0
 #: the same launches by route (callers zero them)
 route_launches: Dict[str, int] = {"ffma": 0, "wgmma": 0}
+#: the launches with a sliding window (gemma3's local layers; callers zero
+#: it)
+window_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,7 +157,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _launch(q, k, v, causal, window, q_offset, route, block_m):
     """``launch`` on inputs that ``_check`` has passed."""
-    global launches
+    global launches, window_launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -173,4 +176,6 @@ def _launch(q, k, v, causal, window, q_offset, route, block_m):
                            f"cudaError {rc}")
     launches += 1
     route_launches[route] += 1
+    if window is not None:
+        window_launches += 1
     return out

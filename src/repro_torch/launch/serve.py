@@ -1,12 +1,13 @@
 """Serving driver for the PyTorch port.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-20b \
-        --smoke --requests 6 --max-new 16 --power-cap 150
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
+        --smoke --requests 6 --max-new 16 --engine continuous --power-cap 150
 
-Serves synthetic prompts through the continuous engine (request queue, slot
-recycling, paged KV with radix prefix sharing, energy-aware admission) with
-per-request energy attribution from the ``repro_torch.telemetry`` tag bus
-and a typed ``EnergyReport`` summary. Runs on the CUDA card unless
+Serves synthetic prompts through either engine — ``static`` (padded batch,
+lock-step decode) or ``continuous`` (request queue, slot recycling, paged
+KV with radix prefix sharing or window rings, energy-aware admission) —
+with per-request energy attribution from the ``repro_torch.telemetry`` tag
+bus and a typed ``EnergyReport`` summary. Runs on the CUDA card unless
 ``--device cpu`` asks for the host.
 """
 from __future__ import annotations
@@ -20,36 +21,47 @@ from repro_torch import configs
 from repro_torch.core.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.registry import serving_caps
-from repro_torch.serve.engine import ContinuousEngine, Request
+from repro_torch.obs import write_chrome_trace
+from repro_torch.serve.engine import ContinuousEngine, Request, ServeEngine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-20b")
+    ap.add_argument("--arch", default="gemma3-27b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device: the CUDA card by default; 'cpu' "
                          "runs on the host")
+    ap.add_argument("--engine", choices=["static", "continuous"],
+                    default="continuous")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=64)
     ap.add_argument("--power-cap", type=float, default=None,
-                    help="node power cap in W")
+                    help="node power cap in W (continuous engine only)")
     ap.add_argument("--prefill-buckets", default="auto",
                     help="prompt-length bucketing: 'auto' (power-of-two "
                          "edges, bounded prefill signatures), 'off' (exact "
                          "lengths), or explicit comma-separated edges like "
                          "'8,16,32'")
     ap.add_argument("--kv-block-size", default="auto",
-                    help="paged KV cache block size: 'auto' (largest "
-                         "power-of-two <= 32 dividing max-seq) or an "
-                         "explicit size dividing max-seq")
+                    help="paged KV cache block size (continuous engine): "
+                         "'auto' (largest power-of-two <= 32 dividing "
+                         "max-seq; contiguous for model families that "
+                         "cannot page), 'off' (contiguous per-slot cache), "
+                         "or an explicit size dividing max-seq")
     ap.add_argument("--prefix-cache", default="auto",
                     choices=["auto", "on", "off"],
-                    help="radix prefix cache over prompt blocks: shared "
-                         "prompt prefixes prefill once")
+                    help="radix prefix cache over prompt blocks (requires "
+                         "paged KV): shared prompt prefixes prefill once; "
+                         "'auto' enables it exactly when the model family "
+                         "supports paged KV")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Perfetto/chrome-trace timeline JSON: "
+                         "request-lifecycle + engine-step spans with "
+                         "per-span attributed joules")
     ap.add_argument("--metrics-json", default=None,
                     help="write the engine metrics-registry snapshot "
                          "(deterministic JSON)")
@@ -57,13 +69,22 @@ def main(argv=None):
     buckets = (args.prefill_buckets
                if args.prefill_buckets in ("auto", "off")
                else [int(b) for b in args.prefill_buckets.split(",")])
-    kv_block = (args.kv_block_size if args.kv_block_size == "auto"
+    kv_block = (args.kv_block_size if args.kv_block_size in ("auto", "off")
                 else int(args.kv_block_size))
 
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    use_prefix = (serving_caps(cfg).prefix_cache
-                  if args.prefix_cache == "auto"
+    caps = serving_caps(cfg)
+    # Fail fast on flag/family combinations the engine would reject later,
+    # with the flag value that fixes them.
+    if args.prefix_cache == "on" and not caps.prefix_cache:
+        ap.error(f"--prefix-cache on: the {cfg.family!r} family serves "
+                 f"through the {caps.kind!r} adapter, which has no paged KV "
+                 f"to share prefixes in (use --prefix-cache auto)")
+    if isinstance(kv_block, int) and not caps.paged_kv:
+        ap.error(f"--kv-block-size {kv_block}: the {cfg.family!r} family "
+                 f"cannot page its cache (use --kv-block-size auto)")
+    use_prefix = (caps.prefix_cache if args.prefix_cache == "auto"
                   else args.prefix_cache == "on")
 
     model = build_model(cfg)
@@ -76,16 +97,33 @@ def main(argv=None):
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
 
-    engine = ContinuousEngine(model, params, batch_size=args.batch,
-                              max_seq=args.max_seq,
-                              power_cap_w=args.power_cap,
-                              prefill_buckets=buckets,
-                              kv_block_size=kv_block,
-                              prefix_cache=use_prefix)
-    stats = engine.serve(reqs)
+    if args.engine == "static":
+        engine = ServeEngine(model, params, batch_size=args.batch,
+                             max_seq=args.max_seq, prefill_buckets=buckets)
+        stats = {}
+        for i in range(0, len(reqs), args.batch):
+            group = engine.serve(reqs[i:i + args.batch])
+            for k, v in group.items():
+                # compile counts are engine-lifetime cumulative, not per-call
+                if isinstance(v, (int, float)) and not k.endswith("_compiles"):
+                    stats[k] = stats.get(k, 0.0) + v
+        stats["decode_tok_per_s"] = (stats["tokens_decoded"] /
+                                     stats["decode_s"] if stats.get("decode_s")
+                                     else 0.0)
+        stats["energy_by_tag"] = dict(engine.tel.session.report().by_tag)
+        stats["prefill_compiles"] = engine.trace_stats.compiles("prefill")
+        stats["decode_compiles"] = engine.trace_stats.compiles("decode")
+    else:
+        engine = ContinuousEngine(model, params, batch_size=args.batch,
+                                  max_seq=args.max_seq,
+                                  power_cap_w=args.power_cap,
+                                  prefill_buckets=buckets,
+                                  kv_block_size=kv_block,
+                                  prefix_cache=use_prefix)
+        stats = engine.serve(reqs)
 
-    print(f"arch={cfg.name} engine=continuous device={device} "
-          f"adapter={stats['adapter']} family={cfg.family} "
+    print(f"arch={cfg.name} engine={args.engine} device={device} "
+          f"adapter={stats.get('adapter', 'static')} family={cfg.family} "
           f"reqs={args.requests} "
           f"prefill={stats['prefill_s']*1e3:.0f}ms "
           f"decode={stats['decode_s']*1e3:.0f}ms "
@@ -93,15 +131,24 @@ def main(argv=None):
     print(f"compiles: prefill={stats['prefill_compiles']} "
           f"decode={stats['decode_compiles']} "
           f"buckets={list(engine.buckets) if engine.buckets else 'off'}")
-    pc = stats.get("prefix_cache")
-    pc_str = (f" prefix-cache hit-rate={pc['hit_rate']:.0%} "
-              f"cached-tokens={pc['cached_tokens']}" if pc else "")
-    print(f"paged-kv: block={stats['kv_block_size']} "
-          f"peak-blocks={stats['kv_pages']['peak_used']}/"
-          f"{stats['kv_pages']['total_blocks']}{pc_str}")
+    if stats.get("kv_block_size"):
+        pc = stats.get("prefix_cache")
+        pc_str = (f" prefix-cache hit-rate={pc['hit_rate']:.0%} "
+                  f"cached-tokens={pc['cached_tokens']}" if pc else "")
+        print(f"paged-kv: block={stats['kv_block_size']} "
+              f"peak-blocks={stats['kv_pages']['peak_used']}/"
+              f"{stats['kv_pages']['total_blocks']}{pc_str}")
     if engine.tel is not None:
+        # full-session telemetry report from the unified API
         rep = engine.tel.session.report(tokens=stats.get("tokens_decoded"))
         print(f"energy: {rep}")
+    if args.trace_out and engine.tracer is not None:
+        write_chrome_trace(
+            args.trace_out, engine.tracer,
+            session=engine.tel.session if engine.tel is not None else None,
+            meta={"process": "dalek-serve", "arch": cfg.name,
+                  "engine": args.engine})
+        print(f"timeline -> {args.trace_out}")
     if args.metrics_json:
         engine.metrics.write_json(args.metrics_json)
         print(f"metrics -> {args.metrics_json}")

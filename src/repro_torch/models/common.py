@@ -8,8 +8,10 @@ place (and return them): a serving step then holds one copy of its cache
 view instead of one per layer.
 
 Prefill attention runs on the Hopper flash kernel
-(``repro_torch.kernels.flash_attention``); single-token decode attention
-stays plain tensor ops over the gathered cache view, as in the reference.
+(``repro_torch.kernels.flash_attention``), causal on global layers and with
+the sliding window on gemma3's local ones; single-token decode attention
+(over a flat cache or a window ring) stays plain tensor ops over the
+gathered cache view, as in the reference.
 """
 from __future__ import annotations
 
@@ -76,10 +78,14 @@ def _proj(x, w):
 
 
 def _qkv(x, p, cfg: ModelConfig, rope_cs):
-    """Projected q [B,S,H,Dh] and k, v [B,S,Hkv,Dh], RoPE applied."""
+    """Projected q [B,S,H,Dh] and k, v [B,S,Hkv,Dh]; with ``cfg.qk_norm``
+    each head of q and k is RMS-normed before RoPE."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     cos, sin = rope_cs
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -143,17 +149,19 @@ def attention_scores(q, k, v, mask, scores_f32=True):
     return (o / denom.to(o.dtype)).reshape(b, s, h, dh)
 
 
-def blocked_attention(q, k, v, *, q_offset=0):
+def blocked_attention(q, k, v, *, q_offset=0, window=None):
     """Causal prefill attention on the flash kernel.
 
     q [B,S,H,Dh]; k, v [B,T,Hkv,Dh]. Query row i sits at position
     ``q_offset + i`` and key j at position j, so under causal masking the
     cache tail past ``q_offset + S`` is never read — the same result as the
     reference's ``blocked_attention`` with its invalid key positions sent to
-    ``2**30``."""
+    ``2**30``. ``window``: row i sees only keys j with
+    ``q_offset + i - j < window`` (a local layer)."""
     o = flash_attention(q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), q_offset=q_offset)
+                        v.transpose(1, 2).contiguous(), q_offset=q_offset,
+                        window=window)
     return o.transpose(1, 2)
 
 
@@ -177,50 +185,67 @@ def write_cache(cache, new, cache_pos):
     return cache
 
 
-def attention(x, p, cfg: ModelConfig, *, positions, rope_cs=None,
-              kv_cache=None, cache_pos=None):
-    """Causal attention module of the flat-cache path (every layer global,
-    so no window). Returns (out, kv_cache).
+def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
+              rope_cs=None, kv_cache=None, cache_pos=None, cache_slot=None,
+              k_positions=None, k_valid=None, return_kv=False):
+    """Causal attention module. Returns (out, kv_cache), or (out, (k, v))
+    of the fresh keys and values with ``return_kv``.
+
+    A local layer (``is_global`` False with ``cfg.sliding_window`` > 0)
+    sees only the last ``sliding_window`` positions.
 
     kv_cache: optional (k_cache, v_cache) of shape [B, T_max, Hkv, Dh],
     written in place at ``cache_pos`` (a Python int, or a [B] tensor during
-    single-token decode with ``positions`` [B, 1]). Without a cache the
-    call attends over its own keys at ``positions`` 0..S-1 (the training/
-    scoring forward)."""
+    single-token decode with ``positions`` [B, 1]), or at ``cache_slot``
+    when the cache is a window ring; a ring passes the position each slot
+    holds as ``k_positions`` ([W] or [B, W]) and which slots hold one as
+    ``k_valid``. Without a cache the call attends over its own keys at
+    ``positions`` (the training/scoring forward and a local layer's
+    prefill)."""
     b, s, _ = x.shape
+    window = (cfg.sliding_window
+              if cfg.sliding_window > 0 and not is_global else None)
     if rope_cs is None:
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     q, k, v = _qkv(x, p, cfg, rope_cs)
+    fresh_kv = (k, v)
 
     if kv_cache is None:
-        o = blocked_attention(q, k, v)
+        # the masks depend on position differences only, so the call's own
+        # keys sit at offset 0 whatever ``positions`` start at
+        o = blocked_attention(q, k, v, window=window)
     else:
         ck, cv = kv_cache
-        write_cache(ck, k, cache_pos)
-        write_cache(cv, v, cache_pos)
+        write_at = cache_pos if cache_slot is None else cache_slot
+        write_cache(ck, k, write_at)
+        write_cache(cv, v, write_at)
         if s == 1:
             # decode: one query per row, masked attention over the cache
-            k_pos = torch.arange(ck.shape[1], device=x.device)
-            if isinstance(cache_pos, torch.Tensor):
-                valid = k_pos[None, :] < (cache_pos[:, None] + s)
-            else:
-                valid = k_pos < (cache_pos + s)
-            m = _mask(positions, k_pos, causal=True, window=None,
-                      is_global=True)
-            m = m & (valid[None, :] if valid.dim() == 1
-                     else valid[:, None, :])
+            if k_positions is None:
+                k_positions = torch.arange(ck.shape[1], device=x.device)
+                if isinstance(cache_pos, torch.Tensor):
+                    k_valid = k_positions[None, :] < (cache_pos[:, None] + s)
+                else:
+                    k_valid = k_positions < (cache_pos + s)
+            m = _mask(positions, k_positions, causal=True, window=window,
+                      is_global=is_global)
+            m = m & (k_valid[None, :] if k_valid.dim() == 1
+                     else k_valid[:, None, :])
             o = attention_scores(q, ck.to(q.dtype), cv.to(q.dtype), m)
         else:
             o = blocked_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                  q_offset=int(cache_pos))
+                                  q_offset=int(cache_pos), window=window)
 
     out = _proj(o.reshape(b, s, cfg.q_heads * cfg.head_dim),
                 p["wo"].reshape(cfg.q_heads * cfg.head_dim, cfg.d_model))
+    if return_kv:
+        return out, fresh_kv
     return out, kv_cache
 
 
 # ---------------------------------------------------------------------------
-# KV-cache helpers (flat [L, B, T, kvh, dh] caches and paged pools)
+# KV-cache helpers (flat [L, B, T, kvh, dh] caches, gemma3's dict of global
+# caches and local window rings, and paged pools)
 #
 # The physical pool stores fixed-size KV blocks: each leaf is
 # [L, P, block, kvh, dh] — a contiguous cache whose "batch" axis is the
@@ -229,12 +254,42 @@ def attention(x, p, cfg: ModelConfig, *, positions, rope_cs=None,
 # lives in pool block ``table[t // block]`` at offset ``t % block``.
 
 
+def cache_leaves(caches):
+    """The leaves of a cache tree (its tensors, or the shapes of
+    ``DecoderLM.cache_shapes``): a flat (k, v) pair, or gemma3's
+    ``{"global": (k, v), "local": (k, v)}``."""
+    if isinstance(caches, dict):
+        return [c for pair in caches.values() for c in pair]
+    return list(caches)
+
+
 def mask_cache_tail(caches, true_len):
     """Zero cache entries at positions >= ``true_len`` (seq axis 2), in
-    place: right-pad hygiene for bucketed prefill."""
-    for c in caches:
+    place: right-pad hygiene for bucketed prefill. On a window ring the
+    seq axis is the ring slot; ``_ring_gather`` already zeroed the slots
+    past a short prompt, so there the mask changes nothing."""
+    for c in cache_leaves(caches):
         c[:, :, true_len:] = 0
     return caches
+
+
+def reset_cache_slot(caches, slot: int):
+    """Zero batch row ``slot`` (axis 1) of every cache leaf, in place:
+    slot recycling."""
+    for c in cache_leaves(caches):
+        c[:, slot] = 0
+    return caches
+
+
+def cache_slot_view(caches, slot: int):
+    """Batch row ``slot`` of a cache tree as a batch-1 view. The model
+    writes caches in place, so a prefill on the view fills the shared row
+    and leaves the others untouched: the port needs no counterpart of the
+    reference's functional ``gather_cache_slot``/``scatter_cache_slot``
+    copies."""
+    if isinstance(caches, dict):
+        return {k: cache_slot_view(v, slot) for k, v in caches.items()}
+    return tuple(c[:, slot:slot + 1] for c in caches)
 
 
 def paged_gather(pool, tables):

@@ -1,15 +1,19 @@
-"""Dense decoder-only transformer (flat-cache path).
+"""Dense decoder-only transformer.
 
-Covers the dense families whose caches are flat ``[L, B, T, kvh, dh]``
-stacks (granite-20b). The parameter dict keeps the reference's stacked
-``[L, ...]`` layout and names (``layers/attn/wq [L, d, h, dh]``, ...), so
-the weight bridge is a plain map; a Python loop over layers takes the
-place of ``lax.scan``.
+Covers granite-20b, deepseek-coder-33b and qwen3-32b (qk_norm), whose
+caches are flat ``[L, B, T, kvh, dh]`` stacks, and gemma3-27b, whose 5:1
+local:global layers keep ``{"global": (k, v), "local": (k, v)}`` caches:
+full-length stacks for the global layers and window-sized rings for the
+local ones. The parameter dict keeps the reference's stacked ``[L, ...]``
+layout and names (``layers/attn/wq [L, d, h, dh]``, ...), so the weight
+bridge is a plain map; a Python loop over layers takes the place of
+``lax.scan`` (and of ``lax.cond`` between a global and a local layer).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -34,6 +38,8 @@ def param_shapes(cfg: ModelConfig) -> Dict:
                 "wk": ((L, d, kvh, dh), d),
                 "wv": ((L, d, kvh, dh), d),
                 "wo": ((L, h, dh, d), h * dh),
+                **({"q_norm": ((L, dh), None), "k_norm": ((L, dh), None)}
+                   if cfg.qk_norm else {}),
             },
             "mlp": {
                 "w_gate": ((L, d, f), d),
@@ -44,16 +50,23 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     }
 
 
+def layer_flags(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer is_global flag (gemma3's local:global pattern: every
+    ``local_global_period``-th layer is global)."""
+    if cfg.local_global_period <= 0:
+        return np.ones((cfg.num_layers,), np.bool_)
+    idx = np.arange(cfg.num_layers)
+    return (idx + 1) % cfg.local_global_period == 0
+
+
 class DecoderLM:
     """Functional decoder-only LM over an explicit parameter dict."""
 
     def __init__(self, cfg: ModelConfig):
-        if (cfg.family != "dense" or cfg.local_global_period > 0
-                or cfg.qk_norm or cfg.pad_q_heads or cfg.is_moe):
+        if cfg.family != "dense" or cfg.pad_q_heads or cfg.is_moe:
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM serves the flat-cache "
-                "dense path only (no MoE, qk_norm, head padding or "
-                "local:global window rings yet)")
+                f"{cfg.name}: the port's DecoderLM serves the dense "
+                "families only (no MoE or head padding yet)")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
 
@@ -81,26 +94,105 @@ class DecoderLM:
 
     # -- forward -----------------------------------------------------------
 
-    def _block(self, x, p, *, positions, rope_cs, cache=None, cache_pos=None):
-        cfg = self.cfg
-        h, _ = common.attention(
-            common.rms_norm(x, p["norm1"]), p["attn"], cfg,
-            positions=positions, rope_cs=rope_cs, kv_cache=cache,
-            cache_pos=cache_pos)
-        x = x + h
-        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
-
     def _run_stack(self, x, params, *, positions, caches=None,
-                   cache_pos=None):
-        """Run the layer stack; ``caches`` (k_all, v_all) [L,B,T,kvh,dh]
-        are written in place, layer by layer."""
+                   cache_pos=None, true_len=None):
+        """Run the layer stack; caches (a flat (k_all, v_all)
+        [L,B,T,kvh,dh] pair, or gemma3's dict of global stacks and local
+        rings) are written in place, layer by layer."""
+        if isinstance(caches, dict):
+            return self._run_stack_windowed(
+                x, params, positions=positions, caches=caches,
+                cache_pos=cache_pos, true_len=true_len)
         cfg = self.cfg
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         lp = params["layers"]
+        flags = layer_flags(cfg)
         for i in range(cfg.num_layers):
             c = None if caches is None else (caches[0][i], caches[1][i])
-            x = self._block(x, _layer_of(lp, i), positions=positions,
-                            rope_cs=rope_cs, cache=c, cache_pos=cache_pos)
+            p = _layer_of(lp, i)
+            h, _ = common.attention(
+                common.rms_norm(x, p["norm1"]), p["attn"], cfg,
+                positions=positions, is_global=bool(flags[i]),
+                rope_cs=rope_cs, kv_cache=c, cache_pos=cache_pos)
+            x = self._mlp_block(x + h, p)
+        return x, caches
+
+    def _mlp_block(self, x, p):
+        """The residual MLP half of a layer."""
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+
+    # -- gemma3-style local:global window caches -----------------------------
+
+    def _ring_gather(self, k, v, s, w):
+        """Last-``w``-tokens ring from fresh K/V [B,S,kvh,dh] of true length
+        ``s``: slot j holds the most recent position p with p ≡ j (mod w),
+        zeros where no such position exists yet."""
+        j = torch.arange(w, device=k.device)
+        p = (s - 1) - ((s - 1 - j) % w)
+        pc = p.clamp_min(0)
+        keep = (p >= 0)[None, :, None, None]
+        zero = torch.zeros((), dtype=k.dtype, device=k.device)
+        return (torch.where(keep, k.index_select(1, pc), zero),
+                torch.where(keep, v.index_select(1, pc), zero))
+
+    def window_size(self):
+        return max(self.cfg.sliding_window, 1)
+
+    def _run_stack_windowed(self, x, params, *, positions, caches, cache_pos,
+                            true_len=None):
+        """The layer loop over local:global caches: global layers attend
+        over their full-length cache stack (flash, causal, on prefill),
+        local layers over the last ``w`` positions — a prefill on the flash
+        kernel's window mode with the fresh keys and values then gathered
+        into the ring, a decode over the ring's slots at the positions they
+        hold. ``true_len`` builds the rings from the true last token of a
+        right-padded prompt, not its pad tail."""
+        cfg = self.cfg
+        gk, gv = caches["global"]
+        lk, lv = caches["local"]
+        w = lk.shape[2]
+        s = x.shape[1]
+        rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        lp = params["layers"]
+        if s == 1:
+            # each slot j of the ring holds position cp - ((cp - j) % w);
+            # negative where the row has not reached it yet
+            j = torch.arange(w, device=x.device)
+            if isinstance(cache_pos, torch.Tensor):
+                cp = cache_pos.long()[:, None]                    # [B, 1]
+                k_pos = cp - ((cp - j[None, :]) % w)              # [B, w]
+                slot = cache_pos.long() % w
+            else:
+                k_pos = cache_pos - ((cache_pos - j) % w)         # [w]
+                slot = int(cache_pos) % w
+        lig = lil = 0
+        for i, is_global in enumerate(layer_flags(cfg)):
+            p = _layer_of(lp, i)
+            y = common.rms_norm(x, p["norm1"])
+            if is_global:
+                h, _ = common.attention(
+                    y, p["attn"], cfg, positions=positions, is_global=True,
+                    rope_cs=rope_cs, kv_cache=(gk[lig], gv[lig]),
+                    cache_pos=cache_pos)
+                lig += 1
+            elif s == 1:
+                h, _ = common.attention(
+                    y, p["attn"], cfg, positions=positions, is_global=False,
+                    rope_cs=rope_cs, kv_cache=(lk[lil], lv[lil]),
+                    cache_pos=cache_pos, cache_slot=slot, k_positions=k_pos,
+                    k_valid=k_pos >= 0)
+                lil += 1
+            else:
+                h, (fk, fv) = common.attention(
+                    y, p["attn"], cfg, positions=positions, is_global=False,
+                    rope_cs=rope_cs, return_kv=True)
+                rk, rv = self._ring_gather(
+                    fk.to(lk.dtype), fv.to(lv.dtype),
+                    s if true_len is None else int(true_len), w)
+                lk[lil] = rk
+                lv[lil] = rv
+                lil += 1
+            x = self._mlp_block(x + h, p)
         return x, caches
 
     def _inputs_to_h(self, batch, params):
@@ -115,17 +207,33 @@ class DecoderLM:
 
     # -- serving -----------------------------------------------------------
 
-    def cache_shape(self, batch_size: int, max_seq: int):
+    def cache_shapes(self, batch_size: int, max_seq: int):
+        """The shapes of ``init_cache``'s tree: a flat (k, v) pair of
+        [L, B, max_seq, kvh, dh], or with local:global layers
+        ``{"global": (k, v), "local": (k, v)}`` with rings of
+        ``min(window, max_seq)`` slots."""
         cfg = self.cfg
-        return (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
-                cfg.head_dim)
+        tail = (cfg.num_kv_heads, cfg.head_dim)
+        if cfg.local_global_period > 0:
+            n_global = int(layer_flags(cfg).sum())
+            w = min(self.window_size(), max_seq)
+            g = (n_global, batch_size, max_seq) + tail
+            loc = (cfg.num_layers - n_global, batch_size, w) + tail
+            return {"global": (g, g), "local": (loc, loc)}
+        shape = (cfg.num_layers, batch_size, max_seq) + tail
+        return (shape, shape)
 
     def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
                    device: DeviceLike = None):
         dev = resolve_device(device)
-        shape = self.cache_shape(batch_size, max_seq)
-        return (torch.zeros(shape, dtype=dtype, device=dev),
-                torch.zeros(shape, dtype=dtype, device=dev))
+
+        def zeros(tree):
+            if isinstance(tree, dict):
+                return {k: zeros(v) for k, v in tree.items()}
+            return tuple(torch.zeros(s, dtype=dtype, device=dev)
+                         for s in tree)
+
+        return zeros(self.cache_shapes(batch_size, max_seq))
 
     def prefill(self, params, batch, caches, true_len: Optional[int] = None,
                 start_pos: Optional[int] = None):
@@ -133,15 +241,20 @@ class DecoderLM:
         (logits of the last true token [B,1,V], caches).
 
         ``true_len``: true prompt length of a right-padded (bucketed) chunk;
-        logits come from position ``true_len - 1``. ``start_pos``: the
-        chunk's absolute offset (prefix-cache tail prefill) — token i sits
-        at ``start_pos + i`` and attends causally over the cache prefix
-        [0, start_pos) plus itself."""
+        logits come from position ``true_len - 1`` and window rings are
+        built from it. ``start_pos``: the chunk's absolute offset
+        (prefix-cache tail prefill) — token i sits at ``start_pos + i`` and
+        attends causally over the cache prefix [0, start_pos) plus itself;
+        a ring cannot resume mid-stream, so it is flat caches only."""
+        if start_pos is not None and isinstance(caches, dict):
+            raise ValueError("chunked prefill (start_pos) is not supported "
+                             "for local:global window ring caches")
         x = self._inputs_to_h(batch, params)
         offset = 0 if start_pos is None else int(start_pos)
         positions = torch.arange(x.shape[1], device=x.device) + offset
         x, caches = self._run_stack(x, params, positions=positions,
-                                    caches=caches, cache_pos=offset)
+                                    caches=caches, cache_pos=offset,
+                                    true_len=true_len)
         if true_len is None:
             last = x[:, -1:]
         else:

@@ -1,20 +1,27 @@
-"""Continuous-batching serving engine with energy-attributed telemetry.
+"""Serving engines with energy-attributed telemetry.
 
-``ContinuousEngine`` runs true continuous batching over one telemetry
-pipeline (a ``repro_torch.telemetry`` ``MonitorSession`` over the paper's
-Sec. 4.1 probe/board/tag-bus platform), with power traces *derived* from the
-roofline/DVFS energy model (``core.energy.ServePowerModel``): an
-admission-controlled request queue, per-slot state behind a ``serve.state``
-``CacheAdapter`` (the paged KV pool with radix prefix sharing), one fused
-decode step with per-slot positions and one host sync per step, slot
-recycling so new requests join mid-decode, per-request J/token attribution
-via GPIO slot tags, and an energy-aware admission policy (DVFS power
-capping + TTL shedding from measured throughput).
+Two engines share one telemetry pipeline (a ``repro_torch.telemetry``
+``MonitorSession`` over the paper's Sec. 4.1 probe/board/tag-bus platform),
+with power traces *derived* from the roofline/DVFS energy model
+(``core.energy.ServePowerModel``):
+
+``ServeEngine``      static-batch baseline: one padded prefill, lock-step
+                     decode until every request in the batch finishes.
+``ContinuousEngine`` true continuous batching: an admission-controlled
+                     request queue, per-slot state behind a ``serve.state``
+                     ``CacheAdapter`` (the paged KV pool with radix prefix
+                     sharing, or gemma3's window rings and the contiguous
+                     rows of a flat family with paging off), one fused
+                     decode step with per-slot positions and one host sync
+                     per step, slot recycling so new requests join
+                     mid-decode, per-request J/token attribution via GPIO
+                     slot tags, and an energy-aware admission policy (DVFS
+                     power capping + TTL shedding from measured
+                     throughput).
 
 CUDA runs asynchronously, so every ``EngineTelemetry.record`` window ends
 at a host sync — the first-token fetch of a prefill or the ``[B, 1]`` token
 fetch of a decode step — and the device time of the window lands in it.
-The reference's static ``ServeEngine`` baseline is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,14 +36,16 @@ from repro_torch.core.energy import ServePowerModel
 from repro_torch.core.hw import DeviceSpec, H100_SXM
 from repro_torch.core.scheduler import ThroughputStats
 from repro_torch.core.tags import N_GPIO
+from repro_torch.models.common import cache_leaves
 from repro_torch.obs import NULL_SPAN, MetricsRegistry, TelemetryEvent, Tracer
 from repro_torch.serve.queue import AdmissionController, Request, RequestQueue
 from repro_torch.serve.slots import SlotManager
 from repro_torch.serve.state import make_adapter, resolve_buckets, to_device
-from repro_torch.serve.step import TraceStats, bucket_for
+from repro_torch.serve.step import (TraceStats, bucket_for, counting_call,
+                                    make_decode_step, make_prefill_step)
 from repro_torch.telemetry import ModelSource, MonitorSession
 
-__all__ = ["Request", "ContinuousEngine", "EngineTelemetry",
+__all__ = ["Request", "ServeEngine", "ContinuousEngine", "EngineTelemetry",
            "resolve_buckets"]
 
 
@@ -56,11 +65,12 @@ def _count_params(params) -> float:
 
 
 def _cache_bytes(model, batch_size, max_seq) -> float:
-    """KV-cache footprint (bytes) from its shape, without allocating it:
-    a k and a v stack of ``model.cache_shape`` in ``init_cache``'s default
-    dtype (bf16)."""
-    n = int(np.prod(model.cache_shape(batch_size, max_seq)))
-    return float(2 * n * torch.bfloat16.itemsize)
+    """KV-cache footprint (bytes) from its shapes, without allocating it:
+    every leaf of ``model.cache_shapes`` in ``init_cache``'s default dtype
+    (bf16)."""
+    n = sum(int(np.prod(s)) for s in
+            cache_leaves(model.cache_shapes(batch_size, max_seq)))
+    return float(n * torch.bfloat16.itemsize)
 
 
 class EngineTelemetry:
@@ -149,6 +159,182 @@ class EngineTelemetry:
 
 
 # ---------------------------------------------------------------------------
+# static-batch baseline
+
+
+class ServeEngine:
+    """Static batching: requests are padded into one fixed batch, prefilled
+    together, and decoded in lock-step until the whole batch finishes. The
+    baseline the continuous engine is benchmarked against."""
+
+    def __init__(self, model, params, *, batch_size: int, max_seq: int,
+                 telemetry: bool = True, dev: DeviceSpec = H100_SXM,
+                 prefill_buckets="auto", tracing: bool = True):
+        self.model = model
+        self.params = params
+        self.device = params["embedding"].device
+        self.batch_size = batch_size
+        self.max_seq = max_seq
+        self.buckets = resolve_buckets(prefill_buckets, max_seq, model)
+        self.trace_stats = TraceStats()
+        self.stats = ThroughputStats()
+        self.metrics = MetricsRegistry()
+        self.tracer = Tracer() if tracing else None
+        self.pm = ServePowerModel(
+            _count_params(params), dev=dev,
+            cache_bytes=_cache_bytes(model, batch_size, max_seq))
+        self.tel = (EngineTelemetry(self.pm, batch_size,
+                                    metrics=self.metrics)
+                    if telemetry else None)
+        self._prefill = counting_call(
+            make_prefill_step(model, bucketed=bool(self.buckets)),
+            "prefill", self.trace_stats, on_compile=self._on_compile)
+        self._decode = counting_call(make_decode_step(model), "decode",
+                                     self.trace_stats,
+                                     on_compile=self._on_compile)
+
+    def _on_compile(self, name: str):
+        if self.tel is not None:
+            self.tel.session.count(f"compiles/{name}")
+        self.metrics.counter("jit_compiles",
+                             "new step signatures").inc(step=name)
+
+    def _pad_prompts(self, reqs: List[Request]):
+        """Left-pad prompts to the longest in the batch (position alignment:
+        every row's last real token sits at ``s - 1``), then right-pad the
+        whole batch to its bucket edge so prefill shapes stay bounded."""
+        s = max(len(r.prompt) for r in reqs)
+        sb = bucket_for(s, self.buckets) if self.buckets else s
+        toks = np.zeros((self.batch_size, sb), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, s - len(r.prompt):s] = r.prompt   # left-pad
+        return to_device(toks, self.device), s
+
+    def serve(self, reqs: List[Request]) -> Dict:
+        """One batch generation pass; returns stats."""
+        if not reqs or len(reqs) > self.batch_size:
+            raise ValueError(f"a static batch takes 1..{self.batch_size} "
+                             f"requests, got {len(reqs)}")
+        pad = [Request(-1, np.zeros(1, np.int32), 0)
+               for _ in range(self.batch_size - len(reqs))]
+        tokens, s = self._pad_prompts(reqs + pad)
+        caches = self.model.init_cache(self.batch_size, self.max_seq,
+                                       device=self.device)
+        win_cm = (self.tel.session.window() if self.tel
+                  else contextlib.nullcontext())
+        with win_cm as win:
+            stats = self._serve_batch(reqs, tokens, s, caches)
+        if self.tel:
+            rep = win.report()      # this call's grid-aligned energy window
+            stats["energy_j"] = rep.energy_j
+            stats["energy_by_tag"] = dict(rep.by_tag)
+        return stats
+
+    def _serve_batch(self, reqs: List[Request], tokens, s: int,
+                     caches) -> Dict:
+        pf_cm = (self.tracer.span("prefill", track="engine",
+                                  batch=len(reqs), bucket=tokens.shape[1])
+                 if self.tracer is not None
+                 else contextlib.nullcontext(NULL_SPAN))
+        with pf_cm as psp:
+            t0 = time.perf_counter()
+            if self.buckets:
+                logits, caches = self._prefill(self.params,
+                                               {"tokens": tokens}, s, caches)
+            else:
+                logits, caches = self._prefill(self.params,
+                                               {"tokens": tokens}, caches)
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            # dalek: allow[host-sync] one whole-batch fetch after prefill gates the first emit
+            cur_host = cur.cpu().numpy()
+            t_prefill = time.perf_counter() - t0
+            # attribute only the true prompt tokens: left-pad, bucket tail,
+            # and filler rows are compute the batch burns, not request
+            # throughput
+            n_prompt = sum(len(r.prompt) for r in reqs)
+            self.stats.observe("prefill", n_prompt, t_prefill)
+            self.metrics.histogram("prefill_step_s",
+                                   "per-prefill wall seconds").observe(
+                t_prefill)
+            if self.tel:
+                ev = self.tel.record("prefill", t_prefill, n_prompt,
+                                     {i: r for i, r in enumerate(reqs)})
+                if ev is not None:
+                    psp.set("window", ev.window)
+
+        for r in reqs:
+            if r.max_new_tokens <= 0:
+                r.done = True
+                r.finish_reason = "length"
+
+        n_decoded = 0
+        t_dec = 0.0
+        step = 0
+        while not all(r.done for r in reqs):
+            # emit the token sampled from the last logits (prefill or decode)
+            for bi, r in enumerate(reqs):
+                if r.done:
+                    continue
+                tok = int(cur_host[bi, 0])
+                r.output.append(tok)
+                n_decoded += 1
+                if r.eos_id is not None and tok == r.eos_id:
+                    r.done = True
+                    r.finish_reason = "eos"
+                elif r.n_generated >= r.max_new_tokens:
+                    r.done = True
+                    r.finish_reason = "length"
+            if all(r.done for r in reqs):
+                break           # nothing left: the last logits are not wasted
+            active = {bi: r for bi, r in enumerate(reqs) if not r.done}
+            step_cm = (self.tracer.span("decode_step", track="engine",
+                                        active=len(active))
+                       if self.tracer is not None
+                       else contextlib.nullcontext(NULL_SPAN))
+            with step_cm as ssp:
+                td0 = time.perf_counter()
+                cur, _, caches = self._decode(self.params, cur, s + step,
+                                              caches)
+                # dalek: allow[host-sync] the designed once-per-step [B,1] fetch (EOS/budget checks)
+                cur_host = cur.cpu().numpy()
+                dt = time.perf_counter() - td0
+                t_dec += dt
+                step += 1
+                # len(active), not batch_size: filler/finished rows decode
+                # as dead weight and must not inflate throughput or touch
+                # energy attribution (they own no slot tag)
+                self.stats.observe("decode", len(active), dt)
+                self.metrics.histogram(
+                    "decode_step_s",
+                    "fused decode step wall seconds").observe(dt)
+                if self.tel:
+                    ev = self.tel.record("decode", dt, len(active), active)
+                    if ev is not None:
+                        ssp.set("window", ev.window)
+
+        self.metrics.counter("tokens_decoded").inc(n_decoded)
+        for r in reqs:
+            self.metrics.counter("requests_finished",
+                                 "requests by finish reason").inc(
+                reason=r.finish_reason or "eos")
+            if self.tracer is not None:
+                self.tracer.instant("finish", track=f"req{r.req_id}",
+                                    req_id=r.req_id,
+                                    finish_reason=r.finish_reason)
+        return {
+            "prefill_s": t_prefill,
+            "decode_s": t_dec,
+            "decode_steps": step,
+            "tokens_decoded": n_decoded,
+            "prompt_tokens": n_prompt,
+            "decode_tok_per_s": n_decoded / t_dec if t_dec else 0.0,
+            "prefill_compiles": self.trace_stats.compiles("prefill"),
+            "decode_compiles": self.trace_stats.compiles("decode"),
+            "compiles": self.trace_stats.snapshot(),
+        }
+
+
+# ---------------------------------------------------------------------------
 # continuous batching
 
 
@@ -163,15 +349,17 @@ class ContinuousEngine:
     token budget — so late requests join mid-decode instead of waiting for
     the batch to drain.
 
-    All per-slot state handling (the paged KV pool here; window rings and
-    recurrent carried state in later slices) lives behind ``self.adapter``
+    All per-slot state handling (the paged KV pool, contiguous window
+    rings; recurrent carried state in a later slice) lives behind
+    ``self.adapter``
     (``serve.state.CacheAdapter``), selected by the model family's declared
-    ``ServingCaps`` — the engine body is family-agnostic.
+    ``ServingCaps`` — the engine body is family-agnostic. ``greedy`` changes
+    nothing (``serve.step``'s docstring).
     """
 
     def __init__(self, model, params, *, batch_size: int, max_seq: int,
                  telemetry: bool = True, dev: DeviceSpec = H100_SXM,
-                 power_cap_w: Optional[float] = None,
+                 power_cap_w: Optional[float] = None, greedy: bool = True,
                  prefill_buckets="auto", kv_block_size="auto",
                  prefix_cache: bool = True,
                  kv_pool_blocks: Optional[int] = None,
@@ -201,8 +389,8 @@ class ContinuousEngine:
         self.slots = SlotManager(batch_size, max_seq)
         # observability: registry-backed run stats + request-lifecycle spans
         # (queued -> admitted -> prefill -> decode -> finish) and per-step
-        # engine spans carrying window refs for an energy-attributed
-        # timeline export
+        # engine spans carrying window refs for the energy-attributed
+        # timeline export (repro_torch.obs.export)
         self.metrics = MetricsRegistry()
         self.tracer = Tracer() if tracing else None
         self._req_spans: Dict[int, object] = {}   # req_id -> open span

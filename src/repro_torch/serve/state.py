@@ -7,9 +7,12 @@
                      registry).
 ``PagedKVAdapter``   flat (k, v) caches behind a refcounted ``PagePool`` +
                      radix prefix trie (the dense transformers).
+``WindowRingAdapter`` contiguous per-slot rows — the gemma3 local:global
+                     window *ring* backend, doubling as the contiguous
+                     backend of the flat families when paging is off.
 
-The window-ring (gemma3) and recurrent-state (xlstm/zamba2/whisper)
-adapters of the reference come with the slices that port those families.
+The recurrent-state (xlstm/zamba2/whisper) adapter of the reference comes
+with the slice that ports those families.
 
 Every step runs through ``counting_call`` against the engine's shared
 ``TraceStats``, so signature counts stay bounded by the bucket count, as
@@ -23,17 +26,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.common import reset_cache_slot
 from repro_torch.models.registry import ServingCaps, serving_caps
 from repro_torch.serve.paging import (PagePool, RadixPrefixCache,
                                       resolve_kv_block_size)
 from repro_torch.serve.queue import Request
 from repro_torch.serve.step import (TraceStats, counting_call, make_block_ops,
-                                    make_paged_decode_step,
-                                    make_paged_slot_prefill, pad_to_bucket)
+                                    make_decode_step, make_paged_decode_step,
+                                    make_paged_slot_prefill, make_slot_prefill,
+                                    pad_to_bucket)
 from repro_torch.serve.step import prefill_buckets as auto_prefill_buckets
 
 __all__ = ["PrefillOutcome", "CacheAdapter", "PagedKVAdapter",
-           "make_adapter", "resolve_buckets"]
+           "WindowRingAdapter", "make_adapter", "resolve_buckets"]
 
 
 def to_device(array, device) -> torch.Tensor:
@@ -188,7 +193,8 @@ class PagedKVAdapter(CacheAdapter):
         self.prefix = (RadixPrefixCache(block_size, self.pages)
                        if prefix_cache else None)
         self._decode = counting_call(
-            make_paged_decode_step(model), "decode", self.trace_stats,
+            make_paged_decode_step(model), "decode",
+            self.trace_stats,
             on_compile=self.on_compile)
         self._prefill_slot = counting_call(
             make_paged_slot_prefill(model, bucketed=bool(self.buckets)),
@@ -338,31 +344,83 @@ class PagedKVAdapter(CacheAdapter):
             total_blocks=self.pages.stats.total_blocks)
 
 
+class WindowRingAdapter(CacheAdapter):
+    """Contiguous per-slot cache rows — the gemma3 local:global window
+    *ring* backend (rings cannot resume mid-stream, so no paging and no
+    chunked prefill), doubling as the flat-cache contiguous backend when
+    paging is off. Steps write the rows in place; slot reset zeroes the
+    row."""
+
+    kind = "window-ring"
+
+    def __init__(self, model, params, **kw):
+        super().__init__(model, params, **kw)
+        if self.caps.kind != "window-ring":
+            self.kind = "contiguous"       # flat family with paging off
+        self._decode = counting_call(make_decode_step(model),
+                                     "decode", self.trace_stats,
+                                     on_compile=self.on_compile)
+        self._prefill_slot = counting_call(
+            make_slot_prefill(model, bucketed=bool(self.buckets)),
+            "prefill", self.trace_stats, on_compile=self.on_compile)
+        self._reset_slot = counting_call(reset_cache_slot, "reset_slot",
+                                         self.trace_stats,
+                                         on_compile=self.on_compile)
+
+    def ensure_ready(self):
+        if self.caches is None:
+            self.caches = self.model.init_cache(
+                self.batch_size, self.max_seq, device=self.device)
+
+    def prefill(self, slot_index: int, req: Request) -> PrefillOutcome:
+        prompt = np.asarray(req.prompt, np.int32)
+        if self.buckets:
+            padded, n = pad_to_bucket(prompt, self.buckets)
+            next_tok, _, self.caches = self._prefill_slot(
+                self.params, to_device(padded[None, :], self.device), n,
+                slot_index, self.caches)
+        else:
+            next_tok, _, self.caches = self._prefill_slot(
+                self.params, to_device(prompt[None, :], self.device),
+                slot_index, self.caches)
+        # dalek: allow[host-sync] first sampled token must reach the host to emit/EOS-check
+        first = int(next_tok[0, 0].item())
+        return PrefillOutcome(first, computed_tokens=len(prompt))
+
+    def decode_step(self, tokens, pos):
+        next_tok, _, self.caches = self._decode(
+            self.params, tokens, pos, self.caches)
+        return next_tok
+
+    def free_slot(self, slot_index: int):
+        # recycle: zero the slot's cache rows so the next occupant starts
+        # clean
+        self.caches = self._reset_slot(self.caches, slot_index)
+
+
 def make_adapter(model, params, *, batch_size: int, max_seq: int,
                  prefill_buckets="auto", kv_block_size="auto",
                  prefix_cache: bool = True,
-                 kv_pool_blocks: Optional[int] = None,
+                 kv_pool_blocks: Optional[int] = None, greedy: bool = True,
                  trace_stats: Optional[TraceStats] = None, on_compile=None):
     """Select and build the backend for ``model``'s declared capabilities.
 
-    The paged-KV backend is the one this slice ports; the others raise,
-    naming the slice that adds them."""
+    ``"auto"`` arguments degrade where the family can't honor them (paging
+    off for window rings); explicit requests on an incapable family raise.
+    The recurrent-state backend is a later slice of the port and raises.
+    ``greedy`` changes nothing (``serve.step``'s docstring)."""
     caps = serving_caps(model.cfg)
     buckets = resolve_buckets(prefill_buckets, max_seq, model)
     trace_stats = trace_stats if trace_stats is not None else TraceStats()
+    common = dict(batch_size=batch_size, max_seq=max_seq, buckets=buckets,
+                  caps=caps, trace_stats=trace_stats, on_compile=on_compile)
     block_size = resolve_kv_block_size(kv_block_size, max_seq, caps.paged_kv)
     if caps.kind == "recurrent":
         raise NotImplementedError(
             "the recurrent-state adapter comes with the recurrent families "
             "(ROADMAP Queue 1 item 10)")
-    if not block_size:
-        raise NotImplementedError(
-            "the contiguous/window-ring adapter comes with the gemma3 "
-            "window-ring slice (ROADMAP Queue 1 item 8); serve the flat "
-            "families with a kv_block_size that divides max_seq")
-    return PagedKVAdapter(model, params, block_size=block_size,
-                          prefix_cache=prefix_cache,
-                          kv_pool_blocks=kv_pool_blocks,
-                          batch_size=batch_size, max_seq=max_seq,
-                          buckets=buckets, caps=caps,
-                          trace_stats=trace_stats, on_compile=on_compile)
+    if block_size:
+        return PagedKVAdapter(model, params, block_size=block_size,
+                              prefix_cache=prefix_cache,
+                              kv_pool_blocks=kv_pool_blocks, **common)
+    return WindowRingAdapter(model, params, **common)

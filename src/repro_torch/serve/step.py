@@ -1,5 +1,7 @@
-"""Serving steps on the paged KV pool: prefill one request's uncached tail
-into its block table, decode every slot in one fused call, and the pool
+"""Serving steps: whole-batch prefill and decode over per-slot cache rows
+(the static engine, and the window-ring/contiguous adapter's one-slot
+prefill), the paged KV pool's steps (prefill one request's uncached tail
+into its block table, decode every slot in one fused call) and the pool
 maintenance ops.
 
 Prompt-length bucketing: an exact-length prefill makes one signature per
@@ -8,13 +10,17 @@ different length) would turn the reference engine into a compile loop.
 ``prefill_buckets`` computes power-of-two bucket edges,
 ``bucket_for``/``pad_to_bucket`` right-pad a prompt to its bucket edge, and
 the bucketed step takes the *true* length: logits come from the true last
-token and only the real cache positions survive the scatter
+token and only the real cache positions are kept
 (``mask_cache_tail``). Every engine step goes through ``counting_call``, so
 ``TraceStats`` counts signatures exactly where the reference counts jit
 compiles.
 
 Greedy sampling stays on the device: a step returns the ``[B, 1]`` token
-tensor and the engine makes the one host fetch per step.
+tensor and the engine makes the one host fetch per step. ``greedy`` is kept
+for the reference's signatures only (the decode step factories,
+``make_adapter`` and ``ContinuousEngine`` accept it and pass it nowhere):
+the reference samples only when it is given a key, which its engines never
+pass, so it decodes greedily under either setting, and so does the port.
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.tracing import TraceStats, counting_call
-from repro_torch.models.common import (copy_cache_block, mask_cache_tail,
-                                       paged_gather, paged_scatter_block,
-                                       paged_scatter_slot, reset_cache_blocks)
+from repro_torch.models.common import (cache_slot_view, copy_cache_block,
+                                       mask_cache_tail, paged_gather,
+                                       paged_scatter_block, paged_scatter_slot,
+                                       reset_cache_blocks)
 
 # ---------------------------------------------------------------------------
 # prompt-length bucketing
@@ -85,14 +92,68 @@ def _greedy(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_paged_decode_step(model):
+def make_prefill_step(model, bucketed: bool = False):
+    """Whole-batch prefill. ``bucketed=True`` adds a ``true_len`` argument:
+    the batch is right-padded to a bucket edge, logits come from the true
+    last token, and cache positions >= true_len are zeroed so pad KV never
+    reaches decode."""
+    if not bucketed:
+        def prefill_step(params, batch, caches):
+            return model.prefill(params, batch, caches)
+        return prefill_step
+
+    def bucketed_prefill_step(params, batch, true_len, caches):
+        logits, caches = model.prefill(params, batch, caches,
+                                       true_len=true_len)
+        return logits, mask_cache_tail(caches, true_len)
+    return bucketed_prefill_step
+
+
+def make_decode_step(model, greedy: bool = True):
+    """Fused decode + greedy sampling over per-slot cache rows. ``pos``: a
+    Python int or a [B] int tensor. ``greedy`` changes nothing (module
+    docstring)."""
+    def decode_step(params, tokens, pos, caches):
+        logits, caches = model.decode_step(params, tokens, pos, caches)
+        return _greedy(logits), logits, caches
+    return decode_step
+
+
+def make_slot_prefill(model, bucketed: bool = False):
+    """Prefill one request ([1, S] tokens) into batch row ``slot`` of a
+    shared cache tree; every other row is untouched.
+
+    Exact mode makes one signature per distinct prompt length. Bucketed
+    mode takes right-padded tokens plus the true length: signatures are
+    bounded by the bucket count, the next token comes from the logits at
+    ``true_len - 1``, and only the real ``[0, true_len)`` cache positions
+    are kept. The model runs on a view of the row (``cache_slot_view``)
+    and writes it in place."""
+    if not bucketed:
+        def slot_prefill(params, tokens, slot, caches):
+            logits, _ = model.prefill(params, {"tokens": tokens},
+                                      cache_slot_view(caches, slot))
+            return _greedy(logits), logits, caches
+        return slot_prefill
+
+    def bucketed_slot_prefill(params, tokens, true_len, slot, caches):
+        sub = cache_slot_view(caches, slot)
+        logits, sub = model.prefill(params, {"tokens": tokens}, sub,
+                                    true_len=true_len)
+        mask_cache_tail(sub, true_len)
+        return _greedy(logits), logits, caches
+    return bucketed_slot_prefill
+
+
+def make_paged_decode_step(model, greedy: bool = True):
     """Fused decode through block-table indirection.
 
     The pool ([L, P, block, kvh, dh] leaves) is gathered into per-slot
     contiguous views via ``tables`` ([B, NB] block ids), the model decodes
     on the view, and only each slot's touched block is scattered back into
     the pool (in place). Table *values* are data, so remaps (prefix
-    sharing, COW, lazy growth) never make a new signature.
+    sharing, COW, lazy growth) never make a new signature. ``greedy``
+    changes nothing (module docstring).
     """
     def paged_decode_step(params, tokens, pos, tables, pool):
         view = paged_gather(pool, tables)

@@ -235,6 +235,98 @@ def test_smoke_engine_on_the_card_matches_the_host():
     assert gpu_l == cfg.num_layers * gpu_stats["prefills"]
 
 
+# the full-width shapes the dense family's prefills give the kernel: gemma3
+# (32 q / 16 kv heads) local layers over their own keys at the prompt
+# buckets S 128, 256, 1024 (the window edge at the last row) and 2048 and
+# at S 1500 (a window start inside a key tile), its global layers at those
+# buckets and S 200 over T = max_seq 2048, the static batch of 4 both ways;
+# qwen3 (64 / 8) and deepseek (56 / 8)
+MODEL_CASES = [
+    (1, 32, 16, 2048, 2048, 128, True, 1024, 0),
+    (1, 32, 16, 2048, 2048, 128, True, None, 0),
+    (1, 32, 16, 1500, 1500, 128, True, 1024, 0),
+    (4, 32, 16, 2048, 2048, 128, True, 1024, 0),
+    (1, 32, 16, 200, 2048, 128, True, None, 0),
+    (1, 64, 8, 256, 512, 128, True, None, 0),
+    (1, 56, 8, 130, 512, 128, True, None, 128),
+    (1, 32, 16, 128, 128, 128, True, 1024, 0),
+    (1, 32, 16, 256, 256, 128, True, 1024, 0),
+    (1, 32, 16, 1024, 1024, 128, True, 1024, 0),
+    (1, 32, 16, 128, 2048, 128, True, None, 0),
+    (1, 32, 16, 256, 2048, 128, True, None, 0),
+    (1, 32, 16, 1024, 2048, 128, True, None, 0),
+    (4, 32, 16, 2048, 2048, 128, True, None, 0),
+    (1, 32, 16, 2048, 2048, 128, True, 64, 0),
+]
+#: the largest ratio ``ref.mask_margin`` may read (a mask one key off reads
+#: about 1)
+MASK_MARGIN = 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MODEL_CASES, ids=str)
+def test_flash_at_the_dense_models_shapes(case):
+    """bf16 on every route and tile that takes the inputs, against the
+    plain version by max|err| and by the mask margin; the planned call on
+    wgmma, counted with its window."""
+    _need_cuda()
+    b, h, hkv, s, t, d, causal, window, off = case
+    g = torch.Generator(device="cuda")
+    g.manual_seed(s + h)
+    q, k, v = (torch.randn(b, n, m, d, device="cuda", generator=g).to(
+        torch.bfloat16) for n, m in ((h, s), (hkv, t), (hkv, t)))
+    want = ref.attention(q, k, v, causal=causal, window=window, q_offset=off)
+    before, windowed = dict(ops.route_launches), ops.window_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=off)
+    assert {r: c - before[r] for r, c in ops.route_launches.items()
+            if c != before[r]} == {"wgmma": 1}
+    assert ops.window_launches == windowed + (window is not None)
+    outs = {("planned", 64): got}
+    for route, bm in _routes(torch.bfloat16, d):
+        outs[(route, bm)] = ops.launch(q, k, v, causal=causal, window=window,
+                                       q_offset=off, route=route, block_m=bm)
+    torch.cuda.synchronize()
+    for key, out in outs.items():
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16], (key, case)
+        assert ref.mask_margin(out, q, k, v, causal=causal, window=window,
+                               q_offset=off) <= MASK_MARGIN, (key, case)
+
+
+@pytest.mark.cuda
+def test_window_smoke_engine_on_the_card_matches_the_host():
+    """gemma3's smoke model in f32, decoding past its 32-slot rings: the
+    card (flash on ffma, windowed on local layers) emits the host's
+    tokens."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke("gemma3-27b").replace(dtype="float32")
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 12, 25, 50, 30)]
+    out = {}
+    for dev, params in (("cpu", host), ("cuda", _to(host, "cuda"))):
+        reqs = [Request(i, p.copy(), max_new_tokens=10)
+                for i, p in enumerate(prompts)]
+        ops.launches, ops.window_launches = 0, 0
+        stats = ContinuousEngine(model, params, batch_size=2, max_seq=64,
+                                 telemetry=False).serve(reqs)
+        out[dev] = ([r.output for r in reqs], stats,
+                    (ops.launches, ops.window_launches))
+    (cpu_tok, cpu_stats, cpu_l), (gpu_tok, gpu_stats, gpu_l) = (
+        out["cpu"], out["cuda"])
+    assert gpu_tok == cpu_tok
+    for key in ("completed", "prefill_compiles", "decode_compiles",
+                "adapter"):
+        assert gpu_stats[key] == cpu_stats[key]
+    assert cpu_l == (0, 0)
+    n = gpu_stats["prefills"]
+    assert gpu_l == (cfg.num_layers * n, 4 * n)   # 4 of 6 layers local
+
+
 # the reference tests' shapes, ragged widths, and the benches' own shapes
 # (bandwidth at 64 KB, 1 MB and 16 MB; the 8x8 launch-latency copy)
 STREAM_SHAPES = [(64, 128), (256, 128), (128, 512), (1, 1001), (3, 333),

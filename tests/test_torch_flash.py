@@ -261,3 +261,40 @@ def test_launch_refuses_what_it_has_no_kernel_for(route, bm, err):
     with pytest.raises(err):
         ops.launch(q, q[:, :1], q[:, :1], causal=True, window=None,
                    q_offset=0, route=route, block_m=bm)
+
+
+# (S, T, window, q_offset, masks one key off): a window edge inside the
+# rows, a window as long as the prompt (only the last row's window is cut
+# by one key less), causal after a prefix
+MARGIN_CASES = [
+    (256, 256, 64, 0, [dict(window=63), dict(window=65),
+                       dict(q_offset=1)]),
+    (128, 128, 128, 0, [dict(window=127), dict(q_offset=1)]),
+    (64, 192, None, 128, [dict(q_offset=127), dict(q_offset=129)]),
+]
+
+
+@pytest.mark.parametrize("s,t,window,off,wrong", MARGIN_CASES)
+def test_mask_margin_tells_a_mask_one_key_off(s, t, window, off, wrong):
+    """bf16 inputs: the plain version on the right mask, rounded to bf16,
+    reads well under the 0.25 the card's checks allow; the plain version on
+    a window or diagonal one key off reads about 1 or more."""
+    rng = np.random.default_rng(s + t)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+               .bfloat16() for sh in [(1, 8, s, 64), (1, 4, t, 64),
+                                      (1, 4, t, 64)])
+    mask = dict(causal=True, window=window, q_offset=off)
+    assert ref.mask_margin(ref.attention(q, k, v, **mask), q, k, v,
+                           **mask) < 0.1
+    for shift in wrong:
+        bad = ref.attention(q, k, v, **{**mask, **shift})
+        assert ref.mask_margin(bad, q, k, v, **mask) > 0.9, shift
+
+
+def test_mask_margin_is_zero_where_no_mask_is_one_key_off():
+    """Full attention has no window and no diagonal to shift."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 16, 16)).astype(
+        np.float32)) for _ in range(3))
+    got = ref.attention(q, k, v, causal=False)
+    assert ref.mask_margin(got + 1.0, q, k, v, causal=False) == 0.0
