@@ -7,7 +7,12 @@ Phases, each of which must pass (any failure exits non-zero):
 1. build    — compile every CUDA kernel source from the repository (flash
               attention, STREAM, dpa_matmul: one nvcc per source, all in
               parallel).
-2. kernels  — hold each kernel against its plain PyTorch version on the card:
+2. kernels  — hold each kernel against its plain PyTorch version on the card
+              (and the flash kernel's autograd Function at the train
+              shapes, granite-20b's q [4,48,512,128] causal and gemma3-27b's
+              [1,32,1024,128] with the 1024 window: its forward equal to the
+              bare kernel's bitwise, dq/dk/dv against the plain version's
+              own autograd in f32):
               flash attention (D 16/64/128, Hkv = H, 8 and 1, ragged S and
               T, S = 1, T below 64, causal with and without q_offset, a
               window with and without a prefix, 64-row tiles crossing a
@@ -36,7 +41,8 @@ Phases, each of which must pass (any failure exits non-zero):
               composition.
 3. bench    — the paper's measurement path: the port's bench_bandwidth,
               bench_peak and bench_launch_latency on the card, three times,
-              plus the bandwidth bench's read/write rows. The launch
+              plus the bandwidth bench's read/write rows, and the
+              checkpoint I/O bench (64 MB) once. The launch
               counts are zeroed just before and read just after; every
               STREAM and dpa_matmul kernel must have run, every dpa4
               launch on the wgmma route with its transpose.
@@ -46,7 +52,11 @@ Phases, each of which must pass (any failure exits non-zero):
               its window rings and a decode past the window. Their prefill
               attention is the f32 path of the flash kernel: the ffma
               route's launches (windowed on gemma3's local layers) are
-              zeroed before and read after.
+              zeroed before and read after. Then 3 f32 train steps of each
+              on the card against 3 on the host (losses, grad norms,
+              parameters; every layer's flash launched twice a step, the
+              forward and the remat recompute, windowed on gemma3's local
+              layers), and step 3 again from a checkpoint of step 2.
 5. serve    — granite-20b at its published width (bf16 weights made on the
               card from a seed) through ContinuousEngine: 8 requests, batch
               4, max_seq 512, 32 new tokens each, four sharing a 128-token
@@ -69,14 +79,24 @@ Phases, each of which must pass (any failure exits non-zero):
 8. dense    — qwen3-32b and deepseek-coder-33b at their published widths,
               the depth cut to 4 layers: a short continuous serve each on
               the paged path (qk_norm and their GQA heads on the card).
-9. timing   — each kernel held against its plain version and timed beside
+9. train    — the card freed, granite-20b at its published width with the
+              depth cut to 4 of 52 layers (f32 master weights made on the
+              card from a seed, bf16 compute): batch 8 x 512 in 2
+              microbatches, 6 steps through train.loop.run. Step 1's
+              gradients are read once before the loop (every leaf
+              nonzero); flash counts and host syncs are zeroed just before
+              the loop and read just after: one compile, one sync a step,
+              the joules partitioned by tag, 4 x 2 x 6 x 2 flash launches
+              all on wgmma. Then a profiled step.
+10. timing  — each kernel held against its plain version and timed beside
               it, a PyTorch library call computing the same function, and
               its bound on the card: flash at the serve phase's prefill
               shapes on both routes (CUDA events over back-to-back calls,
               and the device time of one call under the profiler for each
               route and tile and for sdpa with a mask and, at q_offset 0,
               with is_causal), at gemma3-27b's S 2048 with the window and
-              without, and the ffma route at the f32 smoke model's
+              without, at the train phase's microbatch (B 4, S 512), and
+              the ffma route at the f32 smoke model's
               prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
               and 4096^3, dpa4's transpose at 4096^2 on four inputs in
               turn, so that each call reads and writes past the L2 (with
@@ -84,10 +104,12 @@ Phases, each of which must pass (any failure exits non-zero):
               library call's and the names of the kernels it launched, at
               512^3 that of every tile of the wgmma and FFMA routes, and
               for dpa4 the mma route's and the transpose's share).
-10. cli     — `python -m repro_torch.launch.serve --arch granite-20b
-              --smoke` and `--arch gemma3-27b --smoke --engine static
-              --trace-out ...` on the card, side by side; the trace must
-              validate and partition the run's joules.
+11. cli     — `python -m repro_torch.launch.serve --arch granite-20b
+              --smoke`, `--arch gemma3-27b --smoke --engine static
+              --trace-out ...` and `python -m repro_torch.launch.train
+              --arch granite-20b --smoke --steps 4 --trace-out ...` on the
+              card, side by side; each trace must validate and partition
+              its run's joules.
 
 The line before the last is the kernels JSON, the one before it the card's
 name and power limit; the last line is the device JSON.
@@ -318,6 +340,55 @@ def phase_kernels():
             raise AssertionError("an unaligned bf16 view was not planned "
                                  "onto ffma, or disagrees")
     return errs
+
+
+# the flash kernel under a gradient at the train phase's shape (granite-20b,
+# batch 8 in two microbatches of 4, seq 512: causal) and at gemma3-27b's
+# (a local layer at S 1024 with its 1024 window):
+# (B, H, Hkv, S, D, window)
+GRAD_CASES = [(4, 48, 1, 512, 128, None), (1, 32, 16, 1024, 128, 1024)]
+# dq, dk, dv of the Function (bf16: the plain f32 recompute, each gradient
+# rounded to bf16 once, 2^-9 relative) against the f32 plain autograd on
+# the same values: max|err| within this share of max|want|
+GRAD_TOL = 1e-2
+
+
+def hold_flash_function():
+    """``ops.FlashAttention`` at GRAD_CASES in bf16: its forward equal to
+    the bare kernel's bitwise, its dq, dk, dv against the plain version's
+    own autograd in f32 on the same inputs. Returns the largest relative
+    error."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    worst = 0.0
+    for (b, h, hkv, s, d, win) in GRAD_CASES:
+        q, k, v, do = (torch.randn(b, n, s, d, device="cuda", generator=g)
+                       .to(torch.bfloat16) for n in (h, hkv, hkv, h))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = dict(ops.route_launches)
+        out = ops.flash_attention(*leaves, window=win)
+        taken = {r: c - before[r] for r, c in ops.route_launches.items()
+                 if c != before[r]}
+        bare = ops.flash_attention(q, k, v, window=win)
+        out.backward(do)
+        want = [x.float().requires_grad_() for x in (q, k, v)]
+        ref.attention(*want, window=win).backward(do.float())
+        errs = [((x.grad.float() - w.grad).abs().max()
+                 / w.grad.abs().max()).item() for x, w in zip(leaves, want)]
+        same = torch.equal(out, bare)
+        worst = max(worst, *errs)
+        log(f"[kernels] flash Function bf16 q[{b},{h},{s},{d}] "
+            f"kv[{b},{hkv},{s},{d}] window {win}: forward on {taken}, equal "
+            f"to the bare kernel bitwise {same}; dq, dk, dv max|err| / "
+            f"max|want| " + ", ".join(f"{e:.3e}" for e in errs)
+            + f" (tol {GRAD_TOL:g}; the f32 plain autograd)")
+        if not (same and taken == {"wgmma": 1}
+                and all(e <= GRAD_TOL for e in errs)):
+            raise AssertionError(f"the flash Function disagrees at B{b} H{h} "
+                                 f"Hkv{hkv} S{s} window {win}")
+    return worst
 
 
 # the reference tests' shapes, the bandwidth bench's 64 KB, 1 MB, 16 MB
@@ -600,8 +671,9 @@ def phase_bench():
     copy/scale/add/triad only). Launch counts: zeroed before, read after."""
     import functools
     import torch
-    from repro_torch.benchmarks import (bench_bandwidth, bench_launch_latency,
-                                        bench_peak)
+    from repro_torch.benchmarks import (bench_bandwidth,
+                                        bench_checkpoint_io,
+                                        bench_launch_latency, bench_peak)
     from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
     from repro_torch.kernels.stream import stream as sk
     readings = {}
@@ -650,6 +722,15 @@ def phase_bench():
             == launches[TRANSPOSE_NAME]):
         raise AssertionError(f"dpa4 on the bench path: routes {routes}, "
                              f"transposes {launches[TRANSPOSE_NAME]}")
+    # paper Fig. 9: checkpoint I/O of a 64 MB leaf and 256 small ones held
+    # on the card, once (no kernel of the port runs in it)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = bench_checkpoint_io.run()
+    for line in buf.getvalue().splitlines():
+        log(f"[bench] checkpoint I/O: {line}")
+    if len(rows.rows) != 4:
+        raise AssertionError(f"bench_checkpoint_io gave rows {rows.rows}")
     return launches
 
 
@@ -733,9 +814,106 @@ def phase_small():
             or windowed != n_local):
         raise AssertionError(f"the gemma3 f32 prefill took flash routes "
                              f"{wroutes}, {windowed} windowed")
+    n_f32 = wroutes["ffma"]
+    for arch in ("granite-20b", "gemma3-27b"):
+        small_train(arch)
     # the first granite prefill's flash shape: q [1,H,29,D], kv [1,Hkv,64,D]
-    return wroutes["ffma"], (cfg.num_heads, cfg.num_kv_heads, 29, 64,
-                             cfg.head_dim)
+    return n_f32, (cfg.num_heads, cfg.num_kv_heads, 29, 64, cfg.head_dim)
+
+
+SMALL_TRAIN = dict(steps=3, batch=4, seq=48, seed=3,
+                   opt=dict(lr=1e-3, warmup_steps=2, total_steps=10))
+# 3 f32 train steps, the card against the host: losses and grad norms
+# within 1e-4 relative; parameters: all but 1e-4 of the elements within
+# 2e-5 and every one within twice the summed learning rate (an AdamW step
+# moves an element by about lr whatever its gradient's size, so an element
+# whose gradient is near zero may step the other way when the two sides'
+# f32 sums differ in the last bits; the host tests hold the port against
+# the reference by the same rule)
+SMALL_TRAIN_TOL = dict(rtol=1e-4, atol=2e-5, share=1e-4)
+
+
+def small_train(arch):
+    """The smoke model in f32, 3 train steps on the card and 3 on the host
+    from the same weights and batches (gemma3's local layers take the
+    flash kernel's window mode under the gradient); then a checkpoint of
+    the card's state written at step 2 and restored gives the same step
+    3."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
+                                           batch_to_device)
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             lr_schedule, tree_leaves)
+    from repro_torch.train.step import (StepConfig, TrainState,
+                                        make_train_step)
+    c, tol = SMALL_TRAIN, SMALL_TRAIN_TOL
+    cfg = configs.get_smoke(arch).replace(dtype="float32")
+    model = build_model(cfg)
+    host = model.init(torch.Generator().manual_seed(c["seed"]), "cpu",
+                      dtype=torch.float32)
+    card = _to_cuda(host)
+    step = make_train_step(model, OptConfig(**c["opt"]), StepConfig())
+    data = SyntheticTokens(DataConfig(seed=c["seed"],
+                                      vocab_size=cfg.vocab_size,
+                                      seq_len=c["seq"],
+                                      global_batch=c["batch"]))
+    batches = [data.batch(i) for i in range(c["steps"])]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev, params in (("cpu", host), ("cuda", card)):
+            state = TrainState(params, init_opt_state(params))
+            if dev == "cuda":
+                zero_flash_counts()              # the card's steps start
+            hist = []
+            for i, b in enumerate(batches):
+                if dev == "cuda" and i == c["steps"] - 1:
+                    ckpt.save(state, tmp, i)
+                state, m = step(state, batch_to_device(b, dev))
+                hist.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = (hist, state)
+        n, routes, windowed = flash_counts()      # ... and end here
+        like = TrainState(card, init_opt_state(card))
+        restored, manifest = ckpt.restore(like, tmp)
+        again, m = step(restored, batch_to_device(batches[-1], "cuda"))
+    (hh, hs), (ch, cs) = runs["cpu"], runs["cuda"]
+    hist_err = max(abs(a - b) / max(abs(a), 1e-30)
+                   for x, y in zip(hh, ch) for a, b in zip(x, y))
+    diffs = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(
+        tree_leaves(cs.params), tree_leaves(hs.params))])
+    lr_sum = sum(float(lr_schedule(OptConfig(**c["opt"]), torch.tensor(i)))
+                 for i in range(1, c["steps"] + 1))
+    over = (diffs > tol["atol"]).float().mean().item()
+    replay = [float(m["loss"]), float(m["grad_norm"])]
+    replay_same = replay == list(ch[-1]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(again.params),
+                                          tree_leaves(cs.params)))
+    n_local = int((~layer_flags(cfg)).sum())
+    want_flash = cfg.num_layers * c["steps"] * 2
+    log(f"[small] {cfg.name} f32, {c['steps']} train steps, card vs host: "
+        f"losses / grad norms card {ch}, host {hh}: max rel err "
+        f"{hist_err:.3e} (tol {tol['rtol']:g}); params max|err| "
+        f"{diffs.max().item():.3e} (all within {2 * lr_sum:.3e}), share "
+        f"over {tol['atol']:g} {over:.2e} (limit {tol['share']:g}); "
+        f"flash launches {n} by route {routes}, windowed {windowed}; step 3 "
+        f"after restoring the step-2 checkpoint (manifest step "
+        f"{manifest['step']}) {replay}: the same bitwise {replay_same}")
+    check_all("small", {
+        f"{arch}: train losses and grad norms, card == host (1e-4)": (
+            hist_err <= tol["rtol"]
+            and all(np.isfinite(x) for r in ch for x in r)),
+        f"{arch}: train params, card == host": (
+            diffs.max().item() <= 2 * lr_sum and over <= tol["share"]),
+        f"{arch}: flash launches == layers x steps x 2 (forward and remat), "
+        f"all ffma": n == want_flash and routes == {"ffma": n, "wgmma": 0},
+        f"{arch}: windowed launches == local layers x steps x 2": (
+            windowed == n_local * c["steps"] * 2),
+        f"{arch}: step 3 from the step-2 checkpoint == step 3": replay_same,
+    })
 
 
 def zero_flash_counts():
@@ -813,16 +991,32 @@ def serve_requests(vocab):
             for i, p in enumerate(reqs)]
 
 
-def counted_serve(fn):
+def counted_path(fn):
     """Run ``fn`` with the flash counts zeroed just before and read just
-    after, counting the host syncs (the designed ones are one per prefill,
-    the first token, and one per decode step, the [B, 1] token fetch).
-    Returns (fn's result, wall s, host syncs, flash counts)."""
+    after, counting the host syncs (a serve's designed ones are one per
+    prefill, the first token, and one per decode step, the [B, 1] token
+    fetch; the train loop's one per step, its metrics) and logging where
+    each came from. Returns (fn's result, wall s, host syncs, flash
+    counts)."""
+    import collections
+    import traceback
     import torch
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # where each sync came from: the last frames of this package's
+        # (and the port's) code on the stack when it warned
+        if "synchronizing CUDA operation" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "warnings" not in f.filename]
+            sites[" < ".join(f"{pathlib.Path(f.filename).name}:{f.lineno}"
+                             for f in frames[-4:])] += 1
+
     zero_flash_counts()                          # the main path starts here
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
@@ -831,8 +1025,9 @@ def counted_serve(fn):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = flash_counts()                      # ... and ends here
-    n_syncs = sum("synchronizing CUDA operation" in str(w.message)
-                  for w in caught)
+    n_syncs = sum(sites.values())
+    log(f"[syncs] {n_syncs} host syncs by site (innermost last): "
+        + "; ".join(f"{n} x {site}" for site, n in sites.most_common(4)))
     return out, wall, n_syncs, counts
 
 
@@ -880,9 +1075,10 @@ def log_serve(label, stats, wall, reqs, card):
             f"[{r.finish_reason}] {r.energy_j:.3f} J")
 
 
-def make_model(name, seed, num_layers=None):
-    """(cfg, model, params): ``name`` at its published width, bf16 weights
-    made on the card from ``seed``; ``num_layers`` cuts the depth."""
+def make_model(name, seed, num_layers=None, dtype=None):
+    """(cfg, model, params): ``name`` at its published width, weights made
+    on the card from ``seed`` in ``dtype`` (None: the config's, bf16);
+    ``num_layers`` cuts the depth."""
     import torch
     from repro_torch import configs
     from repro_torch.models import build_model
@@ -893,7 +1089,7 @@ def make_model(name, seed, num_layers=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     t0 = time.perf_counter()
-    params = model.init(gen, "cuda")
+    params = model.init(gen, "cuda", dtype=dtype)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
     log(f"[model] {cfg.name}: {cfg.num_layers} layers"
@@ -903,7 +1099,8 @@ def make_model(name, seed, num_layers=None):
         f"qk_norm {cfg.qk_norm}"
         + (f", window {cfg.sliding_window} on all layers but every "
            f"{cfg.local_global_period}th" if cfg.local_global_period else "")
-        + f": {n_params / 1e9:.2f} B params in {cfg.dtype} made on the card "
+        + f": {n_params / 1e9:.2f} B params in "
+        f"{str(dtype)[6:] if dtype is not None else cfg.dtype} made on the card "
         f"in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
     return cfg, model, params
@@ -934,7 +1131,7 @@ def phase_serve(card):
     eng = ContinuousEngine(model, params, **kw)
     reqs = serve_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    stats, wall, n_syncs, (n_flash, routes, windowed) = counted_serve(
+    stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
         lambda: eng.serve(reqs))
     launches = {"flash_attention": n_flash,
                 "flash_attention/wgmma": routes["wgmma"]}
@@ -999,7 +1196,7 @@ def phase_serve_window(card):
     reqs = window_requests(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     with flash_shapes() as shapes:
-        stats, wall, n_syncs, (n_flash, routes, windowed) = counted_serve(
+        stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
             lambda: eng.serve(reqs))
     want_shapes = window_shapes(cfg, 1, eng.buckets,
                                 [len(r.prompt) for r in reqs],
@@ -1054,7 +1251,7 @@ def phase_static_window(cfg, model, params):
     eng = ServeEngine(model, params, batch_size=4,
                       max_seq=SERVE_WINDOW["max_seq"])
     with flash_shapes() as shapes:
-        stats, wall, n_syncs, (n_flash, routes, windowed) = counted_serve(
+        stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
             lambda: eng.serve(reqs))
     # the batch is left-padded to its longest prompt, then bucketed
     want_shapes = window_shapes(cfg, 4, eng.buckets,
@@ -1149,7 +1346,7 @@ def phase_serve_dense(card):
             max_new_tokens=c["max_new"]) for i in range(c["n"])]
         eng = ContinuousEngine(model, params, batch_size=c["batch"],
                                max_seq=c["max_seq"])
-        stats, wall, n_syncs, (n_flash, routes, windowed) = counted_serve(
+        stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
             lambda: eng.serve(reqs))
         log(f"[dense] {cfg.name} ({c['layers']} of "
             f"{configs.get(name).num_layers} layers): flash launches "
@@ -1173,6 +1370,145 @@ def phase_serve_dense(card):
         del eng, params, model
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# granite-20b at its published width with the depth cut to 4 of 52 layers
+# (f32 master, gradient and AdamW moments are 16 bytes a parameter: 451 GB
+# at full depth), bf16 compute: batch 8 x 512 tokens in 2 microbatches,
+# 6 steps through train.loop.run
+TRAIN = dict(arch="granite-20b", layers=4, batch=8, seq=512, micro=2,
+             steps=6, lr=3e-4, seed=0)
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def phase_train(card):
+    """The port's trainer on the card: f32 master parameters made on the
+    card from a seed, train.step.make_train_step under counting_call,
+    through train.loop.run with a tracer and a registry. Step 1's
+    gradients are read once before the loop (every leaf nonzero: the flash
+    kernel's Function carries wq, wk and wv a gradient); the flash counts
+    and the host syncs are zeroed just before the loop and read just after.
+    Then a profiled step."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.tracing import TraceStats, counting_call
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
+                                           batch_to_device)
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             init_opt_state, tree_leaves)
+    from repro_torch.train.step import (StepConfig, TrainState,
+                                        make_grad_fn, make_train_step)
+    c = TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = make_model(c["arch"], c["seed"], c["layers"],
+                                    dtype=torch.float32)
+    state = TrainState(params, init_opt_state(params))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    tokens = c["batch"] * c["seq"]
+    opt_cfg = OptConfig(lr=c["lr"], warmup_steps=min(20, c["steps"] // 5),
+                        total_steps=c["steps"])
+    step_cfg = StepConfig(num_microbatches=c["micro"])
+    data = SyntheticTokens(DataConfig(seed=c["seed"],
+                                      vocab_size=cfg.vocab_size,
+                                      seq_len=c["seq"],
+                                      global_batch=c["batch"]), cfg)
+    log(f"[train] state (f32 params, m, v) "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    # step 1's gradients, read once (this also warms up the forward and
+    # backward shapes before the loop)
+    t0 = time.perf_counter()
+    loss0, grads = make_grad_fn(model, step_cfg)(
+        state.params, batch_to_device(data.batch(0), "cuda"))
+    names, leaves = zip(*_named(grads))
+    amax = torch.stack([g.abs().amax() for g in leaves]).tolist()
+    finite = torch.stack([torch.isfinite(g).all() for g in leaves]).all()
+    zero = [n for n, a in zip(names, amax) if not a > 0]
+    log(f"[train] step 1's gradients in {time.perf_counter() - t0:.2f} s: "
+        f"loss {loss0.item():.4f}; max|grad| by leaf " + ", ".join(
+            f"{n} {a:.3e}" for n, a in zip(names, amax)))
+    grads_ok = bool(finite) and not zero
+    del grads, leaves
+    stats = TraceStats()
+    step = make_train_step(model, opt_cfg, step_cfg)
+    counted = counting_call(step, "train_step", stats)
+    tracer, registry = Tracer(), MetricsRegistry()
+    loop_cfg = loop_mod.LoopConfig(total_steps=c["steps"],
+                                   ckpt_every=c["steps"] + 1)
+    (state, history, summary), wall, n_syncs, (n_flash, routes, windowed) = \
+        counted_path(lambda: loop_mod.run(
+            counted, state, data, loop_cfg, device="cuda", tracer=tracer,
+            metrics_registry=registry))
+    peak = torch.cuda.max_memory_allocated()
+    walls = [r["wall_s"] for r in history]
+    med = float(np.median(walls[1:]))
+    model_flop = 6 * n_params * tokens
+    by_tag = summary["energy_by_tag"]
+    for r in history:
+        log(f"[train] step {r['step']}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.4f}, wall {r['wall_s'] * 1e3:.1f} ms")
+    log(f"[train] {cfg.name} ({c['layers']} of "
+        f"{configs.get(c['arch']).num_layers} layers, full width): "
+        f"{n_params / 1e9:.3f} B params; batch {c['batch']} x {c['seq']} in "
+        f"{c['micro']} microbatches; {c['steps']} steps in {wall:.2f} s; "
+        f"step wall median of steps 2-{c['steps']} {med * 1e3:.1f} ms "
+        f"({tokens / med:.0f} tokens/s); model FLOP 6·N·tokens "
+        f"{model_flop / 1e12:.2f} TFLOP a step (N with the embedding; the "
+        f"remat recompute not counted): {model_flop / med / 1e12:.1f} "
+        f"TFLOP/s, {model_flop / med / PEAK_OPS['bfloat16']:.1%} of 989; "
+        f"peak memory {peak / 1e9:.2f} GB; modeled energy "
+        f"{summary['energy_j']:.3f} J, {summary['j_per_token']:.6f} J/token "
+        f"(H100_SXM power model at utilization 1.0 through the probe's "
+        f"240 W clip); tags {by_tag}; host syncs {n_syncs}; "
+        f"train_step_compiles {stats.compiles('train_step')}; flash "
+        f"launches {n_flash} by route {routes}, windowed {windowed}; "
+        f"card: {card}")
+    want_flash = c["layers"] * c["micro"] * c["steps"] * 2
+    check_all("train", {
+        "every loss and grad norm finite": all(
+            np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+            for r in history) and len(history) == c["steps"],
+        "step 1: every parameter leaf has a nonzero gradient": grads_ok,
+        "train_step_compiles == 1": stats.compiles("train_step") == 1,
+        "host syncs == steps": n_syncs == c["steps"],
+        "per-tag joules partition the session (1e-6 J)": abs(
+            sum(by_tag.values()) - summary["energy_j"]) <= 1e-6,
+        "flash launches == layers x microbatches x steps x 2, all wgmma": (
+            n_flash == want_flash and routes == {"wgmma": n_flash,
+                                                 "ffma": 0}
+            and windowed == 0),
+    })
+    # a step, and its two halves apart: the forward and backward of both
+    # microbatches (grad_fn), and the AdamW update on one set of gradients
+    batch = batch_to_device(data.batch(c["steps"]), "cuda")
+    box = [state]
+    grad_fn = make_grad_fn(model, step_cfg)
+
+    def one_step():
+        box[0], _ = step(box[0], batch)
+
+    prof = profile_steps("train", {"train step": one_step})["train step"]
+    _, grads = grad_fn(box[0].params, batch)
+    profile_steps("train", {
+        "forward and backward (2 microbatches)": lambda: grad_fn(
+            box[0].params, batch),
+        "AdamW update": lambda: adamw_update(opt_cfg, box[0].params, grads,
+                                             box[0].opt),
+    })
+    del state, box, params, grads
+    return dict(launches=n_flash, step_ms=med * 1e3, peak_gb=peak / 1e9,
+                profile=prof, shape=(c["batch"] // c["micro"],
+                                     cfg.num_heads, cfg.num_kv_heads,
+                                     c["seq"], cfg.head_dim))
 
 
 def _profiled(fn, n=3):
@@ -1256,19 +1592,42 @@ def phase_profile_window(eng):
     })
 
 
+# kernel classes of a profile, by the first rule a kernel's name meets
+KERNEL_CLASSES = (("flash", ("flash_fwd",)),
+                  ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
+                  ("copy/cast", ("copy", "Memcpy")),
+                  ("fill", ("Fill",)),
+                  ("reduce", ("reduce_kernel",)),
+                  ("elementwise", ("elementwise",)))
+
+
+def kernel_class(name) -> str:
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
+
+
 def profile_steps(label, steps):
     out = {}
     for name, fn in steps.items():
         host, dev, n_k, by_name = _profiled(fn)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        flash = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+        by_class = {}
+        for k, v in by_name.items():
+            cls = kernel_class(k)
+            by_class[cls] = by_class.get(cls, 0.0) + v
+        flash = by_class.get("flash", 0.0)
         idle = 1.0 - dev / host if host > 0 else 0.0
         log(f"[{label}] {name}: host {host:.3f} ms, device busy "
             f"{dev:.3f} ms (idle share {idle:.1%}), {n_k:.0f} kernels; "
-            f"flash kernel {flash:.3f} ms; top: "
+            f"flash kernel {flash:.3f} ms; device ms by class: "
+            + ", ".join(f"{c} {v:.3f}" for c, v in sorted(
+                by_class.items(), key=lambda kv: -kv[1]))
+            + "; top: "
             + "; ".join(f"{k[:120]} {v:.3f} ms" for k, v in top))
         out[name] = dict(host_ms=host, device_ms=dev, kernels=n_k,
-                         flash_ms=flash)
+                         flash_ms=flash, by_class=by_class)
     return out
 
 
@@ -1448,78 +1807,82 @@ WINDOW_TIMING = ((2048, 1024), (2048, None))
 
 def timing_window(cfg):
     """Flash at gemma3-27b's S 2048 prefill, bf16 q [1,32,2048,128] and kv
-    [1,16,2048,128]: the planned call (wgmma) beside the plain version and
-    sdpa with the boolean mask (and, for the global layer, with
-    is_causal), by CUDA events over back-to-back calls and by one call's
-    device time under the profiler; the bound by operations. The kernel
-    and sdpa are held against the plain version at the bf16 tolerance.
-    Returns {window: row}."""
+    [1,16,2048,128], with the 1024 window (a local layer) and without (a
+    global layer): ``time_flash``. Returns {window: row}."""
+    return {win: time_flash(1, cfg.num_heads, cfg.num_kv_heads, s,
+                            cfg.head_dim, win,
+                            f"gemma3-27b's {'local' if win else 'global'} "
+                            f"layer")
+            for s, win in WINDOW_TIMING}
+
+
+def time_flash(b, h, hkv, s, d, win, what):
+    """The planned flash call (wgmma) on bf16 q [b,h,s,d], kv [b,hkv,s,d]
+    (causal, with ``win`` a window) beside the plain version and sdpa with
+    the boolean mask (and, without a window, with is_causal), by CUDA
+    events over back-to-back calls and by one call's device time under the
+    profiler; the bound by operations. The kernel and sdpa are held
+    against the plain version at the bf16 tolerance."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tol = FLASH_TOL["bfloat16"]
-    rows = {}
-    for s, win in WINDOW_TIMING:
-        t = s
-        g = torch.Generator(device="cuda")
-        g.manual_seed(s + (win or 0))
-        q, k, v = (torch.randn(1, n, m, d, device="cuda", generator=g,
-                               dtype=torch.bfloat16)
-                   for n, m in ((h, s), (hkv, t), (hkv, t)))
-        qp = torch.arange(s, device="cuda")[:, None]
-        kp = torch.arange(t, device="cuda")[None, :]
-        mask = kp <= qp
-        if win is not None:
-            mask = mask & (qp - kp < win)
-        call = lambda: ops.flash_attention(q, k, v, window=win)  # noqa: E731
-        before = dict(ops.route_launches)
-        ms = cuda_timed(call)
-        taken = {r: c - before[r] for r, c in ops.route_launches.items()
-                 if c != before[r]}
-        if taken != {"wgmma": 23}:
-            raise AssertionError(f"the timed calls took routes {taken}")
-        device = _device_ms(call)
-        plain_ms = cuda_timed(lambda: ref.attention(q, k, v, window=win),
-                              iters=5)
-        sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
-            q, k, v, attn_mask=mask, enable_gqa=True)
-        lib = {"mask": sdpa}
-        if win is None:
-            lib["is_causal"] = lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
-        want = ref.attention(q, k, v, window=win).float()
-        err = (call().float() - want).abs().max().item()
-        lib_err = {n: (fn().float() - want).abs().max().item()
-                   for n, fn in lib.items()}
-        if not (err <= tol and all(e <= tol for e in lib_err.values())):
-            raise AssertionError(f"flash (or sdpa) disagrees at S {s} window "
-                                 f"{win}: {err}, sdpa {lib_err}")
-        lib_ms = {n: (cuda_timed(fn), _device_ms(fn)) for n, fn in
-                  lib.items()}
-        n_bytes, n_ops = flash_work(s, t, d, h, hkv, 0, 2, win)
-        row = dict(_row(ms, plain_ms, lib_ms["mask"][0], n_bytes, n_ops,
-                        PEAK_OPS["bfloat16"], err),
-                   device_ms=device, library_device_ms=lib_ms["mask"][1],
-                   timed_at=f"bf16 q[1,{h},{s},{d}] kv[1,{hkv},{t},{d}] "
-                            f"q_offset 0, window {win} (gemma3-27b's "
-                            f"{'local' if win else 'global'} layer)")
-        if win is None:
-            row["is_causal_ms"], row["is_causal_device_ms"] = \
-                lib_ms["is_causal"]
-        rows[win] = row
-        log(f"[timing] flash {row['timed_at']}: events {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, " + ", ".join(
-                f"sdpa {n} {e:.4f} ms" for n, (e, _) in lib_ms.items())
-            + f"; device time a call: wgmma {device:.4f} ms, " + ", ".join(
-                f"sdpa {n} {dv:.4f} ms" for n, (_, dv) in lib_ms.items())
-            + f"; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
-            f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); "
-            f"{n_ops / device / 1e9:.1f} TFLOP/s by device time; max|err| "
-            f"{err:.3e}, sdpa "
-            + ", ".join(f"{n} {e:.3e}" for n, e in lib_err.items())
-            + f" (tol {tol:g})")
-    return rows
+    t = s
+    g = torch.Generator(device="cuda")
+    g.manual_seed(s + (win or 0))
+    q, k, v = (torch.randn(b, n, m, d, device="cuda", generator=g,
+                           dtype=torch.bfloat16)
+               for n, m in ((h, s), (hkv, t), (hkv, t)))
+    qp = torch.arange(s, device="cuda")[:, None]
+    kp = torch.arange(t, device="cuda")[None, :]
+    mask = kp <= qp
+    if win is not None:
+        mask = mask & (qp - kp < win)
+    call = lambda: ops.flash_attention(q, k, v, window=win)  # noqa: E731
+    before = dict(ops.route_launches)
+    ms = cuda_timed(call)
+    taken = {r: c - before[r] for r, c in ops.route_launches.items()
+             if c != before[r]}
+    if taken != {"wgmma": 23}:
+        raise AssertionError(f"the timed calls took routes {taken}")
+    device = _device_ms(call)
+    plain_ms = cuda_timed(lambda: ref.attention(q, k, v, window=win),
+                          iters=5)
+    sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    lib = {"mask": sdpa}
+    if win is None:
+        lib["is_causal"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    want = ref.attention(q, k, v, window=win).float()
+    err = (call().float() - want).abs().max().item()
+    lib_err = {n: (fn().float() - want).abs().max().item()
+               for n, fn in lib.items()}
+    if not (err <= tol and all(e <= tol for e in lib_err.values())):
+        raise AssertionError(f"flash (or sdpa) disagrees at B {b} S {s} "
+                             f"window {win}: {err}, sdpa {lib_err}")
+    lib_ms = {n: (cuda_timed(fn), _device_ms(fn)) for n, fn in lib.items()}
+    n_bytes, n_ops = flash_work(s, t, d, h, hkv, 0, 2, win)
+    row = dict(_row(ms, plain_ms, lib_ms["mask"][0], b * n_bytes,
+                    b * n_ops, PEAK_OPS["bfloat16"], err),
+               device_ms=device, library_device_ms=lib_ms["mask"][1],
+               timed_at=f"bf16 q[{b},{h},{s},{d}] kv[{b},{hkv},{t},{d}] "
+                        f"q_offset 0, window {win} ({what})")
+    if win is None:
+        row["is_causal_ms"], row["is_causal_device_ms"] = \
+            lib_ms["is_causal"]
+    log(f"[timing] flash {row['timed_at']}: events {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, " + ", ".join(
+            f"sdpa {n} {e:.4f} ms" for n, (e, _) in lib_ms.items())
+        + f"; device time a call: wgmma {device:.4f} ms, " + ", ".join(
+            f"sdpa {n} {dv:.4f} ms" for n, (_, dv) in lib_ms.items())
+        + f"; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+        f"{b * n_ops / 1e9:.2f} GFLOP, {b * n_bytes / 1e6:.1f} MB); "
+        f"{b * n_ops / device / 1e9:.1f} TFLOP/s by device time; max|err| "
+        f"{err:.3e}, sdpa "
+        + ", ".join(f"{n} {e:.3e}" for n, e in lib_err.items())
+        + f" (tol {tol:g})")
+    return row
 
 
 def _row(ms, plain_ms, lib_ms, n_bytes, n_ops, peak_ops, err):
@@ -1727,8 +2090,10 @@ def timing_transpose(errs, in_call_ms):
 def phase_cli():
     """The serving CLI on the card: granite-20b's smoke model on the
     continuous engine, and gemma3-27b's (the CLI's default arch) on the
-    static engine with a timeline written by --trace-out, which
-    validate_chrome_trace must accept. The two run side by side."""
+    static engine with a timeline written by --trace-out; and the training
+    CLI on granite-20b's smoke model, 4 steps, with its own --trace-out.
+    validate_chrome_trace must accept both timelines, and each must
+    partition its run's joules. The three run side by side."""
     import tempfile
     from repro_torch.obs import validate_chrome_trace
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -1736,11 +2101,16 @@ def phase_cli():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         trace = pathlib.Path(tmp) / "trace.json"
+        train_trace = pathlib.Path(tmp) / "train_trace.json"
         runs = {
             "granite continuous": cli + ["--arch", "granite-20b", "--smoke"],
             "gemma3 static": cli + ["--arch", "gemma3-27b", "--smoke",
                                     "--engine", "static", "--prompt-len",
                                     "40", "--trace-out", str(trace)],
+            "granite train": [sys.executable, "-m",
+                              "repro_torch.launch.train", "--arch",
+                              "granite-20b", "--smoke", "--steps", "4",
+                              "--trace-out", str(train_trace)],
         }
         procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env,
                                         stdout=subprocess.PIPE,
@@ -1759,15 +2129,16 @@ def phase_cli():
                 failed.append(f"{name} exited {proc.returncode}")
         if failed:
             raise AssertionError(f"CLI runs failed: {failed}")
-        doc = json.loads(trace.read_text())
-        validate_chrome_trace(doc)
-        od = doc["otherData"]
-        log(f"[cli] --trace-out: {len(doc['traceEvents'])} events, "
-            f"{od['n_spans']} spans, {od['attributed_j']:.3f} J attributed "
-            f"of {od['energy_total_j']:.3f} J")
-        if abs(od["attributed_j"] - od["energy_total_j"]) > 1e-6:
-            raise AssertionError("the timeline's spans do not partition the "
-                                 "session's joules")
+        for name, path in (("serve", trace), ("train", train_trace)):
+            doc = json.loads(path.read_text())
+            validate_chrome_trace(doc)
+            od = doc["otherData"]
+            log(f"[cli] {name} --trace-out: {len(doc['traceEvents'])} "
+                f"events, {od['n_spans']} spans, {od['attributed_j']:.3f} J "
+                f"attributed of {od['energy_total_j']:.3f} J")
+            if abs(od["attributed_j"] - od["energy_total_j"]) > 1e-6:
+                raise AssertionError(f"the {name} timeline's spans do not "
+                                     f"partition the session's joules")
     log(f"[cli] ok in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1800,6 +2171,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     flash_errs = phase_kernels()
+    hold_flash_function()
     errs = phase_kernels_measurement()
     bench_launches = phase_bench()
     f32_launches, f32_shape = phase_small()
@@ -1818,8 +2190,14 @@ def main() -> int:
     free_card()
     held_err = hold_window_shapes(wshapes)
     phase_serve_dense(card)
+    free_card()
+    train = phase_train(card)
+    free_card()
     flash_rows = phase_timing(cfg, shapes)
     window_rows = timing_window(wcfg)
+    train_row = time_flash(*train["shape"][:3], train["shape"][3],
+                           train["shape"][4], None,
+                           "granite-20b's train step, one microbatch")
     ffma_row = timing_flash_f32(f32_shape)
     stream_rows = timing_stream(errs)
     dpa_rows = timing_dpa(errs)
@@ -1879,6 +2257,22 @@ def main() -> int:
                                    "library_ms", "device_ms",
                                    "library_device_ms", "timed_at")},
         })
+    # the same wgmma route under the train phase's gradient: granite-20b's
+    # 4 layers x 2 microbatches x 6 steps, each a forward and a remat
+    # recompute, timed at one microbatch's shape
+    kernels.append({
+        "name": "flash_attention/wgmma/granite_train",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/"
+                    "flash_attention.py:22",
+        "launches": train["launches"],
+        "max_abs_err": max(flash_errs["wgmma"], train_row["max_abs_err"]),
+        **{k: train_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "device_ms",
+                                     "library_device_ms", "is_causal_ms",
+                                     "is_causal_device_ms", "timed_at")},
+    })
     # STREAM at 128 MiB f32, dpa_matmul at 4096^3; each error is the
     # largest over every case the kernel was held at
     for name, line in STREAM_REPLACES.items():

@@ -5,6 +5,9 @@ asked for the host; with no card and no ``--device cpu`` it fails.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--only <substr>]
         [--device cpu]
+
+``--only checkpoint`` runs the checkpoint I/O bench alone (``--only
+bandwidth|peak|launch`` the others).
 """
 import argparse
 import importlib
@@ -17,6 +20,7 @@ MODULES = [
     ("bandwidth (Fig. 4/6)", "repro_torch.benchmarks.bench_bandwidth"),
     ("peak compute (Fig. 5/7)", "repro_torch.benchmarks.bench_peak"),
     ("launch latency (Fig. 8)", "repro_torch.benchmarks.bench_launch_latency"),
+    ("checkpoint I/O (Fig. 9)", "repro_torch.benchmarks.bench_checkpoint_io"),
 ]
 
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -23,3 +24,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(array, device) -> torch.Tensor:
+    """A host array's copy on ``device`` without a host sync.
+
+    A blocking host-to-device copy synchronises the stream, which would add
+    a sync per step beside the designed ones; this copies the array (the
+    caller may mutate its own afterwards) and lets the driver stage the
+    pageable copy while the stream keeps running."""
+    return torch.tensor(np.asarray(array)).to(device, non_blocking=True)

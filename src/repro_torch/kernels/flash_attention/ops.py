@@ -9,6 +9,14 @@ current CUDA stream and counts the launch in ``launches``,
 tensor goes to the plain version (``ref.attention``); a CUDA tensor goes to
 the planned kernel or raises.
 
+Under a gradient (grad mode on and q, k or v requiring one) the call runs
+through ``FlashAttention``, an autograd Function: its forward is the same
+planned kernel (or the plain version on the host), its backward recomputes
+attention with the differentiable plain version in blocks of
+``BACKWARD_Q_BLOCK`` query rows. The reference's Pallas kernel has no
+backward kernel (no ``custom_vjp``); its training differentiates the XLA
+stand-in, so this backward is the reference's, not a fallback.
+
 Routes: ``wgmma`` (bf16 with D 64 or 128 on 16-byte-aligned tensors:
 tensor cores, GQA-packed query tiles fed by a TMA ring) and ``ffma`` (f32,
 and other bf16: f32 FMA on the CUDA cores, true f32 for f32 inputs).
@@ -41,6 +49,9 @@ TILES = {"ffma": (64,), "wgmma": (64,)}
 #: the head dims the wgmma route takes (bf16 only): a row of 64 or 128
 #: elements is one or two 128-byte TMA boxes
 WGMMA_HEAD_DIMS = (64, 128)
+#: query rows the backward recomputes at a time: the reference trains with
+#: ``q_block=min(512, seq)``, so [B,H,S,T] f32 scores never exist whole
+BACKWARD_Q_BLOCK = 512
 
 
 def plan(b: int, h: int, hkv: int, s: int, t: int, d: int,
@@ -123,6 +134,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     write q's dtype (the wgmma route rounds the softmax weights to bf16
     before multiplying them with v)."""
     _check(q, k, v, q_offset, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)
+
+
+def _forward(q, k, v, causal, window, q_offset):
+    """The plain version on the host, the planned kernel on the card."""
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
@@ -136,6 +155,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route, block_m = plan(b, h, k.shape[1], s, k.shape[2], d, q.dtype,
                           _sm_count(index), aligned)
     return _launch(q, k, v, causal, window, q_offset, route, block_m)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under a gradient: the kernel forward, and a
+    backward that recomputes the plain version (``attention_grads``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return _forward(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        return attention_grads(q, k, v, do, causal=causal, window=window,
+                               q_offset=q_offset) + (None, None, None)
+
+
+def attention_grads(q, k, v, do, *, causal=True, window=None, q_offset=0,
+                    block=BACKWARD_Q_BLOCK):
+    """(dq, dk, dv) of ``ref.attention`` at (q, k, v) against ``do``,
+    recomputed ``block`` query rows at a time over the keys those rows can
+    see, so that a block's scores are [B, H, block, keys] and never the
+    whole [B, H, S, T]. dk and dv are summed over the blocks in f32."""
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    dq = torch.zeros_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for i0 in range(0, s, block):
+        i1 = min(s, i0 + block)
+        # the keys rows [i0, i1) can see: from the window's start of the
+        # first row to the diagonal of the last
+        lo = 0 if window is None else max(0, q_offset + i0 - window + 1)
+        hi = min(t, q_offset + i1) if causal else t
+        if hi <= lo:
+            continue                    # no visible key: zero output rows
+        qb, kb, vb = (x.detach().requires_grad_() for x in (
+            q[:, :, i0:i1], k[:, :, lo:hi], v[:, :, lo:hi]))
+        with torch.enable_grad():
+            o = ref.attention(qb, kb, vb, causal=causal, window=window,
+                              q_offset=q_offset + i0 - lo)
+        gq, gk, gv = torch.autograd.grad(o, (qb, kb, vb), do[:, :, i0:i1])
+        dq[:, :, i0:i1] = gq
+        dk[:, :, lo:hi] += gk
+        dv[:, :, lo:hi] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

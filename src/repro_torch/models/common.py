@@ -1,5 +1,5 @@
 """Shared model components: norms, RoPE, GQA attention, KV-cache helpers,
-MLP, embeddings.
+MLP, embeddings and the training losses.
 
 Plain functions over explicit parameter dicts of tensors, with the
 reference's names, shapes and ``[L, ...]`` stacking. Where the reference
@@ -11,7 +11,9 @@ Prefill attention runs on the Hopper flash kernel
 (``repro_torch.kernels.flash_attention``), causal on global layers and with
 the sliding window on gemma3's local ones; single-token decode attention
 (over a flat cache or a window ring) stays plain tensor ops over the
-gathered cache view, as in the reference.
+gathered cache view, as in the reference. Under a gradient the flash call
+runs through its autograd Function (``ops.FlashAttention``), so the
+training forward reaches the same kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -364,3 +367,59 @@ def embed(tokens, p, dtype):
 def unembed(x, p):
     x = rms_norm(x, p["final_norm"])
     return x @ p["unembed"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+
+
+def _xent_chunk(m_run, s_run, gold, hn, wc, labels, lo):
+    """One vocab chunk of ``chunked_softmax_xent``: the chunk's logits
+    [B,S,c] in f32 folded into the running max, sum and gold logit."""
+    c = wc.shape[1]
+    logits = (hn @ wc.to(hn.dtype)).float()
+    m_new = torch.maximum(m_run, logits.amax(dim=-1))
+    s_run = (s_run * torch.exp(m_run - m_new)
+             + torch.exp(logits - m_new[..., None]).sum(dim=-1))
+    in_range = (labels >= lo) & (labels < lo + c)
+    idx = (labels - lo).clamp(0, c - 1)
+    g = logits.gather(-1, idx[..., None].long())[..., 0]
+    return m_new, s_run, gold + torch.where(in_range, g, 0.0)
+
+
+def chunked_softmax_xent(h, params, labels, mask=None, n_chunks=16):
+    """Cross-entropy without materializing [B,S,V] logits.
+
+    Online logsumexp over vocab chunks; each chunk runs under
+    ``torch.utils.checkpoint``, so its logits are recomputed in the
+    backward pass (the reference's ``jax.checkpoint(nothing_saveable)``)
+    and peak memory is O(B*S*V/n)."""
+    hn = rms_norm(h, params["final_norm"])
+    w = params["unembed"]
+    v = w.shape[1]
+    if v % n_chunks:
+        raise ValueError(f"vocab {v} is not a multiple of {n_chunks} chunks")
+    c = v // n_chunks
+    b, s, _ = h.shape
+    m_run = torch.full((b, s), NEG_INF, dtype=torch.float32, device=h.device)
+    s_run = torch.zeros((b, s), dtype=torch.float32, device=h.device)
+    gold = torch.zeros((b, s), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        m_run, s_run, gold = checkpoint(
+            _xent_chunk, m_run, s_run, gold, hn, w[:, i * c:(i + 1) * c],
+            labels, i * c, use_reentrant=False, preserve_rng_state=False)
+    nll = torch.log(s_run.clamp_min(1e-30)) + m_run - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean cross-entropy in fp32; labels: int [B,S]."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -8,13 +8,23 @@ local ones. The parameter dict keeps the reference's stacked ``[L, ...]``
 layout and names (``layers/attn/wq [L, d, h, dh]``, ...), so the weight
 bridge is a plain map; a Python loop over layers takes the place of
 ``lax.scan`` (and of ``lax.cond`` between a global and a local layer).
+
+Training: ``init(dtype=torch.float32)`` makes the f32 master parameters
+(the reference's ``param_dtype``); the layers cast each weight to the
+compute dtype where they use it, so gradients land on the f32 leaves.
+``hidden``/``forward`` run the stack without caches, each layer under
+``torch.utils.checkpoint`` when a gradient is being taken (``remat``, on by
+default as in the reference, whose scan body is
+``jax.checkpoint(nothing_saveable)``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -62,28 +72,33 @@ def layer_flags(cfg: ModelConfig) -> np.ndarray:
 class DecoderLM:
     """Functional decoder-only LM over an explicit parameter dict."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = True):
         if cfg.family != "dense" or cfg.pad_q_heads or cfg.is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: the port's DecoderLM serves the dense "
                 "families only (no MoE or head padding yet)")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        self.remat = remat
 
     # -- params ------------------------------------------------------------
 
     def init(self, generator: Optional[torch.Generator] = None,
-             device: DeviceLike = None) -> Dict:
-        """Random weights N(0, 1/fan_in) in ``cfg.dtype`` on ``device``,
-        filled layer by layer in place (no f32 copy of a bf16 model), from
-        ``generator`` (a ``torch.Generator`` on that device)."""
+             device: DeviceLike = None,
+             dtype: Optional[torch.dtype] = None) -> Dict:
+        """Random weights N(0, 1/fan_in) on ``device``, filled layer by
+        layer in place (no f32 copy of a bf16 model), from ``generator`` (a
+        ``torch.Generator`` on that device). ``dtype`` None gives
+        ``cfg.dtype`` (serving); training passes the master dtype,
+        ``torch.float32``."""
         dev = resolve_device(device)
+        dtype = self.dtype if dtype is None else dtype
 
         def make(spec):
             if isinstance(spec, dict):
                 return {k: make(v) for k, v in spec.items()}
             shape, fan_in = spec
-            t = torch.zeros(shape, dtype=self.dtype, device=dev)
+            t = torch.zeros(shape, dtype=dtype, device=dev)
             if fan_in is not None:
                 std = 1.0 / max(fan_in, 1) ** 0.5
                 for row in (t if len(shape) > 2 else (t,)):
@@ -107,15 +122,24 @@ class DecoderLM:
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         lp = params["layers"]
         flags = layer_flags(cfg)
-        for i in range(cfg.num_layers):
+        remat = caches is None and self.remat and torch.is_grad_enabled()
+        for i, p in enumerate(_layers_of(lp, cfg.num_layers)):
             c = None if caches is None else (caches[0][i], caches[1][i])
-            p = _layer_of(lp, i)
-            h, _ = common.attention(
-                common.rms_norm(x, p["norm1"]), p["attn"], cfg,
-                positions=positions, is_global=bool(flags[i]),
+            layer = functools.partial(
+                self._layer, positions=positions, is_global=bool(flags[i]),
                 rope_cs=rope_cs, kv_cache=c, cache_pos=cache_pos)
-            x = self._mlp_block(x + h, p)
+            if remat:
+                x = checkpoint(layer, x, p, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, p)
         return x, caches
+
+    def _layer(self, x, p, **attn):
+        """One layer: attention and the MLP, each around its residual."""
+        h, _ = common.attention(common.rms_norm(x, p["norm1"]), p["attn"],
+                                self.cfg, **attn)
+        return self._mlp_block(x + h, p)
 
     def _mlp_block(self, x, p):
         """The residual MLP half of a layer."""
@@ -198,12 +222,20 @@ class DecoderLM:
     def _inputs_to_h(self, batch, params):
         return common.embed(batch["tokens"], params, self.dtype)
 
-    def forward(self, params, batch):
-        """Scoring forward: batch = {tokens [B,S]} -> (logits [B,S,V], aux)."""
+    def hidden(self, params, batch):
+        """Final hidden states (pre-unembed) and the aux loss (0.0 for the
+        dense family): the chunked cross-entropy's input, which never
+        materializes the [B,S,V] logits."""
         x = self._inputs_to_h(batch, params)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = self._run_stack(x, params, positions=positions)
-        return common.unembed(x, params), 0.0
+        return x, 0.0
+
+    def forward(self, params, batch):
+        """Training/scoring forward: batch = {tokens [B,S]} ->
+        (logits [B,S,V], aux)."""
+        x, aux = self.hidden(params, batch)
+        return common.unembed(x, params), aux
 
     # -- serving -----------------------------------------------------------
 
@@ -280,3 +312,15 @@ def _layer_of(v, i):
     if isinstance(v, dict):
         return {k: _layer_of(u, i) for k, u in v.items()}
     return v[i]
+
+
+def _layers_of(v, n):
+    """Every layer's slice of a stacked ``[L, ...]`` tree at once
+    (``unbind``). Under a gradient the slices' gradients are then stacked
+    once per leaf; indexing layer by layer would scatter each into a
+    zero-filled copy of the whole stack and sum the copies: L full-size
+    fills and L - 1 full-size sums per leaf."""
+    if isinstance(v, dict):
+        per = {k: _layers_of(u, n) for k, u in v.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return v.unbind(0)

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.device import to_device
 from repro_torch.core.energy import ServePowerModel
 from repro_torch.core.hw import DeviceSpec, H100_SXM
 from repro_torch.core.scheduler import ThroughputStats
@@ -40,7 +41,7 @@ from repro_torch.models.common import cache_leaves
 from repro_torch.obs import NULL_SPAN, MetricsRegistry, TelemetryEvent, Tracer
 from repro_torch.serve.queue import AdmissionController, Request, RequestQueue
 from repro_torch.serve.slots import SlotManager
-from repro_torch.serve.state import make_adapter, resolve_buckets, to_device
+from repro_torch.serve.state import make_adapter, resolve_buckets
 from repro_torch.serve.step import (TraceStats, bucket_for, counting_call,
                                     make_decode_step, make_prefill_step)
 from repro_torch.telemetry import ModelSource, MonitorSession

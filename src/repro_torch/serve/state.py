@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.device import to_device
 from repro_torch.models.common import reset_cache_slot
 from repro_torch.models.registry import ServingCaps, serving_caps
 from repro_torch.serve.paging import (PagePool, RadixPrefixCache,
@@ -39,16 +40,6 @@ from repro_torch.serve.step import prefill_buckets as auto_prefill_buckets
 
 __all__ = ["PrefillOutcome", "CacheAdapter", "PagedKVAdapter",
            "WindowRingAdapter", "make_adapter", "resolve_buckets"]
-
-
-def to_device(array, device) -> torch.Tensor:
-    """A host array's copy on ``device`` without a host sync.
-
-    A blocking host-to-device copy synchronises the stream, which would add
-    a sync per step beside the designed ones; this copies the array (the
-    caller may mutate its own afterwards) and lets the driver stage the
-    pageable copy while the stream keeps running."""
-    return torch.tensor(np.asarray(array)).to(device, non_blocking=True)
 
 
 def resolve_buckets(spec, max_seq: int, model=None):
