@@ -62,7 +62,15 @@ Phases, each of which must pass (any failure exits non-zero):
               4, max_seq 512, 32 new tokens each, four sharing a 128-token
               prefix. The flash launch counts are zeroed just before and
               read just after: every prefill layer on the wgmma route,
-              none on ffma.
+              none on ffma. Record: right after the serve, its telemetry
+              (the windows and the event log that split its joules) goes
+              to build/record/serve_granite.dkt through
+              tracestore.record_engine; replay_attribution, run twice,
+              must give every request its live joules to 1e-6 J and
+              equal itself, and replay with the replay CLI's three
+              admission policies (baseline, strict-1slot, a 400 W cap on
+              the H100_SXM power model), run twice, must give equal
+              reports, each policy at or below the trace's joules.
 6. profile  — where the time goes in one full-width decode step and one
               256-token prefill: host time, device-busy time, kernel count.
 7. serve_window — granite freed, gemma3-27b at its published width (62
@@ -71,7 +79,9 @@ Phases, each of which must pass (any failure exits non-zero):
               max_seq 2048, 32 new tokens each; two prompts longer than
               the window, two whose decode crosses it. Flash counted as in
               5: every prefill layer on wgmma, 52 of 62 windowed, at the
-              shapes the prompts' buckets give. Then its profile (a decode
+              shapes the prompts' buckets give. Recorded and replayed as
+              in 5 (build/record/serve_gemma3.dkt: the window-ring
+              adapter's slots in its events). Then its profile (a decode
               step, a 2048-token prefill) and the static ServeEngine on the
               same weights (the four long requests in one batch of 4, 16
               tokens each). With gemma3 freed, the planned flash call is
@@ -110,6 +120,13 @@ Phases, each of which must pass (any failure exits non-zero):
               --arch granite-20b --smoke --steps 4 --trace-out ...` on the
               card, side by side; each trace must validate and partition
               its run's joules.
+12. record_cli — on the host: `python -m repro_torch.launch.record --nodes
+              2 --duration 0.5` (a 2-node trace of the paper's topology
+              under build/record), then `python -m
+              repro_torch.launch.replay <that trace> --ttl 0.3 --cap 150
+              --check-determinism` beside `python -m
+              repro_torch.benchmarks.run --only energy` (and `elastic`,
+              `scheduler`), once each; every one must exit 0.
 
 The line before the last is the kernels JSON, the one before it the card's
 name and power limit; the last line is the device JSON.
@@ -126,6 +143,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1052,6 +1070,85 @@ def check_all(label, checks):
                              f"{[n for n, ok in checks.items() if not ok]}")
 
 
+# the record phase: a full-width serve's telemetry (the windows and the
+# event log that partitioned its joules) to a .dkt trace, replayed offline
+RECORD_DIR = ROOT / "build" / "record"
+RECORD_TOL_J = 1e-6
+RECORD_CAP_W = 400.0
+
+
+def record_serve(label, eng, reqs, name, policies=False):
+    """Record ``eng``'s telemetry to ``build/record/<name>.dkt`` right
+    after its serve (before anything else samples on the engine: the
+    trace holds the very windows that partitioned the joules), replay
+    every request's joules from it twice (``replay_attribution``), and,
+    with ``policies``, replay the trace through the replay CLI's three
+    admission policies twice (``replay``)."""
+    from repro_torch.launch.replay import _policies
+    from repro_torch.tracestore import (ReplayRequest, TraceReader,
+                                        record_engine, replay,
+                                        replay_attribution)
+    RECORD_DIR.mkdir(parents=True, exist_ok=True)
+    path = RECORD_DIR / f"{name}.dkt"
+    t0 = time.perf_counter()
+    record_engine(eng.tel, path, meta={"arch": eng.model.cfg.name})
+    t_record = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replays = []
+    for _ in range(2):
+        with TraceReader(path) as r:
+            replays.append(replay_attribution(r))
+    t_attr = time.perf_counter() - t0
+    with TraceReader(path) as r:
+        (sid,) = r.stream_ids()
+        n_chunks, n_samples = len(r.chunks(sid)), r.n_samples(sid)
+        t_first, t_last = r.time_range(sid)
+        trace_j = r.read(sid).energy_j()
+    live = {r.req_id: r.energy_j for r in reqs}
+    err = max(abs(replays[0].get(rid, 0.0) - j) for rid, j in live.items())
+    log(f"[{label}] {path.relative_to(ROOT)}: {n_chunks} windows "
+        f"({len(eng.tel.events)} events), {n_samples} samples at "
+        f"{eng.tel.session.grid_sps:.0f} SPS over [{t_first:.3f}, "
+        f"{t_last:.3f}] s, {path.stat().st_size} bytes, "
+        f"{trace_j:.3f} J; record {t_record:.3f} s, two attribution replays "
+        f"{t_attr:.3f} s; max |replayed - live| {err:.3e} J over "
+        f"{len(live)} requests")
+    checks = {
+        "one window a telemetry event": (
+            n_chunks == eng.tel.session.n_windows == len(eng.tel.events)),
+        "replayed requests == those with joules": (
+            set(replays[0]) == {rid for rid, j in live.items() if j > 0}),
+        f"replayed joules within {RECORD_TOL_J} J of live": (
+            err <= RECORD_TOL_J),
+        "two attribution replays equal": replays[0] == replays[1],
+    }
+    if policies:
+        wl = [ReplayRequest(r.req_id, max_new_tokens=len(r.output),
+                            prompt_tokens=len(r.prompt)) for r in reqs]
+        t0 = time.perf_counter()
+        # the replay CLI's own policies, fresh for each run (they keep
+        # stats): work-conserving, one slot, and the cap on the H100_SXM
+        # power model of this model's size
+        cli = types.SimpleNamespace(cap=RECORD_CAP_W,
+                                    cap_params=eng.pm.n_params)
+        reports = [replay(path, workload=wl, policies=_policies(cli),
+                          batch_size=eng.batch_size) for _ in range(2)]
+        t_policy = time.perf_counter() - t0
+        for res in reports[0].results:
+            log(f"[{label}] replay {res.policy}: {res.attributed_j:.3f} J "
+                f"attributed of {res.energy_j:.3f} J over "
+                f"{res.duration_s:.2f} s, completed {res.completed}, shed "
+                f"{res.shed}, {res.j_per_token:.4f} J/token"
+                + (f", f {res.dvfs_f_ghz:.3f} GHz" if res.dvfs_f_ghz
+                   else ""))
+        log(f"[{label}] three policies replayed twice in {t_policy:.3f} s")
+        checks["two policy replays equal"] = reports[0] == reports[1]
+        checks["each policy's joules <= the trace's"] = all(
+            res.attributed_j <= trace_j + 1e-9
+            for res in reports[0].results)
+    check_all(label, checks)
+
+
 def log_serve(label, stats, wall, reqs, card):
     import torch
     n_tok = stats["tokens_decoded"]
@@ -1155,6 +1252,7 @@ def phase_serve(card):
         "tokens in vocab": all(0 <= t < cfg.vocab_size
                                for r in reqs for t in r.output),
     })
+    record_serve("record", eng, reqs, "serve_granite", policies=True)
     # the prefill shapes the path gave the kernel: (S bucket, q_offset)
     shapes = sorted({(bucket_for(len(r.prompt) - r.cached_prompt_tokens,
                                  eng.buckets), r.cached_prompt_tokens)
@@ -1234,6 +1332,7 @@ def phase_serve_window(card):
         "tokens in vocab": all(0 <= t < cfg.vocab_size
                                for r in reqs for t in r.output),
     })
+    record_serve("record_window", eng, reqs, "serve_gemma3")
     launches = {"window": windowed, "global": n_flash - windowed}
     return cfg, model, params, eng, launches, shapes
 
@@ -2142,6 +2241,52 @@ def phase_cli():
     log(f"[cli] ok in {time.perf_counter() - t0:.1f} s")
 
 
+def phase_record_cli():
+    """The record and replay CLIs and the host benches, on the host beside
+    the card: ``launch.record`` writes a 2-node trace of the paper's
+    topology under build/record, then ``launch.replay`` replays it with
+    ``--check-determinism`` side by side with the bench runner's energy
+    platform, elastic and scheduler benches, once each. Every one must
+    exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    RECORD_DIR.mkdir(parents=True, exist_ok=True)
+    trace = RECORD_DIR / "cli_cluster.dkt"
+    py = [sys.executable, "-m"]
+    t0 = time.perf_counter()
+    rec = subprocess.run(py + ["repro_torch.launch.record", "--out",
+                               str(trace), "--nodes", "2", "--duration",
+                               "0.5"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    for line in rec.stdout.strip().splitlines():
+        log(f"[record_cli] record: {line}")
+    runs = {
+        "replay": py + ["repro_torch.launch.replay", str(trace), "--ttl",
+                        "0.3", "--cap", "150", "--check-determinism"],
+        **{f"bench {b}": py + ["repro_torch.benchmarks.run", "--only", b]
+           for b in ("energy", "elastic", "scheduler")},
+    }
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in runs.items()}
+    rcs = {"record": rec.returncode}
+    errs = {"record": rec.stderr}
+    for name, proc in procs.items():
+        try:
+            out, errs[name] = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        rcs[name] = proc.returncode
+        for line in out.strip().splitlines():
+            log(f"[record_cli] {name}: {line}")
+    for name, rc in rcs.items():
+        if rc != 0:
+            log(errs[name][-4000:])
+    log(f"[record_cli] done in {time.perf_counter() - t0:.1f} s")
+    check_all("record_cli", {f"{name} rc 0": rc == 0
+                             for name, rc in rcs.items()})
+
+
 def free_card():
     """Return the memory of dropped tensors to the card."""
     import gc
@@ -2210,6 +2355,7 @@ def main() -> int:
     transpose_row = timing_transpose(
         errs, dpa_rows[("dpa_matmul/dpa4", 4096)]["transpose_device_ms"])
     phase_cli()
+    phase_record_cli()
     # flash on each route at its own path's shape: wgmma at the serve's
     # largest prefill (bf16), launches from the serve phase; ffma at the
     # f32 smoke model's prefill, launches from that model (its bf16 times

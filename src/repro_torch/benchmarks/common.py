@@ -5,8 +5,11 @@ and the collected rows, as in the reference's ``benchmarks/common.py``.
 ``torch.cuda.synchronize()`` when its output lies on the card, where the
 reference blocks on its JAX arrays. ``device_ms`` reads one call's
 device time under ``torch.profiler`` (``chip_smoke.py`` and the design
-yardsticks time with it).
+yardsticks time with it). ``host_cpu`` names the processor a host bench
+ran on.
 """
+import os
+import platform
 import statistics
 import time
 
@@ -15,9 +18,35 @@ import torch
 
 def _block(out):
     """Wait for the device work behind ``out``, as ``block_until_ready``
-    does for a JAX array."""
-    if out.device.type == "cuda":
+    does for a JAX array (host benches return no tensor: nothing to wait
+    for)."""
+    if isinstance(out, torch.Tensor) and out.device.type == "cuda":
         torch.cuda.synchronize(out.device)
+
+
+def host_cpu(cpuinfo: str = "/proc/cpuinfo") -> str:
+    """The host processor as ``cpuinfo`` gives it: its model name,
+    or where the host hides that (``unknown``) its vendor, family, model
+    and clock; then the count of CPUs. Commas are dropped so that it fits
+    a CSV column."""
+    info = {}
+    try:
+        with open(cpuinfo) as f:
+            for line in f:
+                if not line.strip():
+                    break                   # the first processor's block
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name", "")
+    if name in ("", "unknown") and "cpu family" in info:
+        name = (f"{info.get('vendor_id', '')} family {info['cpu family']} "
+                f"model {info.get('model', '?')} @ "
+                f"{float(info.get('cpu MHz', 0)):.0f} MHz")
+    name = name or platform.processor() or "unknown CPU"
+    name = f"{name} ({os.cpu_count()} CPUs)"
+    return " ".join(name.replace(",", " ").split())
 
 
 def time_fn(fn, *args, warmup=2, iters=5, **kw):

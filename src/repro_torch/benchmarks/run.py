@@ -1,13 +1,15 @@
 """Benchmark harness of the port: one module per paper figure.
 
 Prints ``name,us_per_call,derived`` CSV rows. Runs on the CUDA card unless
-asked for the host; with no card and no ``--device cpu`` it fails.
+asked for the host; with no card and no ``--device cpu`` it fails. The
+energy-platform, elastic and scheduler benches run on the host wherever the
+others run (their rows name the host CPU).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--only <substr>]
         [--device cpu]
 
 ``--only checkpoint`` runs the checkpoint I/O bench alone (``--only
-bandwidth|peak|launch`` the others).
+bandwidth|peak|launch|energy|elastic|scheduler`` the others).
 """
 import argparse
 import importlib
@@ -21,6 +23,9 @@ MODULES = [
     ("peak compute (Fig. 5/7)", "repro_torch.benchmarks.bench_peak"),
     ("launch latency (Fig. 8)", "repro_torch.benchmarks.bench_launch_latency"),
     ("checkpoint I/O (Fig. 9)", "repro_torch.benchmarks.bench_checkpoint_io"),
+    ("energy platform (Sec. 4)", "repro_torch.benchmarks.bench_energy_platform"),
+    ("elastic power (Sec. 3.4)", "repro_torch.benchmarks.bench_elastic"),
+    ("hetero scheduling (Sec. 6.1)", "repro_torch.benchmarks.bench_scheduler"),
 ]
 
 

@@ -82,6 +82,32 @@ def step_energy_j(roofline_terms: Dict[str, float],
     return power_w(dev, util, dvfs) * t
 
 
+def tokens_per_joule(roofline_terms, tokens_per_step, n_chips,
+                     dvfs=None, dev=H100_SXM) -> float:
+    e = step_energy_j(roofline_terms, dvfs, dev) * n_chips
+    return tokens_per_step / e if e else 0.0
+
+
+def power_trace_fn(roofline_terms, dvfs=None, dev: DeviceSpec = H100_SXM,
+                   period_s: Optional[float] = None) -> Callable[[float], float]:
+    """power(t) for one chip running repeated steps — drives the probes.
+
+    Within each step the trace is piecewise: compute-bound phase at high
+    power, then memory/collective-bound phase at lower power (utilization
+    drops while waiting on HBM/ICI).
+    """
+    t_step = period_s or step_time_s(roofline_terms, dvfs, dev)
+    t_busy = busy_fraction(roofline_terms, dvfs, dev, t_step) * t_step
+
+    def fn(t):
+        # np.where keeps the trace array-capable: the columnar probe path
+        # evaluates whole timestamp windows in one call
+        util = np.where(t % t_step < t_busy, 1.0, STALL_UTIL)
+        return power_w(dev, util, dvfs)
+
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # serving-phase power model (drives the ServeEngine probes)
 
@@ -184,3 +210,18 @@ def cap_frequency(cap_w: float, roofline_terms, dev: DeviceSpec = H100_SXM,
         if t > 0 and e / t <= cap_w:
             return st
     return DvfsState(dev.f_min_ghz)
+
+
+def pareto_frontier(roofline_terms, dev: DeviceSpec = H100_SXM, n: int = 16):
+    """(f, time, energy) sweep — the energy/performance trade-off the paper's
+    DVFS + measurement platform is built to explore."""
+    out = []
+    for i in range(n + 1):
+        f = dev.f_min_ghz + (dev.f_max_ghz - dev.f_min_ghz) * i / n
+        st = DvfsState(f)
+        out.append({
+            "f_ghz": f,
+            "step_s": step_time_s(roofline_terms, st, dev),
+            "step_j": step_energy_j(roofline_terms, st, dev),
+        })
+    return out

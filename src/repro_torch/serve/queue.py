@@ -116,9 +116,9 @@ class AdmissionController:
     3. Requests whose predicted wait (queued tokens / measured decode rate)
        exceeds their TTL are shed instead of queued indefinitely.
     4. ``max_slots_fn`` / ``should_shed_fn`` override steps 2 and 3 wholesale
-       — the injection point a trace-replay harness
-       uses to regression-test policy variants against recorded power
-       without subclassing the controller.
+       — the injection point the trace-replay harness
+       (``repro_torch.tracestore``) uses to regression-test policy variants
+       against recorded power without subclassing the controller.
     """
 
     def __init__(self, power_model: Optional[ServePowerModel] = None,

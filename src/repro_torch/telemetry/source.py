@@ -12,7 +12,7 @@ model. Three standard sources cover every consumer in the repo:
                    old closure-over-``self._power_w`` lambda);
 ``TraceSource``    replays recorded ``(t, watts)`` arrays (zero-order hold),
                    e.g. a previously captured ``SampleBlock`` or a
-                   recorded trace-store stream.
+                   ``repro_torch.tracestore`` stream.
 
 All three evaluate on whole numpy timestamp arrays, which is what lets the
 columnar probe path vectorize end to end.

@@ -1,6 +1,10 @@
 """The port's training examples, its copy of ``cluster/fault.py`` (the
-reference's fault tests on the port) and its checkpoint I/O bench, on the
-host."""
+reference's fault tests on the port), its checkpoint I/O bench and the
+elastic cluster example (the reference example's output, line for line), on
+the host."""
+import importlib.util
+import pathlib
+
 import pytest
 import torch
 
@@ -8,8 +12,10 @@ from repro_torch.benchmarks import bench_checkpoint_io
 from repro_torch.benchmarks import run as bench_run
 from repro_torch.cluster.fault import (ElasticTrainOrchestrator,
                                        FailureInjector, HeartbeatMonitor)
-from repro_torch.examples import (energy_aware_training,
+from repro_torch.examples import (elastic_cluster, energy_aware_training,
                                   fault_tolerant_training, quickstart)
+
+REF_EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
 
 
 @pytest.fixture(autouse=True)
@@ -99,3 +105,16 @@ def test_examples_without_device_raise_on_a_host_without_cuda(monkeypatch):
     for ex in (quickstart, energy_aware_training, fault_tolerant_training):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ex.main([])
+
+
+def test_elastic_cluster_prints_the_reference_example(capsys):
+    cm = elastic_cluster.main([])
+    out = capsys.readouterr().out
+    spec = importlib.util.spec_from_file_location(
+        "ref_elastic_cluster", REF_EXAMPLES / "elastic_cluster.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    ref.main()
+    assert out == capsys.readouterr().out
+    assert "saved" in out and cm.jobs[1].state == "DONE"
+    assert set(cm.elastic.states()[n] for n in cm.jobs[1].nodes) == {"off"}
