@@ -89,7 +89,31 @@ Phases, each of which must pass (any failure exits non-zero):
 8. dense    — qwen3-32b and deepseek-coder-33b at their published widths,
               the depth cut to 4 layers: a short continuous serve each on
               the paged path (qk_norm and their GQA heads on the card).
-9. train    — the card freed, granite-20b at its published width with the
+9. serve_moe — deepseek-moe-16b at its published width and depth (28
+              layers: one dense, 27 with 64 routed experts top-6 and 2
+              shared; 16.38 B bf16 params made on the card from a seed)
+              through ContinuousEngine on the paged path: the serve
+              phase's 8 requests at batch 4 (4 routing groups, capacity 1
+              a decode step), checked as in 5 with 28 flash launches a
+              prefill (MHA 16:16, D 128); the same requests again on a
+              fresh engine must emit the same tokens. Then a short serve at
+              batch 3 (one routing group of 3 rows, capacity 1: the rows
+              compete for experts), its dropped choices counted on the
+              device. Then its profile (a decode step, a 256-token
+              prefill), and the first MoE layer, cast to f32, on the card
+              against the host (TF32 off) for a 256-token prefill group
+              (capacity 30) and a 3-token decode group: expert ids, slots
+              and keep equal (a token routed differently is allowed only
+              where its router probabilities at the top-k cut differ by
+              less than 1e-5), the output within 1e-4 of max|y|. With the
+              model freed, flash is held as in 2 at every shape the serve
+              gave it.
+10. vlm     — internvl2-76b at its published width (d_model 8192, 64 q /
+              8 kv heads, d_ff 28672), the depth cut to 32 of 80 layers:
+              forward over 256 patch embeddings and 256 tokens (logits
+              finite, 32 flash launches on wgmma at q [1,64,512,128]), then
+              a short text-only serve on the paged path.
+11. train   — the card freed, granite-20b at its published width with the
               depth cut to 4 of 52 layers (f32 master weights made on the
               card from a seed, bf16 compute): batch 8 x 512 in 2
               microbatches, 6 steps through train.loop.run. Step 1's
@@ -98,7 +122,7 @@ Phases, each of which must pass (any failure exits non-zero):
               the loop and read just after: one compile, one sync a step,
               the joules partitioned by tag, 4 x 2 x 6 x 2 flash launches
               all on wgmma. Then a profiled step.
-10. timing  — each kernel held against its plain version and timed beside
+12. timing  — each kernel held against its plain version and timed beside
               it, a PyTorch library call computing the same function, and
               its bound on the card: flash at the serve phase's prefill
               shapes on both routes (CUDA events over back-to-back calls,
@@ -106,21 +130,23 @@ Phases, each of which must pass (any failure exits non-zero):
               route and tile and for sdpa with a mask and, at q_offset 0,
               with is_causal), at gemma3-27b's S 2048 with the window and
               without, at the train phase's microbatch (B 4, S 512), and
-              the ffma route at the f32 smoke model's
-              prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
+              deepseek-moe-16b's largest serve prefill (q [1,16,256,128]
+              over the 512-position cache view) and internvl2-76b's forward
+              (q [1,64,512,128], kv [1,8,512,128]), the ffma route at the
+              f32 smoke model's prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
               and 4096^3, dpa4's transpose at 4096^2 on four inputs in
               turn, so that each call reads and writes past the L2 (with
               each kernel's device time under the profiler beside the
               library call's and the names of the kernels it launched, at
               512^3 that of every tile of the wgmma and FFMA routes, and
               for dpa4 the mma route's and the transpose's share).
-11. cli     — `python -m repro_torch.launch.serve --arch granite-20b
+13. cli     — `python -m repro_torch.launch.serve --arch granite-20b
               --smoke`, `--arch gemma3-27b --smoke --engine static
               --trace-out ...` and `python -m repro_torch.launch.train
               --arch granite-20b --smoke --steps 4 --trace-out ...` on the
               card, side by side; each trace must validate and partition
               its run's joules.
-12. record_cli — on the host: `python -m repro_torch.launch.record --nodes
+14. record_cli — on the host: `python -m repro_torch.launch.record --nodes
               2 --duration 0.5` (a 2-node trace of the paper's topology
               under build/record), then `python -m
               repro_torch.launch.replay <that trace> --ttl 0.3 --cap 150
@@ -1196,6 +1222,10 @@ def make_model(name, seed, num_layers=None, dtype=None):
         f"qk_norm {cfg.qk_norm}"
         + (f", window {cfg.sliding_window} on all layers but every "
            f"{cfg.local_global_period}th" if cfg.local_global_period else "")
+        + (f", {cfg.num_experts} routed experts top-{cfg.experts_per_token}"
+           f" (d_ff {cfg.moe_d_ff}) + {cfg.num_shared_experts} shared, "
+           f"first {cfg.first_k_dense} dense" if cfg.is_moe else "")
+        + (", patch_proj" if cfg.family == "vlm" else "")
         + f": {n_params / 1e9:.2f} B params in "
         f"{str(dtype)[6:] if dtype is not None else cfg.dtype} made on the card "
         f"in {time.perf_counter() - t0:.1f} s; "
@@ -1382,12 +1412,12 @@ def phase_static_window(cfg, model, params):
     return shapes
 
 
-def hold_window_shapes(shapes):
-    """The planned flash call (wgmma) at every shape gemma3's continuous
-    and static serves gave the kernel, bf16 randn inputs, against
-    ``ref.attention``: max|err| at the bf16 tolerance and ``ref.mask_margin``
-    (the window and the diagonal, each one key either way) under its
-    limit. Returns the largest max|err|."""
+def hold_window_shapes(shapes, label="hold_window"):
+    """The planned flash call (wgmma) at every shape a serve gave the
+    kernel (gemma3's continuous and static serves; deepseek-moe-16b's),
+    bf16 randn inputs, against ``ref.attention``: max|err| at the bf16
+    tolerance and ``ref.mask_margin`` (the window and the diagonal, each
+    one key either way) under its limit. Returns the largest max|err|."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     g = torch.Generator(device="cuda")
@@ -1409,15 +1439,15 @@ def hold_window_shapes(shapes):
         margin = ref.mask_margin(got, q, k, v, causal=causal, window=win,
                                  q_offset=off)
         worst = max(worst, err)
-        log(f"[hold_window] flash B{b} H{h} Hkv{hkv} S{s} T{t} D{d} "
+        log(f"[{label}] flash B{b} H{h} Hkv{hkv} S{s} T{t} D{d} "
             f"window={win} q_offset={off}: took {taken}, max|err| "
             f"{err:.3e} (tol {tol:g}), mask margin {margin:.3e} (limit "
             f"{MASK_MARGIN:g})")
         if not (taken == {"wgmma": 1} and err <= tol
                 and margin <= MASK_MARGIN):
             raise AssertionError(
-                f"flash at gemma3's serve shape B{b} S{s} T{t} window {win}"
-                f" took {taken} or disagrees")
+                f"[{label}] flash at the serve shape B{b} S{s} T{t} window "
+                f"{win} took {taken} or disagrees")
         del q, k, v, got
     return worst
 
@@ -1431,44 +1461,290 @@ DENSE_CUT = dict(layers=4, batch=4, max_seq=512, max_new=8, seed=0,
 def phase_serve_dense(card):
     """A short continuous serve of each on the paged path, so that qk_norm
     and their GQA shapes reach the flash kernel on the card."""
-    import gc
-    import numpy as np
-    import torch
-    from repro_torch import configs
-    from repro_torch.serve.engine import ContinuousEngine, Request
     c = DENSE_CUT
     for name in ("qwen3-32b", "deepseek-coder-33b"):
         cfg, model, params = make_model(name, c["seed"], c["layers"])
-        rng = np.random.default_rng(c["seed"])
-        reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(
-            rng.integers(*c["lens"]))).astype(np.int32),
-            max_new_tokens=c["max_new"]) for i in range(c["n"])]
-        eng = ContinuousEngine(model, params, batch_size=c["batch"],
-                               max_seq=c["max_seq"])
+        short_serve("dense", cfg, model, params, card, c)
+        del params, model
+        free_card()
+
+
+def short_serve(label, cfg, model, params, card, c):
+    """``c["n"]`` requests of ``c["lens"]`` tokens from seed ``c["seed"]``,
+    ``c["max_new"]`` new each, through ContinuousEngine on the paged path
+    at batch ``c["batch"]``: every request at its budget, one decode
+    compile, one host sync a prefill and a decode step, every prefill layer
+    on flash's wgmma route, joules partitioned. Returns (stats, flash
+    launches)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.serve.engine import ContinuousEngine, Request
+    name = cfg.name
+    rng = np.random.default_rng(c["seed"])
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(
+        rng.integers(*c["lens"]))).astype(np.int32),
+        max_new_tokens=c["max_new"]) for i in range(c["n"])]
+    eng = ContinuousEngine(model, params, batch_size=c["batch"],
+                           max_seq=c["max_seq"])
+    stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
+        lambda: eng.serve(reqs))
+    log(f"[{label}] {name} ({cfg.num_layers} of "
+        f"{configs.get(name).num_layers} layers, batch {c['batch']}): flash "
+        f"launches {n_flash} by route {routes}")
+    log_serve(label, stats, wall, reqs, card)
+    check_all(label, {
+        f"{name}: every request at its budget": all(
+            len(r.output) == c["max_new"] for r in reqs),
+        f"{name}: decode_compiles == 1": stats["decode_compiles"] == 1,
+        f"{name}: host syncs == prefills + decode steps": (
+            n_syncs == stats["prefills"] + stats["decode_steps"]),
+        f"{name}: flash launches == layers x prefills, all wgmma": (
+            n_flash == cfg.num_layers * stats["prefills"] > 0
+            and routes == {"wgmma": n_flash, "ffma": 0}
+            and windowed == 0),
+        f"{name}: joule partition (1e-6 J)": (
+            joule_partition_error(eng, reqs) <= 1e-6),
+        f"{name}: tokens in vocab": all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+    })
+    return stats, n_flash
+
+
+# deepseek-moe-16b at its published width and depth (28 layers: the first
+# dense, 27 with 64 routed experts top-6 and 2 shared; 16.38 B bf16
+# params, 32.75 GB): the serve phase's 8 requests at batch 4 (4 routing
+# groups of one row, capacity 1 a decode step), the same requests again
+# on a fresh engine (the same tokens), and a short serve at batch 3 (one
+# group of 3 rows, capacity 1: the rows compete for experts and drop)
+SERVE_MOE = dict(arch="deepseek-moe-16b", seed=0)
+MOE_B3 = dict(batch=3, max_seq=512, max_new=8, seed=1, lens=(30, 300), n=4)
+# one full-width MoE layer held on the card against the host in f32: a
+# 256-token prefill group (capacity 30) and a 3-token decode group
+# (capacity 1); a routing disagreement is allowed only at a token whose
+# router probabilities at the top-k cut differ by less than MOE_MARGIN
+MOE_HOLD = dict(groups=((1, 256), (3, 1)), seed=0)
+MOE_MARGIN = 1e-5
+MOE_REL_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Count, on the device, the (token, expert) choices that
+    ``moe.route`` routed and dropped inside the block, by routing shape
+    (G, T, capacity); read once after the block."""
+    from repro_torch.models import moe
+    route = moe.route
+    seen = {}
+
+    def spy(xg, logits, cfg, capacity):
+        out = route(xg, logits, cfg, capacity)
+        key = (xg.shape[0], xg.shape[1], capacity)
+        n, dropped = seen.get(key, (0, 0))
+        seen[key] = (n + out[3].numel(), dropped + (~out[3]).sum())
+        return out
+
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def phase_serve_moe(card):
+    """deepseek-moe-16b through ContinuousEngine on the paged path at full
+    width and depth: the serve phase's requests at batch 4 (twice, on
+    fresh engines: the same tokens), then a short serve at batch 3 with
+    the expert drops counted. Every prefill layer on flash's wgmma route
+    (MHA 16:16, D 128)."""
+    import torch
+    from repro_torch.serve.engine import ContinuousEngine
+    cfg, model, params = make_model(SERVE_MOE["arch"], SERVE_MOE["seed"])
+    kw = dict(batch_size=SERVE["batch"], max_seq=SERVE["max_seq"])
+    warm_up(model, params, serve_requests(cfg.vocab_size), **kw)
+    eng = ContinuousEngine(model, params, **kw)
+    reqs = serve_requests(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    with flash_shapes() as shapes:
         stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
             lambda: eng.serve(reqs))
-        log(f"[dense] {cfg.name} ({c['layers']} of "
-            f"{configs.get(name).num_layers} layers): flash launches "
-            f"{n_flash} by route {routes}")
-        log_serve("dense", stats, wall, reqs, card)
-        check_all("dense", {
-            f"{name}: every request at its budget": all(
-                len(r.output) == c["max_new"] for r in reqs),
-            f"{name}: decode_compiles == 1": stats["decode_compiles"] == 1,
-            f"{name}: host syncs == prefills + decode steps": (
-                n_syncs == stats["prefills"] + stats["decode_steps"]),
-            f"{name}: flash launches == layers x prefills, all wgmma": (
-                n_flash == cfg.num_layers * stats["prefills"] > 0
-                and routes == {"wgmma": n_flash, "ffma": 0}
-                and windowed == 0),
-            f"{name}: joule partition (1e-6 J)": (
-                joule_partition_error(eng, reqs) <= 1e-6),
-            f"{name}: tokens in vocab": all(
-                0 <= t < cfg.vocab_size for r in reqs for t in r.output),
+    log(f"[serve_moe] flash launches {n_flash} by route {routes}, shapes "
+        f"(B, H, Hkv, S, T, D, causal, window, q_offset): "
+        f"{sorted(shapes, key=str)}")
+    log_serve("serve_moe", stats, wall, reqs, card)
+    again = serve_requests(cfg.vocab_size)
+    ContinuousEngine(model, params, telemetry=False, **kw).serve(again)
+    same = [a.output == b.output for a, b in zip(reqs, again)]
+    log(f"[serve_moe] a second serve of the same requests on a fresh "
+        f"engine: {sum(same)} of {len(same)} requests emit the same tokens")
+    check_all("serve_moe", {
+        "all 8 complete": stats["completed"] == len(reqs) == 8,
+        "every request at its budget": all(
+            len(r.output) == SERVE["max_new"] for r in reqs),
+        "decode_compiles == 1": stats["decode_compiles"] == 1,
+        "host syncs == prefills + decode steps": (
+            n_syncs == stats["prefills"] + stats["decode_steps"]),
+        "prefix hit rate > 0": stats["prefix_cache"]["hit_rate"] > 0,
+        "flash launches == 28 x prefills, all wgmma": (
+            n_flash == cfg.num_layers * stats["prefills"] > 0
+            and routes == {"wgmma": n_flash, "ffma": 0} and windowed == 0),
+        "flash at MHA 16:16, D 128": all(
+            sh[1:3] == (16, 16) and sh[5] == 128 for sh in shapes),
+        "every request has energy > 0": all(r.energy_j > 0 for r in reqs),
+        "joule partition (1e-6 J)": joule_partition_error(eng, reqs) <= 1e-6,
+        "tokens in vocab": all(0 <= t < cfg.vocab_size
+                               for r in reqs for t in r.output),
+        "two serves emit the same tokens": all(same),
+    })
+    with moe_drops() as seen:
+        b3_stats, _ = short_serve("serve_moe_b3", cfg, model, params, card,
+                                  MOE_B3)
+    drops = {key: (n, int(d)) for key, (n, d) in seen.items()}
+    log("[serve_moe_b3] routed and dropped (token, expert) choices by "
+        "routing shape (groups, tokens a group, capacity): " + "; ".join(
+            f"{key}: {d} of {n} dropped" for key, (n, d) in
+            sorted(drops.items())))
+    check_all("serve_moe_b3", {
+        "decode steps route one group of 3 with capacity 1": (1, 3, 1)
+        in drops,
+        "the batch-3 decode steps drop experts": drops.get(
+            (1, 3, 1), (0, 0))[1] > 0,
+        "every layer routed a decode step": drops.get((1, 3, 1), (0, 0))[0]
+        == b3_stats["decode_steps"] * (cfg.num_layers - cfg.first_k_dense)
+        * 3 * cfg.experts_per_token,
+    })
+    return cfg, model, params, eng, n_flash, shapes
+
+
+def hold_moe_layer(cfg, params):
+    """The first MoE layer of the served weights, cast to f32, on the card
+    and on the host (TF32 off): ``moe.route``'s expert ids, slots and keep
+    mask equal for a 256-token prefill group and a 3-token decode group
+    (a token whose ids differ is reported with its router-probability
+    margin at the top-k cut, allowed only below MOE_MARGIN), and
+    ``moe_apply``'s output within MOE_REL_TOL of max|host| on the tokens
+    routed alike. Returns the largest relative error."""
+    import torch
+    from repro_torch.models import moe
+    k, d = cfg.experts_per_token, cfg.d_model
+
+    def layer0(tree):
+        if isinstance(tree, dict):
+            return {n: layer0(v) for n, v in tree.items()}
+        return tree[0].float()
+
+    dev = layer0(params["layers"]["moe"])
+    host = {n: (v.cpu() if not isinstance(v, dict) else
+                {m: u.cpu() for m, u in v.items()}) for n, v in dev.items()}
+    g = torch.Generator().manual_seed(MOE_HOLD["seed"])
+    worst = 0.0
+    for b, s in MOE_HOLD["groups"]:
+        x = torch.randn(b, s, d, generator=g)
+        groups = moe.n_groups(b)
+        tg = b * s // groups
+        cap = moe.capacity_for(cfg, tg)
+        sides = {}
+        t0 = time.perf_counter()
+        for side, p, xs in (("card", dev, x.cuda()), ("host", host, x)):
+            xf = xs.reshape(groups, tg, d)
+            logits = xf @ p["router"]
+            probs = torch.softmax(logits, dim=-1)
+            _, ids = moe.top_k(probs, k)
+            _, (slot, tok, order), _, keep, aux = moe.route(xf, logits, cfg,
+                                                            cap)
+            kept = torch.empty_like(keep).scatter_(1, order, keep)
+            y, _ = moe.moe_apply(xs, p, cfg)
+            sides[side] = [v.cpu() for v in (probs, ids, slot, keep, kept, y)]
+        t_hold = time.perf_counter() - t0
+        (_, ids_c, slot_c, keep_c, kept_c, y_c) = sides["card"]
+        (probs_h, ids_h, slot_h, keep_h, kept_h, y_h) = sides["host"]
+        # a token routed alike: the same experts, each kept or dropped alike
+        alike = ((ids_c == ids_h).all(-1)
+                 & (kept_c.reshape(groups, tg, k)
+                    == kept_h.reshape(groups, tg, k)).all(-1))
+        top = probs_h.sort(dim=-1, descending=True).values
+        margin = top[..., k - 1] - top[..., k]
+        differ = ~(ids_c == ids_h).all(-1)
+        margins = margin[differ].tolist()
+        rows = alike.reshape(b, s)
+        err = (y_c - y_h).abs()[rows].max().item() if rows.any() else 0.0
+        rel = err / y_h.abs().max().item()
+        worst = max(worst, rel)
+        n_drop = int((~keep_h).sum())
+        log(f"[hold_moe] {cfg.name} layer 1 (first MoE) f32, x [{b},{s},"
+            f"{d}]: {groups} group(s) of {tg} tokens, capacity {cap}, "
+            f"{n_drop} of {keep_h.numel()} choices dropped on the host; "
+            f"ids equal {bool((ids_c == ids_h).all())}, slots equal "
+            f"{bool((slot_c == slot_h).all())}, keep equal "
+            f"{bool((keep_c == keep_h).all())}; tokens routed differently "
+            f"{int(differ.sum())} (their router-probability margins "
+            f"{margins}, limit {MOE_MARGIN:g}); max|y card - y host| "
+            f"{err:.3e} over {int(rows.sum())} tokens routed alike, "
+            f"{rel:.3e} of max|y| (tol {MOE_REL_TOL:g}); {t_hold:.1f} s")
+        routing_equal = bool((ids_c == ids_h).all() and (slot_c == slot_h)
+                             .all() and (keep_c == keep_h).all())
+        check_all("hold_moe", {
+            f"[{b},{s}]: routing equal, or differs only below the margin": (
+                routing_equal or all(m < MOE_MARGIN for m in margins)),
+            f"[{b},{s}]: output within {MOE_REL_TOL:g} relative": (
+                rel <= MOE_REL_TOL and bool(torch.isfinite(y_c).all())),
         })
-        del eng, params, model
-        gc.collect()
-        torch.cuda.empty_cache()
+    del dev, host
+    return worst
+
+
+# internvl2-76b at its published width (d_model 8192, 64 q / 8 kv heads,
+# d_ff 28672, vocab 128256), the depth cut to 32 of 80 layers (1.711 GB a
+# layer in bf16, 141 GB at full depth): forward over 256 patch embeddings
+# and 256 tokens, then a short text-only serve (serving is text only, as in
+# the reference)
+VLM = dict(arch="internvl2-76b", layers=32, patches=256, tokens=256, seed=0,
+           serve=dict(batch=4, max_seq=512, max_new=8, seed=0,
+                      lens=(30, 300), n=4))
+
+
+def phase_vlm(card):
+    """internvl2-76b's forward with its patch prefix on the card: logits
+    finite, every layer's flash on wgmma at S 512 (64:8 heads, D 128);
+    then its text serve. Returns (flash launches, the forward's flash
+    shape)."""
+    import torch
+    c = VLM
+    cfg, model, params = make_model(c["arch"], c["seed"], c["layers"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(c["seed"])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, c["tokens"]),
+                                     device="cuda", generator=g),
+             "patch_embeddings": torch.randn(
+                 1, c["patches"], cfg.d_model, device="cuda", generator=g,
+                 dtype=torch.bfloat16)}
+    with torch.no_grad(), flash_shapes() as shapes:
+        (logits, aux), wall, n_syncs, (n_flash, routes, windowed) = \
+            counted_path(lambda: model.forward(params, batch))
+    s = c["patches"] + c["tokens"]
+    finite = bool(torch.isfinite(logits).all())
+    log(f"[vlm] {cfg.name} forward, {c['patches']} patch embeddings + "
+        f"{c['tokens']} tokens: logits {tuple(logits.shape)} "
+        f"{str(logits.dtype)[6:]}, finite {finite}, max|logit| "
+        f"{logits.float().abs().max().item():.3f}; {wall * 1e3:.1f} ms "
+        f"wall, {n_syncs} host syncs; flash launches {n_flash} by route "
+        f"{routes}, shapes {sorted(shapes, key=str)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    want_shape = (1, cfg.num_heads, cfg.num_kv_heads, s, s, cfg.head_dim,
+                  True, None, 0)
+    check_all("vlm", {
+        "logits [1, 512, vocab], finite": (
+            tuple(logits.shape) == (1, s, cfg.vocab_size) and finite),
+        "aux 0.0 (no MoE layers)": aux == 0.0,
+        "flash launches == 32, all wgmma": (
+            n_flash == cfg.num_layers and routes == {"wgmma": n_flash,
+                                                     "ffma": 0}),
+        "flash at q [1,64,512,128], kv [1,8,512,128]": shapes == {want_shape},
+    })
+    del logits, batch
+    _, n_serve = short_serve("vlm_serve", cfg, model, params, card,
+                             c["serve"])
+    del params, model
+    return n_flash + n_serve, want_shape
 
 
 # granite-20b at its published width with the depth cut to 4 of 52 layers
@@ -1653,10 +1929,11 @@ def _names(by_kernel) -> str:
     return "; ".join(f"{k[:72]} {v:.4f} ms" for k, v in by_kernel.items())
 
 
-def phase_profile(eng):
-    """Where the time goes in the serve phase's two steps at full width:
-    one decode step of the whole batch and one cold 256-token prefill (the
-    serve's largest bucket)."""
+def phase_profile(eng, label="profile"):
+    """Where the time goes in the serve phase's two steps at full width
+    (granite-20b; deepseek-moe-16b with ``label`` profile_moe): one decode
+    step of the whole batch and one cold 256-token prefill (the serve's
+    largest bucket)."""
     import torch
     ad = eng.adapter
     b = eng.batch_size
@@ -1667,7 +1944,7 @@ def phase_profile(eng):
                            device=ad.device)
     # every slot is free after the serve: tables point at the null block,
     # so these steps write only there
-    return profile_steps("profile", {
+    return profile_steps(label, {
         "decode step (4 rows)": lambda: ad.decode_step(tokens, pos),
         "prefill (256 tokens)": lambda: ad._prefill_slot(
             ad.params, prompt, 200, 0, null_row, ad.caches),
@@ -1915,29 +2192,31 @@ def timing_window(cfg):
             for s, win in WINDOW_TIMING}
 
 
-def time_flash(b, h, hkv, s, d, win, what):
-    """The planned flash call (wgmma) on bf16 q [b,h,s,d], kv [b,hkv,s,d]
-    (causal, with ``win`` a window) beside the plain version and sdpa with
-    the boolean mask (and, without a window, with is_causal), by CUDA
-    events over back-to-back calls and by one call's device time under the
-    profiler; the bound by operations. The kernel and sdpa are held
-    against the plain version at the bf16 tolerance."""
+def time_flash(b, h, hkv, s, d, win, what, t=None, off=0):
+    """The planned flash call (wgmma) on bf16 q [b,h,s,d], kv [b,hkv,t,d]
+    (causal from ``q_offset`` ``off``, with ``win`` a window; ``t`` None:
+    s) beside the plain version and sdpa with the boolean mask (and,
+    without a window at t == s, with is_causal), by CUDA events over
+    back-to-back calls and by one call's device time under the profiler;
+    the bound. The kernel and sdpa are held against the plain version at
+    the bf16 tolerance."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     tol = FLASH_TOL["bfloat16"]
-    t = s
+    t = s if t is None else t
     g = torch.Generator(device="cuda")
     g.manual_seed(s + (win or 0))
     q, k, v = (torch.randn(b, n, m, d, device="cuda", generator=g,
                            dtype=torch.bfloat16)
                for n, m in ((h, s), (hkv, t), (hkv, t)))
-    qp = torch.arange(s, device="cuda")[:, None]
+    qp = torch.arange(s, device="cuda")[:, None] + off
     kp = torch.arange(t, device="cuda")[None, :]
     mask = kp <= qp
     if win is not None:
         mask = mask & (qp - kp < win)
-    call = lambda: ops.flash_attention(q, k, v, window=win)  # noqa: E731
+    call = lambda: ops.flash_attention(q, k, v, window=win,  # noqa: E731
+                                       q_offset=off)
     before = dict(ops.route_launches)
     ms = cuda_timed(call)
     taken = {r: c - before[r] for r, c in ops.route_launches.items()
@@ -1945,15 +2224,15 @@ def time_flash(b, h, hkv, s, d, win, what):
     if taken != {"wgmma": 23}:
         raise AssertionError(f"the timed calls took routes {taken}")
     device = _device_ms(call)
-    plain_ms = cuda_timed(lambda: ref.attention(q, k, v, window=win),
-                          iters=5)
+    plain_ms = cuda_timed(lambda: ref.attention(q, k, v, window=win,
+                                                q_offset=off), iters=5)
     sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
         q, k, v, attn_mask=mask, enable_gqa=True)
     lib = {"mask": sdpa}
-    if win is None:
+    if win is None and t == s and off == 0:
         lib["is_causal"] = lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)
-    want = ref.attention(q, k, v, window=win).float()
+    want = ref.attention(q, k, v, window=win, q_offset=off).float()
     err = (call().float() - want).abs().max().item()
     lib_err = {n: (fn().float() - want).abs().max().item()
                for n, fn in lib.items()}
@@ -1961,13 +2240,13 @@ def time_flash(b, h, hkv, s, d, win, what):
         raise AssertionError(f"flash (or sdpa) disagrees at B {b} S {s} "
                              f"window {win}: {err}, sdpa {lib_err}")
     lib_ms = {n: (cuda_timed(fn), _device_ms(fn)) for n, fn in lib.items()}
-    n_bytes, n_ops = flash_work(s, t, d, h, hkv, 0, 2, win)
+    n_bytes, n_ops = flash_work(s, t, d, h, hkv, off, 2, win)
     row = dict(_row(ms, plain_ms, lib_ms["mask"][0], b * n_bytes,
                     b * n_ops, PEAK_OPS["bfloat16"], err),
                device_ms=device, library_device_ms=lib_ms["mask"][1],
                timed_at=f"bf16 q[{b},{h},{s},{d}] kv[{b},{hkv},{t},{d}] "
-                        f"q_offset 0, window {win} ({what})")
-    if win is None:
+                        f"q_offset {off}, window {win} ({what})")
+    if "is_causal" in lib_ms:
         row["is_causal_ms"], row["is_causal_device_ms"] = \
             lib_ms["is_causal"]
     log(f"[timing] flash {row['timed_at']}: events {ms:.4f} ms, plain "
@@ -2336,6 +2615,16 @@ def main() -> int:
     held_err = hold_window_shapes(wshapes)
     phase_serve_dense(card)
     free_card()
+    mcfg, mmodel, mparams, meng, moe_launches, mshapes = phase_serve_moe(
+        card)
+    phase_profile(meng, "profile_moe")
+    del meng
+    hold_moe_layer(mcfg, mparams)
+    del mmodel, mparams                        # frees deepseek-moe's 32.8 GB
+    free_card()
+    moe_held_err = hold_window_shapes(mshapes, "hold_moe_flash")
+    vlm_launches, vlm_shape = phase_vlm(card)
+    free_card()
     train = phase_train(card)
     free_card()
     flash_rows = phase_timing(cfg, shapes)
@@ -2343,6 +2632,16 @@ def main() -> int:
     train_row = time_flash(*train["shape"][:3], train["shape"][3],
                            train["shape"][4], None,
                            "granite-20b's train step, one microbatch")
+    # deepseek-moe-16b's largest serve prefill (the 256 bucket, cold, over
+    # the 512-position cache view) and internvl2-76b's forward
+    moe_top = max(mshapes, key=lambda sh: (sh[3], -sh[8]))
+    moe_row = time_flash(1, mcfg.num_heads, mcfg.num_kv_heads, moe_top[3],
+                         mcfg.head_dim, None,
+                         "deepseek-moe-16b's largest serve prefill",
+                         t=moe_top[4], off=moe_top[8])
+    vlm_row = time_flash(1, vlm_shape[1], vlm_shape[2], vlm_shape[3],
+                         vlm_shape[5], None,
+                         "internvl2-76b's forward, 256 patches + 256 tokens")
     ffma_row = timing_flash_f32(f32_shape)
     stream_rows = timing_stream(errs)
     dpa_rows = timing_dpa(errs)
@@ -2419,6 +2718,27 @@ def main() -> int:
                                      "library_device_ms", "is_causal_ms",
                                      "is_causal_device_ms", "timed_at")},
     })
+    # the same wgmma route on the MoE and VLM paths: deepseek-moe-16b's
+    # serve (28 layers x prefills) and internvl2-76b's forward and text
+    # serve (32 layers x calls)
+    for tag, n, row, held in (("deepseek_moe", moe_launches, moe_row,
+                               moe_held_err),
+                              ("internvl2_vlm", vlm_launches, vlm_row, 0.0)):
+        kernels.append({
+            "name": f"flash_attention/wgmma/{tag}",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:22",
+            "launches": n,
+            "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"],
+                               held),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "device_ms",
+                                   "library_device_ms", "is_causal_ms",
+                                   "is_causal_device_ms", "timed_at")
+               if k in row},
+        })
     # STREAM at 128 MiB f32, dpa_matmul at 4096^3; each error is the
     # largest over every case the kernel was held at
     for name, line in STREAM_REPLACES.items():

@@ -132,6 +132,9 @@ ARCH_NAMES = [
     "deepseek-coder-33b",
     "gemma3-27b",
     "qwen3-32b",
+    "internvl2-76b",
+    "deepseek-moe-16b",
+    "moonshot-v1-16b-a3b",
 ]
 
 

@@ -1,0 +1,169 @@
+"""Fine-grained Mixture-of-Experts (deepseek-moe / moonlight style).
+
+Shared experts (always-on, fused into one dense SwiGLU) plus routed experts
+with top-k routing, a fixed capacity and token dropping, as the reference's
+``_moe_apply_gspmd``: tokens are split into ``groups`` row blocks
+(``gcd(B, 32)`` on one device), each block routes on its own, and the
+expert products are batched matmuls over all experts.
+
+Three places where the port must take care to give the reference's
+integers, not only its floats:
+
+- *Ties in top-k.* ``lax.top_k`` puts the lower expert index first among
+  equal probabilities, and ``torch.topk`` promises no order; router logits
+  in bf16 tie often among 64 experts. ``top_k`` is a stable descending
+  sort cut to ``k``.
+- *Capacity order.* Tokens past an expert's capacity are dropped in the
+  order of a stable argsort of the flat expert ids (``torch.sort(...,
+  stable=True)`` and ``searchsorted(side="left")``), so which token drops
+  depends on the whole group: a bucketed prefill routes its pad tokens,
+  and in a decode step the batch's rows compete for each expert.
+- *The combine.* The reference adds each token's ``k`` contributions with a
+  scatter-add; on the card ``index_add_`` would add them with atomics in a
+  different order each run. ``combine`` gathers them into ``[T, k, D]`` in
+  ascending expert order (the order the reference's sorted scatter adds
+  them) and sums over ``k``: the same tokens on every run.
+
+The expert products are plain batched matmuls in the reference (outside any
+Pallas kernel), so they are ``torch.einsum`` here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+
+#: one routing group per batch shard; on one device the reference's
+#: default (``n_shards`` 32) gives ``gcd(B, 32)`` groups
+N_SHARDS = 32
+
+
+def moe_param_shapes(cfg: ModelConfig, L: int) -> Dict:
+    """The ``moe`` subtree of ``L`` stacked layers as (shape, fan_in)
+    leaves: the router, the routed experts and, with shared experts, one
+    dense SwiGLU of width ``num_shared_experts * moe_d_ff``."""
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    tree = {
+        "router": ((L, d, e), d),
+        "w_gate": ((L, e, d, f), d),
+        "w_up": ((L, e, d, f), d),
+        "w_down": ((L, e, f, d), f),
+    }
+    if cfg.num_shared_experts:
+        fs = cfg.num_shared_experts * f
+        tree["shared"] = {"w_gate": ((L, d, fs), d), "w_up": ((L, d, fs), d),
+                          "w_down": ((L, fs, d), fs)}
+    return tree
+
+
+def n_groups(batch: int) -> int:
+    """Routing groups for a batch of ``batch`` rows on one device."""
+    return math.gcd(batch, N_SHARDS)
+
+
+def capacity_for(cfg: ModelConfig, tokens_per_group: int) -> int:
+    """Slots an expert has in a group: ``ceil(capacity_factor * tg * k /
+    E)``, at least 1."""
+    return max(int(math.ceil(cfg.capacity_factor * tokens_per_group
+                             * cfg.experts_per_token / cfg.num_experts)), 1)
+
+
+def top_k(probs, k: int):
+    """(values, indices) of the ``k`` largest along the last axis, ties to
+    the lower index (``lax.top_k``'s order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(xg, logits, cfg: ModelConfig, capacity: int):
+    """Group-local routing of ``G`` groups at once, ``_route_group``'s
+    semantics. xg [G, T, D]; logits [G, T, E].
+
+    Returns (dispatch [G, E, C, D], (slot, tok, order) each [G, T*k] in
+    sorted-expert order, weights [G, T, k] f32, keep [G, T*k], aux [G]).
+    ``slot`` is ``e * C + rank`` for a kept token and the trash row
+    ``E * C`` for a dropped one."""
+    g, t, d = xg.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(logits.float(), dim=-1)               # [G, T, E]
+    weights, ids = top_k(probs, k)                              # [G, T, k]
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+
+    ids_flat = ids.reshape(g, t * k)
+    sorted_eid, order = torch.sort(ids_flat, dim=-1, stable=True)
+    experts = torch.arange(e, device=xg.device).expand(g, e).contiguous()
+    start = torch.searchsorted(sorted_eid, experts, side="left")  # [G, E]
+    rank = (torch.arange(t * k, device=xg.device)
+            - start.gather(1, sorted_eid))                      # within-expert
+    keep = rank < capacity
+    slot = torch.where(keep, sorted_eid * capacity + rank,
+                       torch.full_like(rank, e * capacity))
+    tok = order // k                                            # source token
+
+    # each kept slot is written once; every dropped token lands on the
+    # trash row, which is cut off
+    src = xg.gather(1, tok[..., None].expand(g, t * k, d))
+    buf = torch.zeros((g, e * capacity + 1, d), dtype=xg.dtype,
+                      device=xg.device)
+    buf.scatter_(1, slot[..., None].expand(g, t * k, d), src)
+    dispatch = buf[:, :-1].reshape(g, e, capacity, d)
+
+    # aux (load-balance) loss terms, Switch-style: frac is the mean of the
+    # top-1 one-hots, counted with a scatter (exact in any order)
+    top1 = torch.zeros((g, e), dtype=torch.float32, device=xg.device)
+    top1.scatter_add_(1, ids[..., 0], torch.ones_like(weights[..., 0]))
+    aux = e * (top1 / t * probs.mean(dim=1)).sum(dim=-1)
+    return dispatch, (slot, tok, order), weights, keep, aux
+
+
+def combine(expert_out, routing, weights, keep, t: int, k: int):
+    """expert_out [G, E, C, D] -> y [G, T, D]: each token's ``k`` expert
+    outputs, weighted (a dropped one by 0), summed in ascending expert
+    order in a fixed reduction (``_combine_group``'s sum, without its
+    scatter-add)."""
+    g, e, c, d = expert_out.shape
+    slot, tok, order = routing
+    flat = torch.cat([expert_out.reshape(g, e * c, d),
+                      expert_out.new_zeros((g, 1, d))], dim=1)
+    w_flat = weights.reshape(g, t * k).gather(1, order)
+    w = torch.where(keep, w_flat, torch.zeros((), device=w_flat.device))
+    contrib = flat.gather(1, slot[..., None].expand(g, t * k, d))
+    contrib = contrib * w.to(contrib.dtype)[..., None]          # sorted order
+    # position of each (token, choice) in the sorted order; a token's
+    # choices sorted by position run in ascending expert order
+    pos = torch.empty_like(order)
+    pos.scatter_(1, order, torch.arange(t * k, device=order.device)
+                 .expand(g, t * k).contiguous())
+    pos = pos.reshape(g, t, k).sort(dim=-1).values.reshape(g, t * k)
+    return contrib.gather(1, pos[..., None].expand(g, t * k, d)).reshape(
+        g, t, k, d).sum(dim=2)
+
+
+def moe_apply(x, p, cfg: ModelConfig):
+    """x [B, S, D] -> (y [B, S, D], mean aux), routed in ``gcd(B, 32)``
+    groups, as the reference on one device."""
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    groups = n_groups(b)
+    tg = b * s // groups
+    capacity = capacity_for(cfg, tg)
+
+    xf = x.reshape(groups, tg, d)
+    logits = xf @ p["router"].to(x.dtype)                       # [G, T, E]
+    dispatch, routing, weights, keep, aux = route(xf, logits, cfg, capacity)
+
+    wg, wu, wd = (p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
+                  p["w_down"].to(x.dtype))
+    h = F.silu(torch.einsum("gecd,edf->gecf", dispatch, wg))
+    h = h * torch.einsum("gecd,edf->gecf", dispatch, wu)
+    out = torch.einsum("gecf,efd->gecd", h, wd)
+
+    y = combine(out, routing, weights, keep, tg, k).reshape(b, s, d)
+    if cfg.num_shared_experts:
+        y = y + common.mlp(x, p["shared"])
+    return y, aux.mean()

@@ -54,10 +54,10 @@ def serving_caps(cfg: ModelConfig) -> ServingCaps:
 
 
 def build_model(cfg: ModelConfig, **kw):
-    """The model for ``cfg``: the dense family in this slice; the others
-    raise until their slice ports them."""
-    if cfg.family == "dense":
+    """The model for ``cfg``: ``DecoderLM`` for the dense, MoE and VLM
+    families; the recurrent families raise until their slice ports them."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, **kw)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (MoE/VLM and the "
-        "recurrent families are later slices of the port)")
+        f"family {cfg.family!r} is not ported yet (the recurrent families "
+        "are a later slice of the port)")

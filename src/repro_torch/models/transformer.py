@@ -1,13 +1,21 @@
-"""Dense decoder-only transformer.
+"""Decoder-only transformer: the dense, MoE and VLM families.
 
 Covers granite-20b, deepseek-coder-33b and qwen3-32b (qk_norm), whose
-caches are flat ``[L, B, T, kvh, dh]`` stacks, and gemma3-27b, whose 5:1
+caches are flat ``[L, B, T, kvh, dh]`` stacks; gemma3-27b, whose 5:1
 local:global layers keep ``{"global": (k, v), "local": (k, v)}`` caches:
 full-length stacks for the global layers and window-sized rings for the
-local ones. The parameter dict keeps the reference's stacked ``[L, ...]``
-layout and names (``layers/attn/wq [L, d, h, dh]``, ...), so the weight
-bridge is a plain map; a Python loop over layers takes the place of
-``lax.scan`` (and of ``lax.cond`` between a global and a local layer).
+local ones; deepseek-moe-16b and moonshot-v1-16b-a3b, whose first
+``first_k_dense`` layers are dense (``dense_prefix/layer_{i}``, unstacked,
+MLP width ``moe_d_ff * (shared + k)``) and the rest MoE
+(``layers/moe/...``, ``repro_torch.models.moe``); and the internvl2-76b
+backbone, whose ``patch_proj`` maps precomputed patch embeddings into a
+prefix of the sequence (``forward``/``hidden``; serving is text only, as
+in the reference). ``pad_q_heads`` (``ModelConfig.adapt_for_mesh``) adds
+query heads whose ``wq`` rows and ``wo`` columns are zero: exact no-ops.
+The parameter dict keeps the reference's stacked ``[L, ...]`` layout and
+names (``layers/attn/wq [L, d, h, dh]``, ...), so the weight bridge is a
+plain map; a Python loop over layers takes the place of ``lax.scan`` (and
+of ``lax.cond`` between a global and a local layer).
 
 Training: ``init(dtype=torch.float32)`` makes the f32 master parameters
 (the reference's ``param_dtype``); the layers cast each weight to the
@@ -15,7 +23,8 @@ compute dtype where they use it, so gradients land on the f32 leaves.
 ``hidden``/``forward`` run the stack without caches, each layer under
 ``torch.utils.checkpoint`` when a gradient is being taken (``remat``, on by
 default as in the reference, whose scan body is
-``jax.checkpoint(nothing_saveable)``).
+``jax.checkpoint(nothing_saveable)``), and return the MoE layers' summed
+aux loss (the dense prefix's is dropped, as in the reference).
 """
 from __future__ import annotations
 
@@ -29,35 +38,77 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
+from repro_torch.models import moe as moe_mod
+
+
+def _attn_shapes(cfg: ModelConfig, pre: tuple) -> Dict:
+    d, h, kvh, dh = cfg.d_model, cfg.q_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": (pre + (d, h, dh), d),
+        "wk": (pre + (d, kvh, dh), d),
+        "wv": (pre + (d, kvh, dh), d),
+        "wo": (pre + (h, dh, d), h * dh),
+        **({"q_norm": (pre + (dh,), None), "k_norm": (pre + (dh,), None)}
+           if cfg.qk_norm else {}),
+    }
+
+
+def _dense_layer_shapes(cfg: ModelConfig, pre: tuple, f: int) -> Dict:
+    d = cfg.d_model
+    return {
+        "norm1": (pre + (d,), None),
+        "norm2": (pre + (d,), None),
+        "attn": _attn_shapes(cfg, pre),
+        "mlp": {
+            "w_gate": (pre + (d, f), d),
+            "w_up": (pre + (d, f), d),
+            "w_down": (pre + (f, d), f),
+        },
+    }
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
     """The parameter tree as (shape, fan_in) leaves; fan_in None marks a
-    zero-initialised norm scale."""
-    L, d, h, kvh, dh, f = (cfg.num_layers, cfg.d_model, cfg.q_heads,
-                           cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
-    return {
+    zero-initialised norm scale. ``layers`` stacks the ``num_layers -
+    first_k_dense`` scanned layers (MoE ones with ``cfg.is_moe``);
+    ``dense_prefix`` holds the leading dense layers one by one."""
+    d = cfg.d_model
+    n_scan = cfg.num_layers - cfg.first_k_dense
+    tree = {
         "embedding": ((cfg.vocab_size, d), d),
         "unembed": ((d, cfg.vocab_size), d),
         "final_norm": ((d,), None),
-        "layers": {
-            "norm1": ((L, d), None),
-            "norm2": ((L, d), None),
-            "attn": {
-                "wq": ((L, d, h, dh), d),
-                "wk": ((L, d, kvh, dh), d),
-                "wv": ((L, d, kvh, dh), d),
-                "wo": ((L, h, dh, d), h * dh),
-                **({"q_norm": ((L, dh), None), "k_norm": ((L, dh), None)}
-                   if cfg.qk_norm else {}),
-            },
-            "mlp": {
-                "w_gate": ((L, d, f), d),
-                "w_up": ((L, d, f), d),
-                "w_down": ((L, f, d), f),
-            },
-        },
     }
+    if cfg.frontend_stub and cfg.family == "vlm":
+        tree["patch_proj"] = ((d, d), d)
+    if cfg.is_moe:
+        tree["layers"] = {
+            "norm1": ((n_scan, d), None),
+            "norm2": ((n_scan, d), None),
+            "attn": _attn_shapes(cfg, (n_scan,)),
+            "moe": moe_mod.moe_param_shapes(cfg, n_scan),
+        }
+    else:
+        tree["layers"] = _dense_layer_shapes(cfg, (n_scan,), cfg.d_ff)
+    if cfg.first_k_dense:
+        # deepseek-moe style: the dense prefix's MLP matches the total
+        # activated width
+        f = (cfg.moe_d_ff * (cfg.num_shared_experts + cfg.experts_per_token)
+             if cfg.is_moe else cfg.d_ff)
+        tree["dense_prefix"] = {f"layer_{i}": _dense_layer_shapes(cfg, (), f)
+                                for i in range(cfg.first_k_dense)}
+    return tree
+
+
+def head_mask(cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """Which of the ``q_heads`` query heads are real (None without
+    padding): each KV group holds its real heads first, then zeroed pads,
+    so GQA's head -> kv-head map ``h // (q_heads / kvh)`` is kept."""
+    h = cfg.q_heads
+    if h == cfg.num_heads:
+        return None
+    g_pad, g_real = h // cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    return (torch.arange(h) % g_pad) < g_real
 
 
 def layer_flags(cfg: ModelConfig) -> np.ndarray:
@@ -73,13 +124,16 @@ class DecoderLM:
     """Functional decoder-only LM over an explicit parameter dict."""
 
     def __init__(self, cfg: ModelConfig, remat: bool = True):
-        if cfg.family != "dense" or cfg.pad_q_heads or cfg.is_moe:
+        if cfg.local_global_period > 0 and (cfg.is_moe or cfg.first_k_dense):
+            # the reference's windowed stack runs ``layers/mlp`` on every
+            # layer and has no dense prefix, so it cannot run these either
             raise NotImplementedError(
-                f"{cfg.name}: the port's DecoderLM serves the dense "
-                "families only (no MoE or head padding yet)")
+                f"{cfg.name}: local:global window rings with MoE layers or a "
+                "dense prefix")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         self.remat = remat
+        self.n_scan = cfg.num_layers - cfg.first_k_dense
 
     # -- params ------------------------------------------------------------
 
@@ -90,7 +144,8 @@ class DecoderLM:
         layer in place (no f32 copy of a bf16 model), from ``generator`` (a
         ``torch.Generator`` on that device). ``dtype`` None gives
         ``cfg.dtype`` (serving); training passes the master dtype,
-        ``torch.float32``."""
+        ``torch.float32``. Padded query heads get zero ``wq`` rows and
+        ``wo`` columns."""
         dev = resolve_device(device)
         dtype = self.dtype if dtype is None else dtype
 
@@ -105,44 +160,69 @@ class DecoderLM:
                     row.normal_(0.0, std, generator=generator)
             return t
 
-        return make(param_shapes(self.cfg))
+        params = make(param_shapes(self.cfg))
+        mask = head_mask(self.cfg)
+        if mask is not None:
+            mask = mask.to(device=dev, dtype=dtype)
+            attns = [params["layers"]["attn"]] + [
+                lp["attn"] for lp in params.get("dense_prefix", {}).values()]
+            for a in attns:
+                a["wq"].mul_(mask[:, None])
+                a["wo"].mul_(mask[:, None, None])
+        return params
 
     # -- forward -----------------------------------------------------------
 
     def _run_stack(self, x, params, *, positions, caches=None,
                    cache_pos=None, true_len=None):
-        """Run the layer stack; caches (a flat (k_all, v_all)
-        [L,B,T,kvh,dh] pair, or gemma3's dict of global stacks and local
-        rings) are written in place, layer by layer."""
+        """Run the layer stack: the dense prefix, then the stacked layers
+        (MoE with ``cfg.is_moe``). Returns (x, caches, aux): caches (a flat
+        (k_all, v_all) [L,B,T,kvh,dh] pair, or gemma3's dict of global
+        stacks and local rings) are written in place, layer by layer, the
+        prefix on cache rows ``0..first_k_dense-1``; aux sums the stacked
+        MoE layers' load-balance terms (0.0 without them)."""
         if isinstance(caches, dict):
-            return self._run_stack_windowed(
+            x, caches = self._run_stack_windowed(
                 x, params, positions=positions, caches=caches,
                 cache_pos=cache_pos, true_len=true_len)
+            return x, caches, 0.0
         cfg = self.cfg
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        lp = params["layers"]
         flags = layer_flags(cfg)
         remat = caches is None and self.remat and torch.is_grad_enabled()
-        for i, p in enumerate(_layers_of(lp, cfg.num_layers)):
+        layers = [(p, False) for p in params.get("dense_prefix", {}).values()]
+        layers += [(p, cfg.is_moe)
+                   for p in _layers_of(params["layers"], self.n_scan)]
+        aux = 0.0
+        for i, (p, is_moe) in enumerate(layers):
             c = None if caches is None else (caches[0][i], caches[1][i])
             layer = functools.partial(
                 self._layer, positions=positions, is_global=bool(flags[i]),
-                rope_cs=rope_cs, kv_cache=c, cache_pos=cache_pos)
+                rope_cs=rope_cs, kv_cache=c, cache_pos=cache_pos,
+                is_moe=is_moe)
             if remat:
-                x = checkpoint(layer, x, p, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, a = checkpoint(layer, x, p, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = layer(x, p)
-        return x, caches
+                x, a = layer(x, p)
+            if is_moe:
+                aux = aux + a
+        return x, caches, aux
 
-    def _layer(self, x, p, **attn):
-        """One layer: attention and the MLP, each around its residual."""
+    def _layer(self, x, p, is_moe=False, **attn):
+        """One layer: attention and the MLP (or MoE), each around its
+        residual. Returns (x, the layer's aux: 0.0 without MoE)."""
         h, _ = common.attention(common.rms_norm(x, p["norm1"]), p["attn"],
                                 self.cfg, **attn)
-        return self._mlp_block(x + h, p)
+        x = x + h
+        if is_moe:
+            ff, aux = moe_mod.moe_apply(common.rms_norm(x, p["norm2"]),
+                                        p["moe"], self.cfg)
+            return x + ff, aux
+        return self._mlp_block(x, p), 0.0
 
     def _mlp_block(self, x, p):
-        """The residual MLP half of a layer."""
+        """The residual MLP half of a dense layer."""
         return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
 
     # -- gemma3-style local:global window caches -----------------------------
@@ -220,20 +300,27 @@ class DecoderLM:
         return x, caches
 
     def _inputs_to_h(self, batch, params):
-        return common.embed(batch["tokens"], params, self.dtype)
+        """Token embeddings, with the VLM's projected patch embeddings
+        (``batch["patch_embeddings"]`` [B, P, d]) prepended."""
+        x = common.embed(batch["tokens"], params, self.dtype)
+        if self.cfg.family == "vlm" and "patch_embeddings" in batch:
+            pe = batch["patch_embeddings"].to(self.dtype) @ params[
+                "patch_proj"].to(self.dtype)
+            x = torch.cat([pe, x], dim=1)
+        return x
 
     def hidden(self, params, batch):
-        """Final hidden states (pre-unembed) and the aux loss (0.0 for the
-        dense family): the chunked cross-entropy's input, which never
+        """Final hidden states (pre-unembed) and the aux loss (0.0 without
+        MoE layers): the chunked cross-entropy's input, which never
         materializes the [B,S,V] logits."""
         x = self._inputs_to_h(batch, params)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._run_stack(x, params, positions=positions)
-        return x, 0.0
+        x, _, aux = self._run_stack(x, params, positions=positions)
+        return x, aux
 
     def forward(self, params, batch):
-        """Training/scoring forward: batch = {tokens [B,S]} ->
-        (logits [B,S,V], aux)."""
+        """Training/scoring forward: batch = {tokens [B,S],
+        (patch_embeddings [B,P,d])} -> (logits [B,P+S,V], aux)."""
         x, aux = self.hidden(params, batch)
         return common.unembed(x, params), aux
 
@@ -284,9 +371,9 @@ class DecoderLM:
         x = self._inputs_to_h(batch, params)
         offset = 0 if start_pos is None else int(start_pos)
         positions = torch.arange(x.shape[1], device=x.device) + offset
-        x, caches = self._run_stack(x, params, positions=positions,
-                                    caches=caches, cache_pos=offset,
-                                    true_len=true_len)
+        x, caches, _ = self._run_stack(x, params, positions=positions,
+                                       caches=caches, cache_pos=offset,
+                                       true_len=true_len)
         if true_len is None:
             last = x[:, -1:]
         else:
@@ -302,8 +389,8 @@ class DecoderLM:
             positions = pos.long()[:, None]                    # [B, 1]
         else:
             positions = torch.full((1,), int(pos), device=x.device)
-        x, caches = self._run_stack(x, params, positions=positions,
-                                    caches=caches, cache_pos=pos)
+        x, caches, _ = self._run_stack(x, params, positions=positions,
+                                       caches=caches, cache_pos=pos)
         return common.unembed(x, params), caches
 
 

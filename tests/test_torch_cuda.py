@@ -647,3 +647,68 @@ def test_training_gives_every_attention_weight_a_gradient_on_the_card():
         assert float(got.abs().max()) > 0, name
         err = float((got - want).abs().max() / want.abs().max())
         assert err <= 5e-2, (name, err)
+
+
+_MOE_LAYER = {}
+
+
+def _moe_layer(cfg):
+    """One MoE layer's f32 weights N(0, 1/fan_in) from seed 0, on the host
+    and on the card (made once)."""
+    from repro_torch.models import moe
+    if not _MOE_LAYER:
+        g = torch.Generator().manual_seed(0)
+
+        def make(spec):
+            if isinstance(spec, dict):
+                return {k: make(v) for k, v in spec.items()}
+            shape, fan_in = spec
+            return torch.randn(shape[1:], generator=g) / fan_in ** 0.5
+
+        host = make(moe.moe_param_shapes(cfg, 1))
+        card = {k: (v.cuda() if not isinstance(v, dict) else
+                    {n: u.cuda() for n, u in v.items()})
+                for k, v in host.items()}
+        _MOE_LAYER.update(host=host, card=card)
+    return _MOE_LAYER["host"], _MOE_LAYER["card"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(1, 256), (3, 1), (4, 1)])
+def test_moe_layer_on_the_card_matches_the_host(b, s):
+    """One MoE layer of deepseek-moe-16b's published width (64 experts
+    top-6, d 2048, moe_d_ff 1408, 2 shared) in f32 from seed 0, on the
+    card against the host (TF32 off): a 256-token prefill group (capacity
+    30), a 3-row decode group (capacity 1: rows compete and drop) and 4
+    groups of one row. Routing integers equal (the router logits of random
+    inputs sit far from a tie at the top-k cut: the smallest margin is
+    checked above 1e-5), the output within 1e-4 of max|y|, and two runs on
+    the card equal bitwise (a fixed-order combine)."""
+    _need_cuda()
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get("deepseek-moe-16b").replace(dtype="float32")
+    host, card = _moe_layer(cfg)
+    x = torch.randn(b, s, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(b))
+    groups = moe.n_groups(b)
+    tg = b * s // groups
+    cap = moe.capacity_for(cfg, tg)
+    xf = x.reshape(groups, tg, cfg.d_model)
+    probs = torch.softmax(xf @ host["router"], dim=-1)
+    top = probs.sort(dim=-1, descending=True).values
+    k = cfg.experts_per_token
+    assert float((top[..., k - 1] - top[..., k]).min()) > 1e-5
+    routed = [moe.route(xs, xs @ p["router"], cfg, cap)
+              for xs, p in ((xf, host), (xf.cuda(), card))]
+    (_, (slot_h, tok_h, order_h), w_h, keep_h, _), \
+        (_, (slot_c, tok_c, order_c), w_c, keep_c, _) = routed
+    for got, want in ((slot_c, slot_h), (tok_c, tok_h), (order_c, order_h),
+                      (keep_c, keep_h)):
+        assert torch.equal(got.cpu(), want)
+    want, _ = moe.moe_apply(x, host, cfg)
+    got, _ = moe.moe_apply(x.cuda(), card, cfg)
+    again, _ = moe.moe_apply(x.cuda(), card, cfg)
+    assert torch.equal(got, again)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
