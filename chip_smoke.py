@@ -19,7 +19,9 @@ Phases, each of which must pass (any failure exits non-zero):
               head boundary, bf16 and f32; gemma3-27b's S 2048 and 1500
               prefills with the 1024 window and without, at B 1 and 4,
               a 64-key window at S 2048, qwen3-32b's and
-              deepseek-coder-33b's heads) on the route and tile its plan
+              deepseek-coder-33b's heads, whisper-small's encoder (D 64,
+              12:12, non-causal, T 1500) and a decoder chunk, zamba2-1.2b's
+              cold 256-token chunk and one at q_offset 256 (32:32)) on the route and tile its plan
               picks (counted by route) and on every route and tile that
               takes the inputs, each by max|err| and by its mask margin
               (nearer the f32 plain version on its own mask than on the
@@ -108,6 +110,30 @@ Phases, each of which must pass (any failure exits non-zero):
               less than 1e-5), the output within 1e-4 of max|y|. With the
               model freed, flash is held as in 2 at every shape the serve
               gave it.
+9b. serve_recurrent — the card freed, xlstm-1.3b (48 layers: 42 mLSTM,
+              6 sLSTM; 3.71 B params), zamba2-1.2b (38 layers: 32 mamba2,
+              one shared attention block at 6 sites, 32:32 heads of 64)
+              and whisper-small (12 encoder layers over 1500 frames, 12
+              decoder layers; 12:12 heads of 64) at their published widths
+              and full depth, bf16 weights from seed 0, one after the
+              other, through ContinuousEngine on the recurrent-state
+              adapter: 8 requests of 100-300 tokens (every other one odd,
+              so it ends in a 1-token chunk) at batch 4, 32 new tokens
+              each, max_seq 512 (whisper's frames [1500, 768] from a numpy
+              seed). Gates: every request at its budget, one decode
+              signature, prefill signatures within the pow2 chunk sizes
+              (plus the frames variant), host syncs == prefills + decode
+              steps, joules to 1e-6 J, a second serve on a fresh engine the
+              same tokens, flash launches == attention sites x chunks of S
+              >= 2 (+ whisper's 12 encoder launches a request) all on
+              wgmma; then 3 requests decoded one at a time and fed the same
+              tokens at batch 3, in bf16 (a reading) and with the weights
+              cast to f32 (logits within 1e-3 of max|logit|, no greedy
+              choice differing above that margin), and each
+              family's profile (a decode step, a cold 256-token first
+              chunk; xlstm's sLSTM layer over 256 tokens alone). With the
+              last model freed, flash is held as in 2 at every shape the
+              three serves gave it.
 10. vlm     — internvl2-76b at its published width (d_model 8192, 64 q /
               8 kv heads, d_ff 28672), the depth cut to 32 of 80 layers:
               forward over 256 patch embeddings and 256 tokens (logits
@@ -132,7 +158,10 @@ Phases, each of which must pass (any failure exits non-zero):
               without, at the train phase's microbatch (B 4, S 512), and
               deepseek-moe-16b's largest serve prefill (q [1,16,256,128]
               over the 512-position cache view) and internvl2-76b's forward
-              (q [1,64,512,128], kv [1,8,512,128]), the ffma route at the
+              (q [1,64,512,128], kv [1,8,512,128]), whisper-small's
+              encoder (non-causal, q and kv [1,12,1500,64], sdpa with no
+              mask) and zamba2-1.2b's cold 256-token chunk (q
+              [1,32,256,64], kv [1,32,512,64]), the ffma route at the
               f32 smoke model's prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
               and 4096^3, dpa4's transpose at 4096^2 on four inputs in
               turn, so that each call reads and writes past the L2 (with
@@ -142,10 +171,11 @@ Phases, each of which must pass (any failure exits non-zero):
               for dpa4 the mma route's and the transpose's share).
 13. cli     — `python -m repro_torch.launch.serve --arch granite-20b
               --smoke`, `--arch gemma3-27b --smoke --engine static
-              --trace-out ...` and `python -m repro_torch.launch.train
-              --arch granite-20b --smoke --steps 4 --trace-out ...` on the
-              card, side by side; each trace must validate and partition
-              its run's joules.
+              --trace-out ...`, `python -m repro_torch.launch.train
+              --arch granite-20b --smoke --steps 4 --trace-out ...` and
+              `python -m repro_torch.benchmarks.run --only serving` (the
+              port's bench_serving) on the card, side by side; each trace
+              must validate and partition its run's joules.
 14. record_cli — on the host: `python -m repro_torch.launch.record --nodes
               2 --duration 0.5` (a 2-node trace of the paper's topology
               under build/record), then `python -m
@@ -293,6 +323,15 @@ FLASH_CASES = [
     # a 64-key window at S 2048: each visible key weighs about 1/64, so a
     # window edge one key off moves outputs well past the bf16 tolerance
     (1, 32, 16, 2048, 2048, 128, True, 64, 0),
+    # the recurrent families' attention at full width, D 64 with g = 1
+    # (MHA): whisper-small's encoder (12:12, non-causal, T 1500 = 23 x 64 +
+    # 28), a decoder chunk after 128 tokens over its 512-position cache
+    # row; zamba2-1.2b's shared attention (32:32), a cold 256-token chunk
+    # and a 64-token chunk at q_offset 256
+    (1, 12, 12, 1500, 1500, 64, False, None, 0),
+    (1, 12, 12, 128, 512, 64, True, None, 128),
+    (1, 32, 32, 256, 512, 64, True, None, 0),
+    (1, 32, 32, 64, 512, 64, True, None, 256),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the largest ratio ref.mask_margin may read (a mask one key off reads ~1)
@@ -1692,6 +1731,256 @@ def hold_moe_layer(cfg, params):
     return worst
 
 
+# the recurrent families at their published widths and full depth, bf16
+# weights from seed 0: xlstm-1.3b (48 layers, 42 mLSTM with C [4,1024,1024]
+# a row and a layer, 6 sLSTM), zamba2-1.2b (32 mamba2 layers, one shared
+# attention block at 6 sites, 32:32 heads of 64) and whisper-small (12
+# encoder layers over 1500 frames, non-causal; 12 decoder layers). Prompts
+# of 100-300 tokens, every other one odd (it ends in a 1-token chunk);
+# whisper's frames [1500, 768] from a numpy seed
+SERVE_RECURRENT = dict(archs=("xlstm-1.3b", "zamba2-1.2b", "whisper-small"),
+                       batch=4, n=8, lens=(100, 301), max_new=32,
+                       max_seq=512, seed=0,
+                       # batched against sequential, teacher-forced
+                       check=dict(batch=3, n=3, steps=8))
+# batch-3 decode logits against batch-1 ones fed the same tokens, with the
+# served weights cast to f32 (TF32 off): max|diff| within this share of
+# max|logit|. cuBLAS may take another kernel for 3 rows than for 1; in f32
+# that moves logits by ~1e-5 of max|logit| a step, and the recurrent
+# state carries it forward (xlstm-1.3b on an NVIDIA H100 80GB HBM3 at
+# 700 W: 1.1e-5 at the first step, 1.5e-4 by the 8th). In bf16 the same
+# rounding difference compounds to 6 % at the first step and 39 % by the
+# 8th there, so the bf16 run is a reading, not a gate
+RECURRENT_LOGIT_TOL = 1e-3
+
+
+def recurrent_requests(cfg, c):
+    """``c["n"]`` requests of ``c["lens"]`` tokens from seed ``c["seed"]``
+    (every other length made odd), with frames for whisper."""
+    import numpy as np
+    from repro_torch.models.registry import serving_caps
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(c["seed"])
+    lens = rng.integers(*c["lens"], c["n"])
+    lens[::2] |= 1
+    frames = serving_caps(cfg).needs_frames
+    return [Request(i, rng.integers(0, cfg.vocab_size, int(n)).astype(
+        np.int32), max_new_tokens=c["max_new"],
+        frames=(rng.standard_normal((cfg.enc_seq, cfg.d_model)).astype(
+            np.float32) if frames else None))
+        for i, n in enumerate(lens)]
+
+
+def recurrent_flash_sites(model):
+    """Attention layers a prefill chunk of S >= 2 runs on the flash kernel
+    (zamba2's shared-attention sites, whisper's decoder layers), and the
+    flash launches an encoded request adds (whisper's encoder layers)."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        return len(model.attn_sites), 0
+    if cfg.family == "audio":
+        return cfg.num_layers, cfg.enc_layers
+    return 0, 0
+
+
+def teacher_forced_check(label, model, params, reqs, c, gate=True):
+    """Batched against sequential decode on the card: ``c["n"]`` requests
+    decoded one at a time (batch-1 adapters, greedy), then fed the same
+    tokens through one batch-``c["batch"]`` adapter. The prefills (batch 1
+    on both sides) must give the same first tokens; with ``gate`` each
+    decode step's logits must agree within RECURRENT_LOGIT_TOL of
+    max|logit|, and greedy choices may differ only at steps whose top-2
+    margin is under that tolerance (without it those two are logged
+    only). Returns (max share, steps under the margin, greedy
+    differences above it)."""
+    import torch
+    from repro_torch.serve.state import make_adapter
+    reqs = reqs[:c["n"]]
+    kw = dict(max_seq=SERVE_RECURRENT["max_seq"])
+
+    def step(ad, toks, pos):
+        tok_t = torch.tensor(toks, dtype=torch.int32,
+                             device=ad.device)[:, None]
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=ad.device)
+        nxt, logits, ad.caches = ad._decode(ad.params, tok_t, pos_t,
+                                            ad.caches)
+        return nxt[:, 0].tolist(), logits[:, 0].float()
+
+    seq = []                           # per request: (first, [(tok, logits)])
+    for r in reqs:
+        ad = make_adapter(model, params, batch_size=1, **kw)
+        ad.ensure_ready()
+        tok = ad.prefill(0, r).first_token
+        first, fed = tok, []
+        for t in range(c["steps"]):
+            (nxt,), logits = step(ad, [tok], [len(r.prompt) + t])
+            fed.append((tok, logits[0]))
+            tok = nxt
+        seq.append((first, fed))
+        del ad
+    ad = make_adapter(model, params, batch_size=c["batch"], **kw)
+    ad.ensure_ready()
+    firsts = [ad.prefill(i, r).first_token for i, r in enumerate(reqs)]
+    worst, under, differ = 0.0, 0, 0
+    by_step = []
+    for t in range(c["steps"]):
+        _, logits = step(ad, [f[t][0] for _, f in seq],
+                         [len(r.prompt) + t for r in reqs])
+        by_step.append(0.0)
+        for i, (_, fed) in enumerate(seq):
+            want = fed[t][1]
+            scale = want.abs().max().item()
+            share = (logits[i] - want).abs().max().item() / scale
+            by_step[-1] = max(by_step[-1], share)
+            worst = max(worst, share)
+            top2 = want.topk(2).values
+            margin = (top2[0] - top2[1]).item() / scale
+            same = int(logits[i].argmax()) == int(want.argmax())
+            if margin <= RECURRENT_LOGIT_TOL:
+                under += 1
+            elif not same:
+                differ += 1
+    del ad
+    n = len(reqs) * c["steps"]
+    log(f"[{label}] batched (batch {c['batch']}) against sequential, "
+        f"{len(reqs)} requests x {c['steps']} teacher-forced decode steps: "
+        f"first tokens equal {firsts == [f for f, _ in seq]}; max|logit "
+        f"diff| {worst:.3e} of max|logit| (tol {RECURRENT_LOGIT_TOL:g}); "
+        f"{under} of {n} steps with a top-2 margin under the tolerance; "
+        f"greedy choices that differ above it: {differ}; max|logit diff| "
+        f"share by step {[float(f'{x:.2e}') for x in by_step]}")
+    checks = {"first tokens equal (batch-1 prefills on both sides)":
+              firsts == [f for f, _ in seq]}
+    if gate:
+        checks.update({
+            f"decode logits within {RECURRENT_LOGIT_TOL:g} of max|logit|":
+                worst <= RECURRENT_LOGIT_TOL,
+            "no greedy choice differs above the margin": differ == 0})
+    check_all(label, checks)
+    return worst, under, differ
+
+
+def phase_serve_recurrent(card):
+    """xlstm-1.3b, zamba2-1.2b and whisper-small at full width and depth
+    through ContinuousEngine on the recurrent-state adapter, one after the
+    other (each freed before the next): 8 requests at batch 4 (every slot
+    reused), 32 new tokens each, max_seq 512. Gates: every request at its
+    budget, one decode signature, prefill signatures within the distinct
+    pow2 chunk sizes (plus the frames variant), one host sync a prefill and
+    a decode step, joules partitioned, a second serve on a fresh engine
+    the same tokens, the batched-against-sequential check at batch 3, and
+    flash launches == attention sites x chunks of S >= 2 (+ whisper's
+    encoder layers a request), all on wgmma. Then each family's profile (a
+    decode step of 4 rows, a cold 256-token first chunk; xlstm's sLSTM
+    layer over 256 tokens alone). Returns {arch: (flash launches, shapes,
+    stats)}."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import serving_caps
+    from repro_torch.models.xlstm import slstm_block
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.step import pow2_chunks
+    c = SERVE_RECURRENT
+    out = {}
+    for arch in c["archs"]:
+        label = f"serve_{arch.split('-')[0]}"
+        cfg, model, params = make_model(arch, c["seed"])
+        kw = dict(batch_size=c["batch"], max_seq=c["max_seq"])
+        warm_up(model, params, recurrent_requests(cfg, c), **kw)
+        eng = ContinuousEngine(model, params, **kw)
+        reqs = recurrent_requests(cfg, c)
+        torch.cuda.reset_peak_memory_stats()
+        with flash_shapes() as shapes:
+            stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
+                lambda: eng.serve(reqs))
+        chunks = [pow2_chunks(len(r.prompt)) for r in reqs]
+        if serving_caps(cfg).needs_frames:
+            bound = (len({ch[0] for ch in chunks})
+                     + len({x for ch in chunks for x in ch[1:]}))
+        else:
+            bound = len({x for ch in chunks for x in ch})
+        sites, per_request = recurrent_flash_sites(model)
+        want_flash = (sites * sum(x >= 2 for ch in chunks for x in ch)
+                      + per_request * len(reqs))
+        log(f"[{label}] prompts {[len(r.prompt) for r in reqs]}, pow2 "
+            f"chunks {chunks}; flash launches {n_flash} (want {want_flash}) "
+            f"by route {routes}, shapes (B, H, Hkv, S, T, D, causal, "
+            f"window, q_offset): {sorted(shapes, key=str)}; signatures "
+            f"{stats['compiles']}")
+        log_serve(label, stats, wall, reqs, card)
+        again = recurrent_requests(cfg, c)
+        ContinuousEngine(model, params, telemetry=False, **kw).serve(again)
+        same = [a.output == b.output for a, b in zip(reqs, again)]
+        log(f"[{label}] a second serve of the same requests on a fresh "
+            f"engine: {sum(same)} of {len(same)} requests emit the same "
+            f"tokens")
+        check_all(label, {
+            "all 8 complete": stats["completed"] == len(reqs) == c["n"],
+            "every request at its budget": all(
+                len(r.output) == c["max_new"] for r in reqs),
+            "adapter recurrent": stats["adapter"] == "recurrent",
+            "decode_compiles == 1": stats["decode_compiles"] == 1,
+            f"prefill signatures <= {bound} (pow2 chunk sizes)": (
+                0 < stats["prefill_compiles"] <= bound),
+            "state_scatter signatures == 1": (
+                stats["compiles"].get("state_scatter") == 1),
+            "some prompt ends in a 1-token chunk": any(
+                ch[-1] == 1 for ch in chunks),
+            "host syncs == prefills + decode steps": (
+                n_syncs == stats["prefills"] + stats["decode_steps"]),
+            "flash launches == sites x chunks of S >= 2 (+ encoder), all "
+            "wgmma": (n_flash == want_flash
+                      and routes == {"wgmma": n_flash, "ffma": 0}
+                      and windowed == 0),
+            "every request has energy > 0": all(r.energy_j > 0
+                                                for r in reqs),
+            "joule partition (1e-6 J)": (
+                joule_partition_error(eng, reqs) <= 1e-6),
+            "tokens in vocab": all(0 <= t < cfg.vocab_size
+                                   for r in reqs for t in r.output),
+            "two serves emit the same tokens": all(same),
+        })
+        # batched against sequential: the served bf16 weights (a reading),
+        # then the same weights in f32 (the gate)
+        b3 = {"bf16": teacher_forced_check(f"{label}_b3_bf16", model, params,
+                                           reqs, c["check"], gate=False)}
+        params32 = tree_map(lambda t: t.float(), params)
+        b3["f32"] = teacher_forced_check(
+            f"{label}_b3_f32", build_model(cfg.replace(dtype="float32")),
+            params32, reqs, c["check"])
+        del params32
+        # the profile: every slot is free after the serve
+        ad = eng.adapter
+        b = eng.batch_size
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device=ad.device)
+        pos = torch.full((b,), min(300, c["max_seq"] - 1),
+                         dtype=torch.int32, device=ad.device)
+        n = min(256, c["max_seq"] // 2)
+        prompt = torch.zeros((1, n), dtype=torch.int32, device=ad.device)
+        frames = (torch.randn(1, cfg.enc_seq, cfg.d_model, device=ad.device)
+                  if serving_caps(cfg).needs_frames else None)
+        steps = {
+            "prefill chunk (256 tokens, first)": lambda: ad._chunk(
+                ad.params, prompt, frames, 0, ad._work)}
+        if cfg.family == "ssm":
+            x = torch.randn(1, n, cfg.d_model, device=ad.device,
+                            dtype=torch.bfloat16)
+            st = ad._work["slstm_0"]
+            steps["sLSTM layer (256 tokens)"] = lambda: slstm_block(
+                x, params["slstm_0"], cfg, st)
+        # xlstm's chunk launches ~44k kernels: one call a profile
+        label_p = f"profile_{arch.split('-')[0]}"
+        prof = profile_steps(label_p, {
+            "decode step (4 rows)": lambda: ad.decode_step(tokens, pos)})
+        prof.update(profile_steps(label_p, steps, n=1))
+        out[arch] = dict(launches=n_flash, shapes=shapes, stats=stats,
+                         profile=prof, model=model.cfg, b3=b3)
+        del eng, ad, params, model, steps
+        free_card()
+    return out
+
+
 # internvl2-76b at its published width (d_model 8192, 64 q / 8 kv heads,
 # d_ff 28672, vocab 128256), the depth cut to 32 of 80 layers (1.711 GB a
 # layer in bf16, 141 GB at full depth): forward over 256 patch embeddings
@@ -1984,10 +2273,10 @@ def kernel_class(name) -> str:
     return "other"
 
 
-def profile_steps(label, steps):
+def profile_steps(label, steps, n=3):
     out = {}
     for name, fn in steps.items():
-        host, dev, n_k, by_name = _profiled(fn)
+        host, dev, n_k, by_name = _profiled(fn, n)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         by_class = {}
         for k, v in by_name.items():
@@ -2021,12 +2310,15 @@ def _leaves(tree):
         yield tree
 
 
-def flash_work(s, t, d, h, hkv, q_offset, itemsize, window=None):
-    """(bytes, operations) the causal function needs at these shapes: q read
-    and the output written once, k and v read once over the keys some
-    query can see (from ``q_offset - window + 1`` with a window, up to
-    ``q_offset + s``); 4·D operations for every (query, visible key)
-    pair."""
+def flash_work(s, t, d, h, hkv, q_offset, itemsize, window=None,
+               causal=True):
+    """(bytes, operations) the function needs at these shapes: q read and
+    the output written once, k and v read once over the keys some query
+    can see (causal: from ``q_offset - window + 1`` with a window, up to
+    ``q_offset + s``; non-causal: all ``t``); 4·D operations for every
+    (query, visible key) pair."""
+    if not causal:
+        return itemsize * (2 * h * s * d + 2 * hkv * t * d), 4 * d * h * s * t
     lo = 0 if window is None else max(0, q_offset - window + 1)
     pairs = sum(min(q_offset + i + 1, t)
                 - (0 if window is None else max(0, q_offset + i - window + 1))
@@ -2192,14 +2484,16 @@ def timing_window(cfg):
             for s, win in WINDOW_TIMING}
 
 
-def time_flash(b, h, hkv, s, d, win, what, t=None, off=0):
+def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     """The planned flash call (wgmma) on bf16 q [b,h,s,d], kv [b,hkv,t,d]
     (causal from ``q_offset`` ``off``, with ``win`` a window; ``t`` None:
-    s) beside the plain version and sdpa with the boolean mask (and,
-    without a window at t == s, with is_causal), by CUDA events over
-    back-to-back calls and by one call's device time under the profiler;
-    the bound. The kernel and sdpa are held against the plain version at
-    the bf16 tolerance."""
+    s; ``causal`` False: every query sees every key) beside the plain
+    version and sdpa with the boolean mask (non-causal: with no mask; and,
+    causal without a window at q_offset 0, with is_causal, whose mask is
+    aligned at the top left: query i sees keys up to i, which is q_offset
+    0 at any t), by CUDA events over back-to-back calls and by one call's
+    device time under the profiler; the bound. The kernel and sdpa are
+    held against the plain version at the bf16 tolerance."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -2216,7 +2510,7 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0):
     if win is not None:
         mask = mask & (qp - kp < win)
     call = lambda: ops.flash_attention(q, k, v, window=win,  # noqa: E731
-                                       q_offset=off)
+                                       q_offset=off, causal=causal)
     before = dict(ops.route_launches)
     ms = cuda_timed(call)
     taken = {r: c - before[r] for r, c in ops.route_launches.items()
@@ -2224,15 +2518,19 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0):
     if taken != {"wgmma": 23}:
         raise AssertionError(f"the timed calls took routes {taken}")
     device = _device_ms(call)
-    plain_ms = cuda_timed(lambda: ref.attention(q, k, v, window=win,
-                                                q_offset=off), iters=5)
-    sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
-        q, k, v, attn_mask=mask, enable_gqa=True)
-    lib = {"mask": sdpa}
-    if win is None and t == s and off == 0:
-        lib["is_causal"] = lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
-    want = ref.attention(q, k, v, window=win, q_offset=off).float()
+    plain_ms = cuda_timed(lambda: ref.attention(
+        q, k, v, window=win, q_offset=off, causal=causal), iters=5)
+    if causal:
+        lib = {"mask": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)}
+        if win is None and off == 0:
+            lib["is_causal"] = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+    else:
+        lib = {"no mask": lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True)}
+    want = ref.attention(q, k, v, window=win, q_offset=off,
+                         causal=causal).float()
     err = (call().float() - want).abs().max().item()
     lib_err = {n: (fn().float() - want).abs().max().item()
                for n, fn in lib.items()}
@@ -2240,12 +2538,15 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0):
         raise AssertionError(f"flash (or sdpa) disagrees at B {b} S {s} "
                              f"window {win}: {err}, sdpa {lib_err}")
     lib_ms = {n: (cuda_timed(fn), _device_ms(fn)) for n, fn in lib.items()}
-    n_bytes, n_ops = flash_work(s, t, d, h, hkv, off, 2, win)
-    row = dict(_row(ms, plain_ms, lib_ms["mask"][0], b * n_bytes,
+    first = next(iter(lib_ms))           # the mask, or no mask: the same
+    n_bytes, n_ops = flash_work(s, t, d, h, hkv, off, 2, win, causal)
+    row = dict(_row(ms, plain_ms, lib_ms[first][0], b * n_bytes,
                     b * n_ops, PEAK_OPS["bfloat16"], err),
-               device_ms=device, library_device_ms=lib_ms["mask"][1],
+               device_ms=device, library_device_ms=lib_ms[first][1],
                timed_at=f"bf16 q[{b},{h},{s},{d}] kv[{b},{hkv},{t},{d}] "
-                        f"q_offset {off}, window {win} ({what})")
+                        f"q_offset {off}, "
+                        + (f"window {win}" if causal else "non-causal")
+                        + f" ({what})")
     if "is_causal" in lib_ms:
         row["is_causal_ms"], row["is_causal_device_ms"] = \
             lib_ms["is_causal"]
@@ -2468,10 +2769,12 @@ def timing_transpose(errs, in_call_ms):
 def phase_cli():
     """The serving CLI on the card: granite-20b's smoke model on the
     continuous engine, and gemma3-27b's (the CLI's default arch) on the
-    static engine with a timeline written by --trace-out; and the training
-    CLI on granite-20b's smoke model, 4 steps, with its own --trace-out.
-    validate_chrome_trace must accept both timelines, and each must
-    partition its run's joules. The three run side by side."""
+    static engine with a timeline written by --trace-out; the training
+    CLI on granite-20b's smoke model, 4 steps, with its own --trace-out;
+    and the port's bench_serving (every scenario on the smoke models; its
+    gates print PASS or FAIL, readings, and its token assertions must
+    hold). validate_chrome_trace must accept both timelines, and each must
+    partition its run's joules. The four run side by side."""
     import tempfile
     from repro_torch.obs import validate_chrome_trace
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -2489,6 +2792,9 @@ def phase_cli():
                               "repro_torch.launch.train", "--arch",
                               "granite-20b", "--smoke", "--steps", "4",
                               "--trace-out", str(train_trace)],
+            "bench serving": [sys.executable, "-m",
+                              "repro_torch.benchmarks.run", "--only",
+                              "serving"],
         }
         procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env,
                                         stdout=subprocess.PIPE,
@@ -2623,6 +2929,10 @@ def main() -> int:
     del mmodel, mparams                        # frees deepseek-moe's 32.8 GB
     free_card()
     moe_held_err = hold_window_shapes(mshapes, "hold_moe_flash")
+    rec = phase_serve_recurrent(card)
+    rec_held_err = hold_window_shapes(
+        set().union(*(r["shapes"] for r in rec.values())),
+        "hold_recurrent_flash")
     vlm_launches, vlm_shape = phase_vlm(card)
     free_card()
     train = phase_train(card)
@@ -2642,6 +2952,19 @@ def main() -> int:
     vlm_row = time_flash(1, vlm_shape[1], vlm_shape[2], vlm_shape[3],
                          vlm_shape[5], None,
                          "internvl2-76b's forward, 256 patches + 256 tokens")
+    # whisper-small's encoder (non-causal, 12:12, S = T = 1500) and
+    # zamba2-1.2b's shared attention on a cold 256-token chunk (32:32 over
+    # its 512-position cache row)
+    whisper_cfg = rec["whisper-small"]["model"]
+    whisper_row = time_flash(1, whisper_cfg.num_heads,
+                             whisper_cfg.num_kv_heads, whisper_cfg.enc_seq,
+                             whisper_cfg.head_dim, None,
+                             "whisper-small's encoder", causal=False)
+    zamba_cfg = rec["zamba2-1.2b"]["model"]
+    zamba_row = time_flash(1, zamba_cfg.num_heads, zamba_cfg.num_kv_heads,
+                           256, zamba_cfg.head_dim, None,
+                           "zamba2-1.2b's shared attention, a cold "
+                           "256-token chunk", t=SERVE_RECURRENT["max_seq"])
     ffma_row = timing_flash_f32(f32_shape)
     stream_rows = timing_stream(errs)
     dpa_rows = timing_dpa(errs)
@@ -2733,6 +3056,27 @@ def main() -> int:
             "launches": n,
             "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"],
                                held),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "device_ms",
+                                   "library_device_ms", "is_causal_ms",
+                                   "is_causal_device_ms", "timed_at")
+               if k in row},
+        })
+    # the same wgmma route on the recurrent families' serves, head dim 64
+    # and MHA: whisper-small's (its encoder's non-causal launches and its
+    # decoder's causal ones; timed at the encoder's shape) and zamba2-1.2b's
+    # shared attention (timed at a cold 256-token chunk)
+    for tag, arch, row in (("whisper_small", "whisper-small", whisper_row),
+                           ("zamba2", "zamba2-1.2b", zamba_row)):
+        kernels.append({
+            "name": f"flash_attention/wgmma/{tag}",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:22",
+            "launches": rec[arch]["launches"],
+            "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"],
+                               rec_held_err),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "device_ms",
                                    "library_device_ms", "is_causal_ms",

@@ -8,6 +8,7 @@ device time under ``torch.profiler`` (``chip_smoke.py`` and the design
 yardsticks time with it). ``host_cpu`` names the processor a host bench
 ran on.
 """
+import json
 import os
 import platform
 import statistics
@@ -78,22 +79,32 @@ class BenchRows:
         self.rows[name] = {"us_per_call": seconds * 1e6, "derived": derived,
                            **extra}
 
+    def dump(self, json_path):
+        """Write the rows as JSON to ``json_path`` (nothing when None)."""
+        if json_path:
+            with open(json_path, "w") as f:
+                json.dump(self.rows, f, indent=2, sort_keys=True)
+
 
 def device_ms(fn, n=10, sessions=3, by_kernel=False):
     """Device time of one call of ``fn`` under ``torch.profiler``: in each
     of ``sessions`` profiled runs of ``n`` calls, the median duration of
     each CUDA kernel it launches, summed over its kernels; then the median
     over the sessions that recorded any kernel. (The profiler has been seen
-    to drop one call's events, once a whole session's, and once to read a
-    session wrong: so no total over the calls is divided by their count,
-    and no single session is trusted.) ``by_kernel``: also {kernel name:
-    its median over the sessions}."""
+    to drop one call's events, a whole session's, once three sessions' in
+    a row, and once to read a session wrong: so no total over the calls is
+    divided by their count, no single session is trusted, and a session
+    that records no kernel is run again, up to ``3 * sessions`` sessions
+    in all.) ``by_kernel``: also {kernel name: its median over the
+    sessions}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     readings, kernels = [], {}
-    for _ in range(sessions):
+    for _ in range(3 * sessions):
+        if len(readings) == sessions:
+            break
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -111,7 +122,7 @@ def device_ms(fn, n=10, sessions=3, by_kernel=False):
                     statistics.median(v) / 1e3)
     if not readings:
         raise AssertionError("the profiler recorded no kernel in "
-                             f"{sessions} sessions")
+                             f"{3 * sessions} sessions")
     total = statistics.median(readings)
     if not by_kernel:
         return total

@@ -9,7 +9,8 @@ others run (their rows name the host CPU).
         [--device cpu]
 
 ``--only checkpoint`` runs the checkpoint I/O bench alone (``--only
-bandwidth|peak|launch|energy|elastic|scheduler`` the others).
+bandwidth|peak|launch|energy|elastic|scheduler|serving`` the others;
+serving is ``bench_serving``'s scenarios on the smoke models).
 """
 import argparse
 import importlib
@@ -23,6 +24,7 @@ MODULES = [
     ("peak compute (Fig. 5/7)", "repro_torch.benchmarks.bench_peak"),
     ("launch latency (Fig. 8)", "repro_torch.benchmarks.bench_launch_latency"),
     ("checkpoint I/O (Fig. 9)", "repro_torch.benchmarks.bench_checkpoint_io"),
+    ("serving (continuous vs static)", "repro_torch.benchmarks.bench_serving"),
     ("energy platform (Sec. 4)", "repro_torch.benchmarks.bench_energy_platform"),
     ("elastic power (Sec. 3.4)", "repro_torch.benchmarks.bench_elastic"),
     ("hetero scheduling (Sec. 6.1)", "repro_torch.benchmarks.bench_scheduler"),

@@ -1,5 +1,8 @@
 """Weight bridge: a reference parameter tree with numpy leaves -> the port's
-dict of tensors, name for name and shape for shape.
+dict of tensors, name for name and shape for shape. Every family keeps the
+reference's tree, so one map carries them all: the stacked ``[L, ...]``
+leaves, xlstm's ``slstm_{i}`` blocks, zamba2's ``shared_attn`` subtree,
+whisper's ``encoder`` and ``decoder`` subtrees.
 
 Callers holding reference parameters convert them to numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports neither jax

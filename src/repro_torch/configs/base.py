@@ -125,16 +125,18 @@ SHAPES = {
 }
 
 
-#: the configs the port has (the reference registers ten; each later slice
-#: adds the ones it serves)
+#: the configs of the port: the reference's ten, in its order
 ARCH_NAMES = [
     "granite-20b",
     "deepseek-coder-33b",
     "gemma3-27b",
     "qwen3-32b",
+    "xlstm-1.3b",
     "internvl2-76b",
     "deepseek-moe-16b",
     "moonshot-v1-16b-a3b",
+    "zamba2-1.2b",
+    "whisper-small",
 ]
 
 

@@ -15,13 +15,14 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means the CUDA card; raises when that card is missing."""
+    """``None`` means the CUDA card; raises when that card is missing.
+    ``meta`` (shapes and dtypes without storage) is taken as given."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on the GPU unless asked for the "
             "host (pass device='cpu' / --device cpu)")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -6,10 +6,9 @@ telemetry and per-tag attribution.
     PYTHONPATH=src python -m repro_torch.examples.energy_aware_training \
         [--device cpu]
 
-The reference trains zamba2-1.2b here, a recurrent model; the port's
-recurrent families are a later slice (ROADMAP Queue 1 item 10), so this
-copy trains granite-20b's smoke config until then. Runs on the CUDA card
-unless ``--device cpu`` asks for the host.
+It trains zamba2-1.2b's smoke config (the Mamba2 hybrid), as the
+reference does. Runs on the CUDA card unless ``--device cpu`` asks for the
+host.
 """
 import argparse
 
@@ -32,7 +31,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="the CUDA card by default; 'cpu' runs on the host")
     dev = resolve_device(ap.parse_args(argv).device)
-    cfg = configs.get_smoke("granite-20b")
+    cfg = configs.get_smoke("zamba2-1.2b")
     model = build_model(cfg)
     # roofline terms for the smoke model on one H100 (the energy model's
     # input; assumed values, as the reference assumes its own)

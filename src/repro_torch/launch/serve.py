@@ -84,6 +84,14 @@ def main(argv=None):
     if isinstance(kv_block, int) and not caps.paged_kv:
         ap.error(f"--kv-block-size {kv_block}: the {cfg.family!r} family "
                  f"cannot page its cache (use --kv-block-size auto)")
+    if isinstance(buckets, list) and not caps.bucketed_prefill:
+        ap.error(f"--prefill-buckets {args.prefill_buckets}: the "
+                 f"{cfg.family!r} family prefills chunked left-to-right, "
+                 f"not right-padded to buckets (use --prefill-buckets auto)")
+    if args.engine == "static" and caps.kind == "recurrent":
+        ap.error(f"--engine static: the {cfg.family!r} family carries "
+                 f"recurrent state, which right-padded batch prefill would "
+                 f"corrupt (use --engine continuous)")
     use_prefix = (caps.prefix_cache if args.prefix_cache == "auto"
                   else args.prefix_cache == "on")
 
@@ -92,9 +100,15 @@ def main(argv=None):
     gen.manual_seed(0)
     params = model.init(gen, device)
     rng = np.random.default_rng(0)
+    frames = None
+    if caps.needs_frames:
+        # synthetic encoder frames stand in for a log-mel front-end
+        frames = [rng.standard_normal((cfg.enc_seq, cfg.d_model))
+                  .astype(np.float32) for _ in range(args.requests)]
     reqs = [Request(i, rng.integers(0, cfg.vocab_size,
                                     args.prompt_len).astype(np.int32),
-                    max_new_tokens=args.max_new)
+                    max_new_tokens=args.max_new,
+                    frames=frames[i] if frames is not None else None)
             for i in range(args.requests)]
 
     if args.engine == "static":

@@ -82,13 +82,16 @@ def _proj(x, w):
 
 def _qkv(x, p, cfg: ModelConfig, rope_cs):
     """Projected q [B,S,H,Dh] and k, v [B,S,Hkv,Dh]; with ``cfg.qk_norm``
-    each head of q and k is RMS-normed before RoPE."""
+    each head of q and k is RMS-normed before RoPE; ``rope_cs`` None (a
+    layer without RoPE: whisper's) leaves them unrotated."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    if rope_cs is None:
+        return q, k, v
     cos, sin = rope_cs
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -152,19 +155,20 @@ def attention_scores(q, k, v, mask, scores_f32=True):
     return (o / denom.to(o.dtype)).reshape(b, s, h, dh)
 
 
-def blocked_attention(q, k, v, *, q_offset=0, window=None):
-    """Causal prefill attention on the flash kernel.
+def blocked_attention(q, k, v, *, q_offset=0, window=None, causal=True):
+    """Prefill attention on the flash kernel.
 
     q [B,S,H,Dh]; k, v [B,T,Hkv,Dh]. Query row i sits at position
     ``q_offset + i`` and key j at position j, so under causal masking the
     cache tail past ``q_offset + S`` is never read — the same result as the
     reference's ``blocked_attention`` with its invalid key positions sent to
     ``2**30``. ``window``: row i sees only keys j with
-    ``q_offset + i - j < window`` (a local layer)."""
+    ``q_offset + i - j < window`` (a local layer). ``causal`` False: every
+    row sees every key (whisper's encoder)."""
     o = flash_attention(q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), q_offset=q_offset,
-                        window=window)
+                        v.transpose(1, 2).contiguous(), causal=causal,
+                        q_offset=q_offset, window=window)
     return o.transpose(1, 2)
 
 
@@ -189,10 +193,13 @@ def write_cache(cache, new, cache_pos):
 
 
 def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
-              rope_cs=None, kv_cache=None, cache_pos=None, cache_slot=None,
-              k_positions=None, k_valid=None, return_kv=False):
-    """Causal attention module. Returns (out, kv_cache), or (out, (k, v))
-    of the fresh keys and values with ``return_kv``.
+              causal=True, use_rope=True, rope_cs=None, kv_cache=None,
+              cache_pos=None, cache_slot=None, k_positions=None,
+              k_valid=None, return_kv=False):
+    """Attention module, causal unless ``causal`` is False. Returns (out,
+    kv_cache), or (out, (k, v)) of the fresh keys and values with
+    ``return_kv``. ``use_rope`` False leaves q and k unrotated (whisper's
+    sinusoid-embedded layers).
 
     A local layer (``is_global`` False with ``cfg.sliding_window`` > 0)
     sees only the last ``sliding_window`` positions.
@@ -208,7 +215,9 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
     b, s, _ = x.shape
     window = (cfg.sliding_window
               if cfg.sliding_window > 0 and not is_global else None)
-    if rope_cs is None:
+    if not use_rope:
+        rope_cs = None
+    elif rope_cs is None:
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     q, k, v = _qkv(x, p, cfg, rope_cs)
     fresh_kv = (k, v)
@@ -216,7 +225,7 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
     if kv_cache is None:
         # the masks depend on position differences only, so the call's own
         # keys sit at offset 0 whatever ``positions`` start at
-        o = blocked_attention(q, k, v, window=window)
+        o = blocked_attention(q, k, v, window=window, causal=causal)
     else:
         ck, cv = kv_cache
         write_at = cache_pos if cache_slot is None else cache_slot
@@ -230,14 +239,15 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
                     k_valid = k_positions[None, :] < (cache_pos[:, None] + s)
                 else:
                     k_valid = k_positions < (cache_pos + s)
-            m = _mask(positions, k_positions, causal=True, window=window,
+            m = _mask(positions, k_positions, causal=causal, window=window,
                       is_global=is_global)
             m = m & (k_valid[None, :] if k_valid.dim() == 1
                      else k_valid[:, None, :])
             o = attention_scores(q, ck.to(q.dtype), cv.to(q.dtype), m)
         else:
             o = blocked_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                  q_offset=int(cache_pos), window=window)
+                                  q_offset=int(cache_pos), window=window,
+                                  causal=causal)
 
     out = _proj(o.reshape(b, s, cfg.q_heads * cfg.head_dim),
                 p["wo"].reshape(cfg.q_heads * cfg.head_dim, cfg.d_model))
@@ -347,6 +357,131 @@ def copy_cache_block(pool, src: int, dst: int):
     for c in pool:
         c[:, dst] = c[:, src]
     return pool
+
+
+# ---------------------------------------------------------------------------
+# mixed-axis state trees (recurrent serving)
+#
+# Recurrent families stack per-layer state with the batch on different axes
+# per leaf: xlstm's mLSTM and conv leaves are [L, B, ...] (axis 1), its
+# sLSTM leaves [B, ...] (axis 0); zamba2 mixes [L, B, ...] mamba state with
+# [B, T, ...] attention KV. ``axes`` is a tree of the same structure (an
+# int batch axis a leaf, which ``serve.state`` infers once from two
+# ``init_cache`` calls on the meta device), so one gather/scatter pair
+# serves every family. Trees are dicts and tuples of tensors.
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of dict/tuple trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def gather_state_slot(state, slot: int, axes):
+    """Batch row ``slot`` of a mixed-axis state tree as a batch-1 tree of
+    views (a write to one lands in the shared row)."""
+    return tree_map(lambda c, ax: c.narrow(ax, slot, 1), state, axes)
+
+
+def scatter_state_slot(state, update, slot: int, axes):
+    """Write a batch-1 mixed-axis state tree into batch row ``slot``, in
+    place. Scattering a freshly initialised batch-1 template is also how a
+    slot is reset: every leaf row is overwritten wholesale, so no carried
+    state (or KV) of a prior occupant survives slot reuse."""
+    tree_map(lambda c, u, ax: c.narrow(ax, slot, 1).copy_(u), state, update,
+             axes)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# parameters: (shape, fan_in) spec trees in the reference's layout, and the
+# per-layer slices of its stacked [L, ...] leaves
+
+
+def embed_shapes(cfg: ModelConfig):
+    """The embedding, unembedding and final norm (``embed_init``)."""
+    d = cfg.d_model
+    return {"embedding": ((cfg.vocab_size, d), d),
+            "unembed": ((d, cfg.vocab_size), d),
+            "final_norm": ((d,), None)}
+
+
+def attn_shapes(cfg: ModelConfig, pre: tuple = ()):
+    """One attention block's leaves (``attn_init``), stacked over ``pre``."""
+    d, h, kvh, dh = cfg.d_model, cfg.q_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": (pre + (d, h, dh), d),
+        "wk": (pre + (d, kvh, dh), d),
+        "wv": (pre + (d, kvh, dh), d),
+        "wo": (pre + (h, dh, d), h * dh),
+        **({"q_norm": (pre + (dh,), None), "k_norm": (pre + (dh,), None)}
+           if cfg.qk_norm else {}),
+    }
+
+
+def mlp_shapes(d_model: int, d_ff: int, pre: tuple = ()):
+    """One gated MLP's leaves (``mlp_init``), stacked over ``pre``."""
+    return {"w_gate": (pre + (d_model, d_ff), d_model),
+            "w_up": (pre + (d_model, d_ff), d_model),
+            "w_down": (pre + (d_ff, d_model), d_ff)}
+
+
+def layer_of(v, i):
+    """Layer ``i``'s slice of a stacked ``[L, ...]`` parameter tree."""
+    if isinstance(v, dict):
+        return {k: layer_of(u, i) for k, u in v.items()}
+    return v[i]
+
+
+def layers_of(v, n):
+    """Every layer's slice of a stacked ``[L, ...]`` tree at once
+    (``unbind``). Under a gradient the slices' gradients are then stacked
+    once per leaf; indexing layer by layer would scatter each into a
+    zero-filled copy of the whole stack and sum the copies: L full-size
+    fills and L - 1 full-size sums per leaf."""
+    if isinstance(v, dict):
+        per = {k: layers_of(u, n) for k, u in v.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return v.unbind(0)
+
+
+def init_tree(spec, generator, device, dtype):
+    """Tensors for a (shape, fan_in) spec tree on ``device``: N(0, 1/fan_in)
+    from ``generator``, filled in place a leading row at a time (no f32
+    copy of a bf16 model); fan_in None gives zeros (norm scales and
+    biases), ``"ones"`` ones (the reference's ``one=True`` leaves)."""
+    if isinstance(spec, dict):
+        return {k: init_tree(v, generator, device, dtype)
+                for k, v in spec.items()}
+    shape, fan_in = spec
+    if fan_in == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    t = torch.zeros(shape, dtype=dtype, device=device)
+    if fan_in is not None:
+        std = 1.0 / max(fan_in, 1) ** 0.5
+        for row in (t if len(shape) > 2 else (t,)):
+            row.normal_(0.0, std, generator=generator)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# jax.nn's softplus and log_sigmoid, formula for formula (the recurrent
+# gates)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,265 @@
+"""Mamba2 (SSD) blocks and the Zamba2 hybrid (a Mamba2 backbone with one
+*shared* attention and MLP block applied every ``cfg.attn_every`` layers,
+with a KV cache of its own at each application site) [arXiv:2411.15242] —
+the reference's ``models/mamba2.py`` on tensors.
+
+The SSD scan is the chunkwise-parallel algorithm (intra-chunk masked
+matmuls and inter-chunk state passing, cumulative log decays exponentiated
+in f32 with no stabiliser, as in the reference); the single-step recurrence
+used for decode agrees with it. The shared attention's prefill runs on the
+flash kernel (causal, from the chunk's start over the whole cache row).
+
+Serving state (``init_cache``): ``mamba`` holds (S [L,B,H,N,P], conv
+[L,B,W-1,di+2N]) in f32 and each ``attn_{i}`` a (k, v) pair of
+[B, max_seq, kvh, dh] in ``dtype``; ``prefill`` and ``decode_step`` write
+it in place and return it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models import common
+from repro_torch.models.xlstm import CHUNK, _causal_conv
+
+
+def mamba_shapes(cfg: ModelConfig, L: int) -> Dict:
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    nh = di // cfg.head_dim
+    cw = cfg.ssm_conv_width
+    return {
+        "norm": ((L, d), None),
+        "w_in": ((L, d, 2 * di + 2 * n + nh), d),
+        "conv": ((L, cw, di + 2 * n), cw),
+        "a_log": ((L, nh), None),
+        "d_skip": ((L, nh), "ones"),
+        "dt_bias": ((L, nh), None),
+        "out_norm": ((L, di), None),
+        "w_out": ((L, di, d), di),
+    }
+
+
+def ssd_chunkwise(x, b_mat, c_mat, dt, a, state, chunk=CHUNK):
+    """Chunkwise SSD. x: [B,T,H,P]; b_mat/c_mat: [B,T,N]; dt: [B,T,H] (>0,
+    f32); a: [H] (<0). state: [B,H,N,P] f32. Returns (y [B,T,H,P] f32,
+    new state).
+
+    The state update's three-operand product (``"bsn,bshp,bsh->bhnp"``)
+    folds the decay into x first and is then one batched matmul."""
+    bs, t, nh, p = x.shape
+    n = b_mat.shape[-1]
+    w = min(chunk, t)
+    assert t % w == 0, (t, w)
+    S = state
+    mask = torch.tril(torch.ones((w, w), dtype=torch.bool, device=x.device))
+    ys = []
+    for c0 in range(0, t, w):
+        sl = slice(c0, c0 + w)
+        xf = x[:, sl].float()
+        bf, cf = b_mat[:, sl].float(), c_mat[:, sl].float()
+        dtc = dt[:, sl]
+        logf = dtc * a                                     # [B,W,H] <= 0
+        lc = torch.cumsum(logf, dim=1)
+        ltot = lc[:, -1]                                   # [B,H]
+        # intra-chunk
+        dm = lc[:, :, None, :] - lc[:, None, :, :]         # [B,W,W,H]
+        A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
+        cb = cf @ bf.transpose(-1, -2)                     # [B,W,W]
+        scores = cb[..., None] * A * dtc[:, None, :, :]    # [B,W,W,H]
+        xh = xf.transpose(1, 2)                            # [B,H,W,P]
+        y_intra = scores.permute(0, 3, 1, 2) @ xh          # [B,H,W,P]
+        # inter-chunk
+        y_inter = (cf[:, None] @ S) * torch.exp(lc).transpose(1, 2)[..., None]
+        ys.append((y_intra + y_inter).transpose(1, 2))
+        # state update
+        sdecay = torch.exp(ltot[:, None] - lc) * dtc       # [B,W,H]
+        xs = (xf * sdecay[..., None]).reshape(bs, w, nh * p)
+        upd = (bf.transpose(-1, -2) @ xs).reshape(bs, n, nh, p)
+        S = torch.exp(ltot)[..., None, None] * S + upd.permute(0, 2, 1, 3)
+    return torch.cat(ys, dim=1), S
+
+
+def ssd_step(x, b_mat, c_mat, dt, a, state):
+    """Single-step recurrence, in place on ``state`` [B,H,N,P]. x:
+    [B,1,H,P]; b/c: [B,1,N]; dt: [B,1,H]. Returns (y [B,1,H,P], state)."""
+    S = state
+    xf = x[:, 0].float()                                   # [B,H,P]
+    bf, cf = b_mat[:, 0].float(), c_mat[:, 0].float()      # [B,N]
+    dtc = dt[:, 0]                                         # [B,H]
+    S.mul_(torch.exp(dtc * a)[..., None, None])
+    S.add_(bf[:, None, :, None] * (xf * dtc[..., None])[:, :, None, :])
+    y = (cf[:, None, None, :] @ S)[:, :, 0]                # [B,H,P]
+    return y[:, None], S
+
+
+def mamba_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
+    """Residual Mamba2 block. ``state``: (S, conv_state) views written in
+    place, or None (training)."""
+    b, t, d = x.shape
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_state
+    nh = di // cfg.head_dim
+    pdim = cfg.head_dim
+    y = common.rms_norm(x, p["norm"])
+    proj = y @ p["w_in"].to(y.dtype)
+    z = proj[..., :di]
+    xbc = proj[..., di:di + di + 2 * n]
+    dt_raw = proj[..., di + di + 2 * n:]                   # [B,T,H]
+    if state is None:
+        S = torch.zeros((b, nh, n, pdim), dtype=torch.float32, device=x.device)
+        conv_state = None
+    else:
+        S, conv_state = state
+    xbc, new_conv = _causal_conv(xbc, p["conv"], conv_state)
+    xbc = F.silu(xbc)
+    xssm = xbc[..., :di].reshape(b, t, nh, pdim)
+    b_mat = xbc[..., di:di + n]
+    c_mat = xbc[..., di + n:]
+    dt = common.softplus(dt_raw.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())                     # [H] < 0
+    if t == 1 and state is not None:
+        ys, _ = ssd_step(xssm, b_mat, c_mat, dt, a, S)
+    else:
+        ys, S2 = ssd_chunkwise(xssm, b_mat, c_mat, dt, a, S,
+                               chunk=min(chunk, t))
+        if state is not None:
+            S.copy_(S2)
+    if state is not None:
+        conv_state.copy_(new_conv)
+    ys = ys + p["d_skip"].float()[:, None] * xssm.float()
+    h = ys.reshape(b, t, di).to(x.dtype)
+    h = common.rms_norm(h, p["out_norm"])
+    h = h * F.silu(z)
+    return x + h @ p["w_out"].to(h.dtype)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The reference init's tree as (shape, fan_in) leaves."""
+    tree = common.embed_shapes(cfg)
+    tree["mamba"] = mamba_shapes(cfg, Zamba2(cfg).n_mamba)
+    d = cfg.d_model
+    tree["shared_attn"] = {            # ONE block, shared across sites
+        "norm1": ((d,), None),
+        "norm2": ((d,), None),
+        "attn": common.attn_shapes(cfg),
+        "mlp": common.mlp_shapes(d, cfg.d_ff),
+    }
+    return tree
+
+
+class Zamba2:
+    """A Mamba2 stack with one shared attention + MLP block every
+    ``attn_every`` layers."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        every = cfg.attn_every or (cfg.num_layers + 1)
+        self.attn_sites = [i for i in range(cfg.num_layers)
+                           if (i + 1) % every == 0]
+        self.groups = []
+        start = 0
+        for si in self.attn_sites + [cfg.num_layers]:
+            self.groups.append(si - start)
+            start = si + 1
+        self.n_mamba = cfg.num_layers - len(self.attn_sites)
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: DeviceLike = None,
+             dtype: Optional[torch.dtype] = None) -> Dict:
+        """Random weights N(0, 1/fan_in) on ``device`` from ``generator``
+        (``d_skip`` ones); ``dtype`` None gives ``cfg.dtype``."""
+        return common.init_tree(param_shapes(self.cfg), generator,
+                                resolve_device(device),
+                                self.dtype if dtype is None else dtype)
+
+    def _shared_attn(self, x, p, positions, cache, cache_pos):
+        h, _ = common.attention(common.rms_norm(x, p["norm1"]), p["attn"],
+                                self.cfg, positions=positions,
+                                kv_cache=cache, cache_pos=cache_pos)
+        x = x + h
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+
+    def _stack(self, x, params, states, *, positions, cache_pos=None):
+        """The layers in order; ``states`` (None in training) written in
+        place."""
+        # under a gradient each block is recomputed in the backward (the
+        # reference's jax.checkpoint(nothing_saveable) scan body)
+        remat = states is None and torch.is_grad_enabled()
+        mamba = common.layers_of(params["mamba"], self.n_mamba)
+        li = 0
+        for gi, g_count in enumerate(self.groups):
+            for _ in range(g_count):
+                st = (None if states is None
+                      else tuple(s[li] for s in states["mamba"]))
+                if remat:
+                    x = checkpoint(mamba_block, x, mamba[li], self.cfg, st,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = mamba_block(x, mamba[li], self.cfg, st)
+                li += 1
+            if gi < len(self.attn_sites):
+                cache = None if states is None else states[f"attn_{gi}"]
+                x = self._shared_attn(x, params["shared_attn"], positions,
+                                      cache, cache_pos)
+        return x
+
+    def forward(self, params, batch):
+        """Training/scoring forward: (logits [B,S,V], aux 0.0)."""
+        x = common.embed(batch["tokens"], params, self.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = self._stack(x, params, None, positions=positions)
+        return common.unembed(x, params), 0.0
+
+    def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
+                   device: DeviceLike = None):
+        """Zero state: f32 mamba state and conv carry, ``dtype`` KV."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        di = cfg.ssm_expand * cfg.d_model
+        n = cfg.ssm_state
+        nh = di // cfg.head_dim
+        lm = self.n_mamba
+        f32 = dict(dtype=torch.float32, device=dev)
+        st = {"mamba": (
+            torch.zeros((lm, batch_size, nh, n, cfg.head_dim), **f32),
+            torch.zeros((lm, batch_size, cfg.ssm_conv_width - 1,
+                         di + 2 * n), **f32))}
+        shape = (batch_size, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        for i in range(len(self.attn_sites)):
+            st[f"attn_{i}"] = (torch.zeros(shape, dtype=dtype, device=dev),
+                               torch.zeros(shape, dtype=dtype, device=dev))
+        return st
+
+    def prefill(self, params, batch, states, start_pos=None):
+        """Prefill a chunk at absolute positions [start, start+S): the
+        mamba state and conv carry resume left to right across chunks, and
+        ``start_pos`` offsets the shared attention's KV writes, RoPE and
+        causal mask, so a prompt can be fed in pow2 chunks. Returns (logits
+        of the last token [B,1,V], states), written in place."""
+        x = common.embed(batch["tokens"], params, self.dtype)
+        offset = 0 if start_pos is None else int(start_pos)
+        positions = torch.arange(x.shape[1], device=x.device) + offset
+        x = self._stack(x, params, states, positions=positions,
+                        cache_pos=offset)
+        return common.unembed(x[:, -1:], params), states
+
+    def decode_step(self, params, token, pos, states):
+        """One decode step. pos: a Python int or a [B] int tensor (each row
+        decodes at its own attention position)."""
+        x = common.embed(token, params, self.dtype)
+        if isinstance(pos, torch.Tensor):
+            positions = pos.long()[:, None]                # [B, 1]
+        else:
+            positions = torch.full((1,), int(pos), device=x.device)
+        x = self._stack(x, params, states, positions=positions,
+                        cache_pos=pos)
+        return common.unembed(x, params), states

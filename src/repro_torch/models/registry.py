@@ -9,7 +9,10 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.mamba2 import Zamba2
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.whisper import Whisper
+from repro_torch.models.xlstm import XLSTM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +57,14 @@ def serving_caps(cfg: ModelConfig) -> ServingCaps:
 
 
 def build_model(cfg: ModelConfig, **kw):
-    """The model for ``cfg``: ``DecoderLM`` for the dense, MoE and VLM
-    families; the recurrent families raise until their slice ports them."""
+    """The model for ``cfg``'s family: ``DecoderLM`` (dense, MoE, VLM),
+    ``XLSTM`` (ssm), ``Zamba2`` (hybrid) or ``Whisper`` (audio)."""
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, **kw)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (the recurrent families "
-        "are a later slice of the port)")
+    if cfg.family == "ssm":
+        return XLSTM(cfg, **kw)
+    if cfg.family == "hybrid":
+        return Zamba2(cfg, **kw)
+    if cfg.family == "audio":
+        return Whisper(cfg, **kw)
+    raise ValueError(f"unknown family {cfg.family}")

@@ -41,29 +41,13 @@ from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
 
 
-def _attn_shapes(cfg: ModelConfig, pre: tuple) -> Dict:
-    d, h, kvh, dh = cfg.d_model, cfg.q_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
-        "wq": (pre + (d, h, dh), d),
-        "wk": (pre + (d, kvh, dh), d),
-        "wv": (pre + (d, kvh, dh), d),
-        "wo": (pre + (h, dh, d), h * dh),
-        **({"q_norm": (pre + (dh,), None), "k_norm": (pre + (dh,), None)}
-           if cfg.qk_norm else {}),
-    }
-
-
 def _dense_layer_shapes(cfg: ModelConfig, pre: tuple, f: int) -> Dict:
     d = cfg.d_model
     return {
         "norm1": (pre + (d,), None),
         "norm2": (pre + (d,), None),
-        "attn": _attn_shapes(cfg, pre),
-        "mlp": {
-            "w_gate": (pre + (d, f), d),
-            "w_up": (pre + (d, f), d),
-            "w_down": (pre + (f, d), f),
-        },
+        "attn": common.attn_shapes(cfg, pre),
+        "mlp": common.mlp_shapes(d, f, pre),
     }
 
 
@@ -74,18 +58,14 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     ``dense_prefix`` holds the leading dense layers one by one."""
     d = cfg.d_model
     n_scan = cfg.num_layers - cfg.first_k_dense
-    tree = {
-        "embedding": ((cfg.vocab_size, d), d),
-        "unembed": ((d, cfg.vocab_size), d),
-        "final_norm": ((d,), None),
-    }
+    tree = common.embed_shapes(cfg)
     if cfg.frontend_stub and cfg.family == "vlm":
         tree["patch_proj"] = ((d, d), d)
     if cfg.is_moe:
         tree["layers"] = {
             "norm1": ((n_scan, d), None),
             "norm2": ((n_scan, d), None),
-            "attn": _attn_shapes(cfg, (n_scan,)),
+            "attn": common.attn_shapes(cfg, (n_scan,)),
             "moe": moe_mod.moe_param_shapes(cfg, n_scan),
         }
     else:
@@ -148,19 +128,8 @@ class DecoderLM:
         ``wo`` columns."""
         dev = resolve_device(device)
         dtype = self.dtype if dtype is None else dtype
-
-        def make(spec):
-            if isinstance(spec, dict):
-                return {k: make(v) for k, v in spec.items()}
-            shape, fan_in = spec
-            t = torch.zeros(shape, dtype=dtype, device=dev)
-            if fan_in is not None:
-                std = 1.0 / max(fan_in, 1) ** 0.5
-                for row in (t if len(shape) > 2 else (t,)):
-                    row.normal_(0.0, std, generator=generator)
-            return t
-
-        params = make(param_shapes(self.cfg))
+        params = common.init_tree(param_shapes(self.cfg), generator, dev,
+                                  dtype)
         mask = head_mask(self.cfg)
         if mask is not None:
             mask = mask.to(device=dev, dtype=dtype)
@@ -192,7 +161,7 @@ class DecoderLM:
         remat = caches is None and self.remat and torch.is_grad_enabled()
         layers = [(p, False) for p in params.get("dense_prefix", {}).values()]
         layers += [(p, cfg.is_moe)
-                   for p in _layers_of(params["layers"], self.n_scan)]
+                   for p in common.layers_of(params["layers"], self.n_scan)]
         aux = 0.0
         for i, (p, is_moe) in enumerate(layers):
             c = None if caches is None else (caches[0][i], caches[1][i])
@@ -271,7 +240,7 @@ class DecoderLM:
                 slot = int(cache_pos) % w
         lig = lil = 0
         for i, is_global in enumerate(layer_flags(cfg)):
-            p = _layer_of(lp, i)
+            p = common.layer_of(lp, i)
             y = common.rms_norm(x, p["norm1"])
             if is_global:
                 h, _ = common.attention(
@@ -393,21 +362,3 @@ class DecoderLM:
                                        caches=caches, cache_pos=pos)
         return common.unembed(x, params), caches
 
-
-def _layer_of(v, i):
-    """Layer ``i``'s slice of a stacked ``[L, ...]`` parameter tree."""
-    if isinstance(v, dict):
-        return {k: _layer_of(u, i) for k, u in v.items()}
-    return v[i]
-
-
-def _layers_of(v, n):
-    """Every layer's slice of a stacked ``[L, ...]`` tree at once
-    (``unbind``). Under a gradient the slices' gradients are then stacked
-    once per leaf; indexing layer by layer would scatter each into a
-    zero-filled copy of the whole stack and sum the copies: L full-size
-    fills and L - 1 full-size sums per leaf."""
-    if isinstance(v, dict):
-        per = {k: _layers_of(u, n) for k, u in v.items()}
-        return [{k: per[k][i] for k in per} for i in range(n)]
-    return v.unbind(0)

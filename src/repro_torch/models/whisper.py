@@ -1,0 +1,213 @@
+"""Whisper-style encoder-decoder backbone [arXiv:2212.04356] — the
+reference's ``models/whisper.py`` on tensors.
+
+The conv/mel frontend is a stub, as in the reference: requests carry
+precomputed frame embeddings [B, enc_seq, D]. Positions are sinusoidal in
+the encoder and the decoder, and no layer rotates q and k. The encoder's
+self-attention is non-causal and the decoder's causal; both run on the
+flash kernel (the encoder over its ``enc_seq`` frames, the decoder's
+prefill from the chunk's start over the whole cache row). Cross attention
+is plain tensor ops, as it is plain XLA in the reference.
+
+Serving caches (``init_cache``): ``self`` (k, v) of [L, B, max_seq, kvh,
+dh] and ``cross`` (k, v) of [L, B, enc_seq, H, dh], both in ``dtype``;
+``prefill`` fills ``cross`` from the frames of a request's first chunk and
+writes both in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models import common
+
+
+def sinusoid(positions, d_model, dtype):
+    """Sinusoidal embeddings for int positions of any shape: [...] ->
+    [..., D]."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def cross_kv(enc_out, p):
+    """Cross-attention keys and values [B, enc_seq, H, dh] of one layer."""
+    return common._proj(enc_out, p["wk"]), common._proj(enc_out, p["wv"])
+
+
+def cross_attention(x, p, k, v, cfg: ModelConfig):
+    """Unmasked attention of x [B,S,d] over the encoder's k, v [B,T,H,dh],
+    scores and softmax in f32."""
+    b, s, _ = x.shape
+    q = common._proj(x, p["wq"])
+    dh = q.shape[-1]
+    sc = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(dh)
+    pr = torch.softmax(sc, dim=-1).to(x.dtype)
+    o = torch.einsum("bhst,bthd->bshd", pr, v)
+    h = cfg.q_heads
+    return common._proj(o.reshape(b, s, h * dh),
+                        p["wo"].reshape(h * dh, cfg.d_model))
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The reference init's tree as (shape, fan_in) leaves."""
+    d, h, dh = cfg.d_model, cfg.q_heads, cfg.head_dim
+    le, ld = (cfg.enc_layers,), (cfg.num_layers,)
+    tree = common.embed_shapes(cfg)
+    tree["encoder"] = {
+        "norm1": (le + (d,), None),
+        "norm2": (le + (d,), None),
+        "attn": common.attn_shapes(cfg, le),
+        "mlp": common.mlp_shapes(d, cfg.d_ff, le),
+    }
+    tree["enc_final_norm"] = ((d,), None)
+    tree["decoder"] = {
+        "norm1": (ld + (d,), None),
+        "norm_x": (ld + (d,), None),
+        "norm2": (ld + (d,), None),
+        "self_attn": common.attn_shapes(cfg, ld),
+        "cross_attn": {
+            "wq": (ld + (d, h, dh), d),
+            "wk": (ld + (d, h, dh), d),
+            "wv": (ld + (d, h, dh), d),
+            "wo": (ld + (h, dh, d), h * dh),
+        },
+        "mlp": common.mlp_shapes(d, cfg.d_ff, ld),
+    }
+    return tree
+
+
+class Whisper:
+    """Functional encoder-decoder over an explicit parameter dict."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: DeviceLike = None,
+             dtype: Optional[torch.dtype] = None) -> Dict:
+        """Random weights N(0, 1/fan_in) on ``device`` from ``generator``;
+        ``dtype`` None gives ``cfg.dtype``."""
+        return common.init_tree(param_shapes(self.cfg), generator,
+                                resolve_device(device),
+                                self.dtype if dtype is None else dtype)
+
+    # -- encoder -------------------------------------------------------------
+
+    def encode(self, params, frames):
+        """frames: [B, enc_seq, D] precomputed embeddings (stub frontend);
+        non-causal self-attention without RoPE."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoid(positions, cfg.d_model, self.dtype)[None]
+        for p in common.layers_of(params["encoder"], cfg.enc_layers):
+            h, _ = common.attention(
+                common.rms_norm(x, p["norm1"]), p["attn"], cfg,
+                positions=positions, causal=False, use_rope=False)
+            x = x + h
+            x = x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+        return common.rms_norm(x, params["enc_final_norm"])
+
+    # -- decoder -------------------------------------------------------------
+
+    def _decoder_stack(self, x, params, *, positions, cross_cache,
+                       caches=None, cache_pos=None):
+        cfg = self.cfg
+        xk_all, xv_all = cross_cache
+        layers = common.layers_of(params["decoder"], cfg.num_layers)
+        for i, p in enumerate(layers):
+            c = None if caches is None else (caches[0][i], caches[1][i])
+            h, _ = common.attention(
+                common.rms_norm(x, p["norm1"]), p["self_attn"], cfg,
+                positions=positions, use_rope=False, kv_cache=c,
+                cache_pos=cache_pos)
+            x = x + h
+            x = x + cross_attention(common.rms_norm(x, p["norm_x"]),
+                                    p["cross_attn"], xk_all[i], xv_all[i],
+                                    cfg)
+            x = x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+        return x
+
+    def _embed_dec(self, params, tokens, positions):
+        """Token embeddings plus sinusoids of ``positions`` ([S] shared by
+        the batch, or [B, S] per row)."""
+        x = common.embed(tokens, params, self.dtype)
+        pe = sinusoid(positions, self.cfg.d_model, self.dtype)
+        return x + (pe[None] if positions.dim() == 1 else pe)
+
+    def build_cross_cache(self, params, enc_out):
+        """Per-layer cross K/V: two [L, B, enc_seq, H, dh] stacks."""
+        kv = [cross_kv(enc_out, p) for p in common.layers_of(
+            params["decoder"]["cross_attn"], self.cfg.num_layers)]
+        return (torch.stack([k for k, _ in kv]),
+                torch.stack([v for _, v in kv]))
+
+    def forward(self, params, batch):
+        """batch: {frames [B,enc_seq,D], tokens [B,S]} -> (logits, 0.0)."""
+        enc_out = self.encode(params, batch["frames"])
+        cross_cache = self.build_cross_cache(params, enc_out)
+        positions = torch.arange(batch["tokens"].shape[1],
+                                 device=enc_out.device)
+        x = self._embed_dec(params, batch["tokens"], positions)
+        x = self._decoder_stack(x, params, positions=positions,
+                                cross_cache=cross_cache)
+        return common.unembed(x, params), 0.0
+
+    def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
+                   device: DeviceLike = None):
+        cfg = self.cfg
+        dev = resolve_device(device)
+        self_shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
+                      cfg.head_dim)
+        cross_shape = (cfg.num_layers, batch_size, cfg.enc_seq, cfg.q_heads,
+                       cfg.head_dim)
+        return {name: tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                            for _ in range(2))
+                for name, shape in (("self", self_shape),
+                                    ("cross", cross_shape))}
+
+    def _cross(self, caches):
+        return tuple(c.to(self.dtype) for c in caches["cross"])
+
+    def prefill(self, params, batch, caches, start_pos=None):
+        """Prefill decoder tokens at absolute positions [start, start+S),
+        in place. ``batch["frames"]`` is required on the first chunk (it
+        encodes the audio and fills ``caches["cross"]``); later chunks omit
+        it and reuse the carried cross cache, so a long prompt can be fed
+        in pow2 chunks without encoding again. Returns (logits of the last
+        token [B,1,V], caches)."""
+        if batch.get("frames") is not None:
+            enc_out = self.encode(params, batch["frames"])
+            for dst, src in zip(caches["cross"],
+                                self.build_cross_cache(params, enc_out)):
+                dst.copy_(src)
+        offset = 0 if start_pos is None else int(start_pos)
+        positions = torch.arange(batch["tokens"].shape[1],
+                                 device=caches["self"][0].device) + offset
+        x = self._embed_dec(params, batch["tokens"], positions)
+        x = self._decoder_stack(x, params, positions=positions,
+                                cross_cache=self._cross(caches),
+                                caches=caches["self"], cache_pos=offset)
+        return common.unembed(x[:, -1:], params), caches
+
+    def decode_step(self, params, token, pos, caches):
+        """One decode step. pos: a Python int or a [B] int tensor (each row
+        decodes at its own position)."""
+        if isinstance(pos, torch.Tensor):
+            positions = pos.long()[:, None]                # [B, 1]
+        else:
+            positions = torch.full((1,), int(pos), device=token.device)
+        x = self._embed_dec(params, token, positions)
+        x = self._decoder_stack(x, params, positions=positions,
+                                cross_cache=self._cross(caches),
+                                caches=caches["self"], cache_pos=pos)
+        return common.unembed(x, params), caches

@@ -1,0 +1,354 @@
+"""xLSTM (arXiv:2405.04517): mLSTM (matrix memory, chunkwise-parallel) and
+sLSTM (scalar memory, time-recurrent) blocks — the reference's
+``models/xlstm.py`` on tensors.
+
+Layer pattern: every ``cfg.slstm_every``-th block is sLSTM, the rest mLSTM
+(7:1 for xlstm-1.3b). The mLSTM layers' parameters and states are stacked
+``[L, ...]`` (``mlstm/...``) as in the reference, the sLSTM layers' kept one
+by one (``slstm_{i}``); a Python loop over the layers takes the place of
+the reference's group scans.
+
+Numerics, as in the reference: gates in f32; the input-gate pre-activation
+is clamped at ``I_CLAMP`` instead of carrying a running-max stabiliser, so
+the chunkwise and the recurrent forms agree. The chunkwise form
+exponentiates cumulative log gates in f32 with no stabiliser either.
+
+Serving state (``init_cache``): ``mlstm`` holds (C [L,B,NH,dh,dh], n
+[L,B,NH,dh], conv [L,B,3,di]) and each ``slstm_{i}`` (c, n, m, h) of
+[B,NH,dh], all f32. ``prefill`` and ``decode_step`` update it in place and
+return it: a decode step scales C and adds the rank-1 update in place (one
+batched matmul with a k of 1), so the 16 MB a row and a layer of
+xlstm-1.3b's C are never copied.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models import common
+
+I_CLAMP = 8.0  # clamp on the input-gate pre-activation (exp gate)
+CHUNK = 256    # the chunkwise form's chunk (the reference's default)
+
+
+def _ffn_width(d):  # llama-style 8/3 rounded to 64
+    return int(np.ceil(8 * d / 3 / 64) * 64)
+
+
+def mlstm_shapes(cfg: ModelConfig, L: int) -> Dict:
+    d = cfg.d_model
+    di = 2 * d                       # up-projection factor 2
+    nh = cfg.num_heads
+    return {
+        "norm": ((L, d), None),
+        "w_up": ((L, d, 2 * di), d),
+        "conv": ((L, 4, di), 4),
+        "wq": ((L, di, di), di),
+        "wk": ((L, di, di), di),
+        "wv": ((L, di, di), di),
+        "w_gates": ((L, di, 2 * nh), di),
+        "b_gates": ((L, 2 * nh), None),
+        "out_norm": ((L, di), None),
+        "w_down": ((L, di, d), di),
+    }
+
+
+def slstm_shapes(cfg: ModelConfig) -> Dict:
+    d, nh = cfg.d_model, cfg.num_heads
+    dh = d // nh
+    return {
+        "norm": ((d,), None),
+        "w_in": ((d, 4 * d), d),
+        "r": ((4, nh, dh, dh), dh),
+        "b": ((4 * d,), None),
+        "out_norm": ((d,), None),
+        "ffn": common.mlp_shapes(d, _ffn_width(d)),
+    }
+
+
+def _causal_conv(x, w, state=None):
+    """x: [B,T,C], w: [W,C] depthwise. state: [B,W-1,C] carried for decode.
+    Returns (out, new_state); the new state keeps ``state``'s dtype (f32
+    from ``init_cache``), so a decode step's signature never drifts."""
+    width = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i].to(x.dtype)
+              for i in range(width))
+    new_state = xp[:, -(width - 1):]
+    if state is not None:
+        new_state = new_state.to(state.dtype)
+    return out, new_state
+
+
+def _mlstm_gates(xi, p, nh):
+    g = xi @ p["w_gates"].to(xi.dtype)
+    g = (g + p["b_gates"].to(xi.dtype)).float()
+    logi = g[..., :nh].clamp_max(I_CLAMP)               # [B,T,NH]
+    logf = common.log_sigmoid(g[..., nh:])              # [B,T,NH] <= 0
+    return logi, logf
+
+
+def mlstm_chunkwise(q, k, v, logi, logf, state, chunk=CHUNK):
+    """Chunkwise-parallel mLSTM. q, k, v: [B,T,NH,dh]; logi/logf:
+    [B,T,NH]; state: (C [B,NH,dh,dh], n [B,NH,dh]) f32. Returns (h
+    [B,T,NH,dh] f32, (C, n)) with new state tensors.
+
+    The state update's three-operand product (``"bshd,bshe,bsh->bhde"`` in
+    the reference) folds the decay into k first and is then one batched
+    matmul, so no [.., W, dh, dh] intermediate exists."""
+    b, t, nh, dh = q.shape
+    w = min(chunk, t)
+    assert t % w == 0, (t, w)
+    scale = 1.0 / np.sqrt(dh)
+    C, n = state
+    mask = torch.tril(torch.ones((w, w), dtype=torch.bool, device=q.device))
+    hs = []
+    for c0 in range(0, t, w):
+        sl = slice(c0, c0 + w)
+        # heads first: [B,NH,W,dh]
+        qh = (q[:, sl].float() * scale).transpose(1, 2)
+        kh = k[:, sl].float().transpose(1, 2)
+        vh = v[:, sl].float().transpose(1, 2)
+        li, lf = logi[:, sl], logf[:, sl]
+        lc = torch.cumsum(lf, dim=1)                      # [B,W,NH] inclusive
+        ltot = lc[:, -1]                                  # [B,NH]
+        # intra-chunk: decay matrix A[t,s] = exp(lc_t - lc_s + li_s), s<=t
+        dm = lc[:, :, None, :] - lc[:, None, :, :] + li[:, None, :, :]
+        A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
+        scores = (qh @ kh.transpose(-1, -2)) * A.permute(0, 3, 1, 2)
+        num_intra = scores @ vh                           # [B,NH,W,dh]
+        den_intra = scores.sum(dim=-1)                    # [B,NH,W]
+        # inter-chunk: carried state decayed to each position
+        decay_t = torch.exp(lc).transpose(1, 2)           # [B,NH,W]
+        num_inter = (qh @ C) * decay_t[..., None]
+        den_inter = (qh @ n[..., None])[..., 0] * decay_t
+        den = (den_intra + den_inter).abs().clamp_min(1.0)
+        hs.append(((num_intra + num_inter) / den[..., None]).transpose(1, 2))
+        # state update: C' = exp(ltot) C + sum_s exp(ltot - lc_s + li_s) k v^T
+        sdecay = torch.exp(ltot[:, None] - lc + li).transpose(1, 2)
+        ks = kh * sdecay[..., None]                       # [B,NH,W,dh]
+        e = torch.exp(ltot)
+        C = e[..., None, None] * C + ks.transpose(-1, -2) @ vh
+        n = e[..., None] * n + ks.sum(dim=-2)
+    return torch.cat(hs, dim=1), (C, n)
+
+
+def mlstm_step(q, k, v, logi, logf, state):
+    """Single-token recurrence, in place on ``state`` = (C [B,NH,dh,dh],
+    n [B,NH,dh]). q, k, v: [B,1,NH,dh]. Returns (h [B,1,NH,dh], state)."""
+    C, n = state
+    b, _, nh, dh = q.shape
+    qf = q[:, 0].float() / np.sqrt(dh)                    # [B,NH,dh]
+    kf, vf = k[:, 0].float(), v[:, 0].float()
+    i_ = torch.exp(logi[:, 0])                            # [B,NH]
+    f_ = torch.exp(logf[:, 0])
+    C.mul_(f_[..., None, None])
+    C.view(b * nh, dh, dh).baddbmm_((i_[..., None] * kf).reshape(b * nh, dh, 1),
+                                    vf.reshape(b * nh, 1, dh))
+    n.mul_(f_[..., None]).add_(i_[..., None] * kf)
+    num = (qf[:, :, None, :] @ C)[:, :, 0]                # [B,NH,dh]
+    den = (qf * n).sum(dim=-1).abs().clamp_min(1.0)
+    return (num / den[..., None])[:, None], (C, n)
+
+
+def mlstm_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
+    """Residual mLSTM block. ``state``: (C, n, conv_state) views written in
+    place, or None (training: zero state, nothing carried)."""
+    b, t, d = x.shape
+    di, nh = 2 * d, cfg.num_heads
+    dh = di // nh
+    y = common.rms_norm(x, p["norm"])
+    up = y @ p["w_up"].to(y.dtype)
+    xi, z = up[..., :di], up[..., di:]
+    if state is None:
+        conv_state = None
+        C = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
+        n = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
+    else:
+        C, n, conv_state = state
+    xc, new_conv = _causal_conv(xi, p["conv"], conv_state)
+    xc = F.silu(xc)
+    q = (xc @ p["wq"].to(xc.dtype)).reshape(b, t, nh, dh)
+    k = (xc @ p["wk"].to(xc.dtype)).reshape(b, t, nh, dh)
+    v = (xi @ p["wv"].to(xi.dtype)).reshape(b, t, nh, dh)
+    logi, logf = _mlstm_gates(xc, p, nh)
+    if t == 1 and state is not None:
+        h, _ = mlstm_step(q, k, v, logi, logf, (C, n))
+    else:
+        h, (C2, n2) = mlstm_chunkwise(q, k, v, logi, logf, (C, n),
+                                      chunk=min(chunk, t))
+        if state is not None:
+            C.copy_(C2)
+            n.copy_(n2)
+    if state is not None:
+        conv_state.copy_(new_conv)
+    h = h.reshape(b, t, di).to(x.dtype)
+    h = common.rms_norm(h, p["out_norm"])
+    h = h * F.silu(z)                                     # output gate
+    return x + h @ p["w_down"].to(h.dtype)
+
+
+def slstm_block(x, p, cfg: ModelConfig, state):
+    """Time-recurrent sLSTM with exponential gating and its stabiliser ``m``
+    (which starts at -1e30, so the first step's gates reduce correctly): a
+    Python loop over the tokens, the reference's ``lax.scan``.
+
+    state: (c, n, m, h), each [B, NH, dh] f32, written in place; or None
+    (zeros). Returns x."""
+    b, t, d = x.shape
+    nh = cfg.num_heads
+    dh = d // nh
+    y = common.rms_norm(x, p["norm"])
+    wx = y @ p["w_in"].to(y.dtype)
+    wx = (wx + p["b"].to(wx.dtype)).float().reshape(b, t, 4, nh, dh)
+    r = p["r"].float()                                    # [4,NH,dh,dh]
+    if state is None:
+        zeros = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
+        carry = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
+    else:
+        carry = state
+    c, n, m, h = carry
+    hs = []
+    for i in range(t):
+        rec = torch.einsum("bhd,ghde->bghe", h, r)        # [B,4,NH,dh]
+        pre = wx[:, i] + rec
+        zi, ii, fi, oi = pre.unbind(1)
+        zi = torch.tanh(zi)
+        oi = torch.sigmoid(oi)
+        logi = ii.clamp_max(I_CLAMP)
+        logf = common.log_sigmoid(fi)
+        m_new = torch.maximum(logf + m, logi)
+        i_ = torch.exp(logi - m_new)
+        f_ = torch.exp(logf + m - m_new)
+        c = f_ * c + i_ * zi
+        n = f_ * n + i_
+        h = oi * c / n.abs().clamp_min(1.0)
+        m = m_new
+        hs.append(h)
+    if state is not None:
+        for dst, src in zip(state, (c, n, m, h)):
+            dst.copy_(src)
+    hseq = torch.stack(hs, dim=1).reshape(b, t, d).to(x.dtype)
+    x = x + common.rms_norm(hseq, p["out_norm"])
+    return x + common.mlp(common.rms_norm(x, p["norm"]), p["ffn"])
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The reference init's tree as (shape, fan_in) leaves."""
+    model = XLSTM(cfg)
+    tree = common.embed_shapes(cfg)
+    tree["mlstm"] = mlstm_shapes(cfg, model.n_mlstm)
+    for i in range(len(model.slstm_idx)):
+        tree[f"slstm_{i}"] = slstm_shapes(cfg)
+    return tree
+
+
+class XLSTM:
+    """Functional xLSTM over an explicit parameter dict."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        every = cfg.slstm_every or (cfg.num_layers + 1)
+        self.slstm_idx = [i for i in range(cfg.num_layers)
+                          if (i + 1) % every == 0]
+        # groups of consecutive mLSTM layers before each sLSTM layer
+        self.groups = []
+        start = 0
+        for si in self.slstm_idx + [cfg.num_layers]:
+            self.groups.append(si - start)
+            start = si + 1
+        self.n_mlstm = cfg.num_layers - len(self.slstm_idx)
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: DeviceLike = None,
+             dtype: Optional[torch.dtype] = None) -> Dict:
+        """Random weights N(0, 1/fan_in) on ``device`` from ``generator``;
+        ``dtype`` None gives ``cfg.dtype``."""
+        return common.init_tree(param_shapes(self.cfg), generator,
+                                resolve_device(device),
+                                self.dtype if dtype is None else dtype)
+
+    def _stack(self, x, params, states):
+        """The layers in order; ``states`` (None in training) written in
+        place."""
+        # under a gradient each block is recomputed in the backward (the
+        # reference's jax.checkpoint(nothing_saveable) scan body)
+        remat = states is None and torch.is_grad_enabled()
+        mlstm = common.layers_of(params["mlstm"], self.n_mlstm)
+        li = 0
+        for gi, g_count in enumerate(self.groups):
+            for _ in range(g_count):
+                st = (None if states is None
+                      else tuple(s[li] for s in states["mlstm"]))
+                if remat:
+                    x = checkpoint(mlstm_block, x, mlstm[li], self.cfg, st,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = mlstm_block(x, mlstm[li], self.cfg, st)
+                li += 1
+            if gi < len(self.slstm_idx):
+                st = None if states is None else states[f"slstm_{gi}"]
+                x = slstm_block(x, params[f"slstm_{gi}"], self.cfg, st)
+        return x
+
+    def forward(self, params, batch):
+        """Training/scoring forward: (logits [B,S,V], aux 0.0)."""
+        x = common.embed(batch["tokens"], params, self.dtype)
+        x = self._stack(x, params, None)
+        return common.unembed(x, params), 0.0
+
+    # -- serving: the state is O(1) in sequence length -----------------------
+
+    def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
+                   device: DeviceLike = None):
+        """Zero state for ``batch_size`` rows (``max_seq`` and ``dtype`` are
+        taken for the uniform signature: every leaf is f32)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        d, nh = cfg.d_model, cfg.num_heads
+        di = 2 * d
+        dh = di // nh
+        lm = self.n_mlstm
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        st = {"mlstm": (zeros(lm, batch_size, nh, dh, dh),
+                        zeros(lm, batch_size, nh, dh),
+                        zeros(lm, batch_size, 3, di))}
+        sdh = d // nh
+        for i in range(len(self.slstm_idx)):
+            st[f"slstm_{i}"] = (zeros(batch_size, nh, sdh),
+                                zeros(batch_size, nh, sdh),
+                                torch.full((batch_size, nh, sdh), -1e30,
+                                           device=dev),
+                                zeros(batch_size, nh, sdh))
+        return st
+
+    def prefill(self, params, batch, states, start_pos=None):
+        """Prefill a chunk, resuming the carried state in ``states`` (in
+        place). mLSTM and sLSTM are position-free, so ``start_pos`` is
+        taken for the uniform chunked-prefill signature and ignored.
+        Returns (logits of the last token [B,1,V], states)."""
+        del start_pos
+        x = common.embed(batch["tokens"], params, self.dtype)
+        x = self._stack(x, params, states)
+        return common.unembed(x[:, -1:], params), states
+
+    def decode_step(self, params, token, pos, states):
+        del pos  # position-free
+        x = common.embed(token, params, self.dtype)
+        x = self._stack(x, params, states)
+        return common.unembed(x, params), states

@@ -37,7 +37,6 @@ from repro_torch.core.energy import ServePowerModel
 from repro_torch.core.hw import DeviceSpec, H100_SXM
 from repro_torch.core.scheduler import ThroughputStats
 from repro_torch.core.tags import N_GPIO
-from repro_torch.models.common import cache_leaves
 from repro_torch.obs import NULL_SPAN, MetricsRegistry, TelemetryEvent, Tracer
 from repro_torch.serve.queue import AdmissionController, Request, RequestQueue
 from repro_torch.serve.slots import SlotManager
@@ -66,12 +65,11 @@ def _count_params(params) -> float:
 
 
 def _cache_bytes(model, batch_size, max_seq) -> float:
-    """KV-cache footprint (bytes) from its shapes, without allocating it:
-    every leaf of ``model.cache_shapes`` in ``init_cache``'s default dtype
-    (bf16)."""
-    n = sum(int(np.prod(s)) for s in
-            cache_leaves(model.cache_shapes(batch_size, max_seq)))
-    return float(n * torch.bfloat16.itemsize)
+    """Cache/state footprint (bytes) without allocating it: every leaf of
+    ``init_cache`` on the meta device, in its own dtype."""
+    caches = model.init_cache(batch_size, max_seq, device="meta")
+    return float(sum(c.numel() * c.element_size()
+                     for c in _leaves(caches)))
 
 
 class EngineTelemetry:
@@ -351,8 +349,7 @@ class ContinuousEngine:
     the batch to drain.
 
     All per-slot state handling (the paged KV pool, contiguous window
-    rings; recurrent carried state in a later slice) lives behind
-    ``self.adapter``
+    rings, recurrent carried state) lives behind ``self.adapter``
     (``serve.state.CacheAdapter``), selected by the model family's declared
     ``ServingCaps`` — the engine body is family-agnostic. ``greedy`` changes
     nothing (``serve.step``'s docstring).

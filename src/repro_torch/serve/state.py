@@ -10,13 +10,22 @@
 ``WindowRingAdapter`` contiguous per-slot rows — the gemma3 local:global
                      window *ring* backend, doubling as the contiguous
                      backend of the flat families when paging is off.
-
-The recurrent-state (xlstm/zamba2/whisper) adapter of the reference comes
-with the slice that ports those families.
+``RecurrentStateAdapter`` per-slot recurrent state (xlstm/zamba2/whisper):
+                     a prompt is fed through the model in power-of-two
+                     chunks carrying state between them (no right-pad ever
+                     touches the state), and the finished batch-1 state is
+                     scattered into the slot's row of the shared batch tree.
+                     Its leaves put the batch on different axes (xlstm's
+                     sLSTM leaves are [B, ...], its mLSTM leaves [L, B,
+                     ...]); the adapter infers a per-leaf axes tree once
+                     from two ``init_cache`` calls on the meta device and
+                     uses the axis-aware tree ops of ``models.common``.
 
 Every step runs through ``counting_call`` against the engine's shared
-``TraceStats``, so signature counts stay bounded by the bucket count, as
-the reference's compile counts are.
+``TraceStats``, so signature counts stay bounded: paged and contiguous
+prefill by the bucket count, recurrent chunked prefill by the number of
+distinct power-of-two chunk sizes (<= log2(max_seq), plus the with-frames
+variants for audio), as the reference's compile counts are.
 """
 from __future__ import annotations
 
@@ -27,19 +36,23 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import to_device
-from repro_torch.models.common import reset_cache_slot
+from repro_torch.models.common import (reset_cache_slot, scatter_state_slot,
+                                       tree_map)
 from repro_torch.models.registry import ServingCaps, serving_caps
 from repro_torch.serve.paging import (PagePool, RadixPrefixCache,
                                       resolve_kv_block_size)
 from repro_torch.serve.queue import Request
 from repro_torch.serve.step import (TraceStats, counting_call, make_block_ops,
                                     make_decode_step, make_paged_decode_step,
-                                    make_paged_slot_prefill, make_slot_prefill,
-                                    pad_to_bucket)
+                                    make_paged_slot_prefill,
+                                    make_recurrent_chunk_prefill,
+                                    make_slot_prefill, pad_to_bucket,
+                                    pow2_chunks)
 from repro_torch.serve.step import prefill_buckets as auto_prefill_buckets
 
 __all__ = ["PrefillOutcome", "CacheAdapter", "PagedKVAdapter",
-           "WindowRingAdapter", "make_adapter", "resolve_buckets"]
+           "WindowRingAdapter", "RecurrentStateAdapter", "make_adapter",
+           "resolve_buckets"]
 
 
 def resolve_buckets(spec, max_seq: int, model=None):
@@ -389,6 +402,96 @@ class WindowRingAdapter(CacheAdapter):
         self.caches = self._reset_slot(self.caches, slot_index)
 
 
+class RecurrentStateAdapter(CacheAdapter):
+    """Carried-state families (SSM, hybrid, encoder-decoder) in the
+    continuous batcher.
+
+    Prefill never right-pads: the prompt is decomposed into power-of-two
+    chunks (largest first — its binary representation) and fed left to
+    right through ``model.prefill``, the state carried between chunks in a
+    batch-1 tree that starts each prefill as a copy of a freshly
+    initialised template. The finished state is scattered wholesale into
+    the slot's row of the shared batch tree — which doubles as the reset:
+    every leaf row is overwritten, so no state of a prior occupant
+    survives. Signatures are bounded by the distinct chunk sizes
+    (<= log2(max_seq), plus the frames variant for audio's first chunk),
+    never by the request count; one host sync a prefill, the first token.
+
+    Decode reuses the ordinary fused step: the recurrent models take the
+    whole state tree and a [B] position vector (the position-free families
+    ignore it), and every update is per row. Free rows keep whatever state
+    their decode writes produce; the next occupant's prefill overwrites
+    every leaf row before any read.
+    """
+
+    kind = "recurrent"
+
+    def __init__(self, model, params, **kw):
+        super().__init__(model, params, **kw)
+        assert not self.buckets, "recurrent prefill cannot right-pad"
+        # per-leaf batch axis: recurrent trees mix [L, B, ...] and [B, ...]
+        # leaves — diff two shapes on the meta device to find the batch axis
+        s2 = model.init_cache(2, self.max_seq, device="meta")
+        s3 = model.init_cache(3, self.max_seq, device="meta")
+        self._axes = tree_map(
+            lambda a, b: next(i for i, (x, y) in
+                              enumerate(zip(a.shape, b.shape)) if x != y),
+            s2, s3)
+        self._fresh = None    # batch-1 freshly initialised state template
+        self._work = None     # batch-1 state a prefill's chunks carry
+        self._decode = counting_call(make_decode_step(model), "decode",
+                                     self.trace_stats,
+                                     on_compile=self.on_compile)
+        self._chunk = counting_call(
+            make_recurrent_chunk_prefill(model), "prefill",
+            self.trace_stats, on_compile=self.on_compile)
+        self._scatter = counting_call(
+            lambda caches, sub, slot: scatter_state_slot(
+                caches, sub, slot, self._axes),
+            "state_scatter", self.trace_stats, on_compile=self.on_compile)
+
+    def ensure_ready(self):
+        if self.caches is None:
+            self.caches, self._fresh, self._work = (
+                self.model.init_cache(b, self.max_seq, device=self.device)
+                for b in (self.batch_size, 1, 1))
+
+    def prefill(self, slot_index: int, req: Request) -> PrefillOutcome:
+        prompt = np.asarray(req.prompt, np.int32)
+        tree_map(lambda w, f: w.copy_(f), self._work, self._fresh)
+        frames = (None if req.frames is None
+                  else to_device(np.asarray(req.frames)[None], self.device))
+        offset = 0
+        next_tok = None
+        for size in pow2_chunks(len(prompt)):
+            tokens = to_device(prompt[None, offset:offset + size],
+                               self.device)
+            next_tok, _, _ = self._chunk(
+                self.params, tokens, frames if offset == 0 else None,
+                offset, self._work)
+            offset += size
+        # scatter the finished batch-1 state into the slot's row: claims
+        # AND resets the row in one write (every leaf row is overwritten)
+        self.caches = self._scatter(self.caches, self._work, slot_index)
+        # dalek: allow[host-sync] first sampled token must reach the host to emit/EOS-check
+        first = int(next_tok[0, 0].item())
+        return PrefillOutcome(first, computed_tokens=len(prompt))
+
+    def decode_step(self, tokens, pos):
+        next_tok, _, self.caches = self._decode(
+            self.params, tokens, pos, self.caches)
+        return next_tok
+
+    def free_slot(self, slot_index: int):
+        # scatter the fresh template into the freed row (the prefill
+        # scatter's signature): the next prefill overwrites the row anyway,
+        # but a zeroed row keeps state dumps reproducible whatever the
+        # traffic order
+        if self.caches is not None:
+            self.caches = self._scatter(self.caches, self._fresh,
+                                        slot_index)
+
+
 def make_adapter(model, params, *, batch_size: int, max_seq: int,
                  prefill_buckets="auto", kv_block_size="auto",
                  prefix_cache: bool = True,
@@ -396,9 +499,9 @@ def make_adapter(model, params, *, batch_size: int, max_seq: int,
                  trace_stats: Optional[TraceStats] = None, on_compile=None):
     """Select and build the backend for ``model``'s declared capabilities.
 
-    ``"auto"`` arguments degrade where the family can't honor them (paging
-    off for window rings); explicit requests on an incapable family raise.
-    The recurrent-state backend is a later slice of the port and raises.
+    ``"auto"`` arguments degrade where the family can't honor them
+    (paging and bucketing off for the recurrent families, paging off for
+    window rings); explicit requests on an incapable family raise.
     ``greedy`` changes nothing (``serve.step``'s docstring)."""
     caps = serving_caps(model.cfg)
     buckets = resolve_buckets(prefill_buckets, max_seq, model)
@@ -407,9 +510,7 @@ def make_adapter(model, params, *, batch_size: int, max_seq: int,
                   caps=caps, trace_stats=trace_stats, on_compile=on_compile)
     block_size = resolve_kv_block_size(kv_block_size, max_seq, caps.paged_kv)
     if caps.kind == "recurrent":
-        raise NotImplementedError(
-            "the recurrent-state adapter comes with the recurrent families "
-            "(ROADMAP Queue 1 item 10)")
+        return RecurrentStateAdapter(model, params, **common)
     if block_size:
         return PagedKVAdapter(model, params, block_size=block_size,
                               prefix_cache=prefix_cache,

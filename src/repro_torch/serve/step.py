@@ -194,6 +194,48 @@ def make_paged_slot_prefill(model, bucketed: bool = False):
     return paged_bucketed_slot_prefill
 
 
+def pow2_chunks(n: int) -> List[int]:
+    """Decompose a prompt length into power-of-two chunk sizes, largest
+    first (its binary representation).
+
+    Chunked left-to-right prefill for the recurrent families feeds these
+    through ``model.prefill`` carrying state between chunks: positions stay
+    monotone, every chunk size is a power of two (the chunkwise SSM forms
+    require ``t % min(chunk, t) == 0``), and the number of distinct chunk
+    shapes over any traffic is <= log2(max_seq) — so the signature count
+    stays bounded without ever right-padding carried state.
+    """
+    if n < 1:
+        raise ValueError(f"prompt length must be >= 1, got {n}")
+    return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n & (1 << b)]
+
+
+def make_recurrent_chunk_prefill(model):
+    """One chunk of a left-to-right recurrent prefill.
+
+    ``state`` is the batch-1 carried state tree (fresh on the first chunk),
+    written in place; ``start_pos`` is the chunk's absolute offset —
+    position-free families ignore it, the attention-bearing ones (zamba2's
+    shared attention, whisper's decoder self-attention) offset their KV
+    writes and masks with it. ``frames`` is None except on an audio
+    request's first chunk, where it feeds the encoder and fills the cross
+    cache that later chunks (and decode) reuse; None against a tensor gives
+    the frames variant a signature of its own, counted like any other.
+
+    Returns ``(next_token, logits, state)`` with the next token sampled from
+    the chunk's last position — after the final chunk that is the request's
+    first generated token.
+    """
+    def chunk_prefill(params, tokens, frames, start_pos, state):
+        batch = {"tokens": tokens}
+        if frames is not None:
+            batch["frames"] = frames
+        logits, state = model.prefill(params, batch, state,
+                                      start_pos=start_pos)
+        return _greedy(logits), logits, state
+    return chunk_prefill
+
+
 def make_block_ops(stats: Optional[TraceStats] = None, on_compile=None):
     """Pool maintenance ops: (zero_blocks, copy_block), counted like the
     other steps. ``zero_blocks(pool, blocks)`` scrubs freed blocks (a

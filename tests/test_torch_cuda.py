@@ -712,3 +712,160 @@ def test_moe_layer_on_the_card_matches_the_host(b, s):
     assert torch.equal(got, again)
     err = float((got.cpu() - want).abs().max() / want.abs().max())
     assert err <= 1e-4, err
+
+
+# the recurrent families' attention at full width: head dim 64, MHA (g =
+# 1). whisper-small's encoder (non-causal over 1500 frames, not a multiple
+# of the 64-key tile) and a decoder chunk; zamba2-1.2b's shared attention,
+# a cold 256-token chunk, one at q_offset 256 and a 2-token one
+RECURRENT_FLASH = [
+    (1, 12, 12, 1500, 1500, 64, False, None, 0),
+    (1, 12, 12, 128, 512, 64, True, None, 128),
+    (1, 32, 32, 256, 512, 64, True, None, 0),
+    (1, 32, 32, 64, 512, 64, True, None, 256),
+    (1, 32, 32, 2, 512, 64, True, None, 320),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_recurrent_families_shapes(dtype):
+    """The planned call (wgmma for bf16, ffma for f32) against the plain
+    version at each shape, by max|err| and by the mask margin."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    want_route = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    for (b, h, hkv, s, t, d, causal, window, off) in RECURRENT_FLASH:
+        q = torch.randn(b, h, s, d, device="cuda", generator=g).to(dtype)
+        k = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dtype)
+        v = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dtype)
+        before = dict(ops.route_launches)
+        got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+        assert ops.route_launches[want_route] == before[want_route] + 1
+        want = ref.attention(q, k, v, causal=causal, q_offset=off)
+        err = (got.float() - want.float()).abs().max().item()
+        margin = ref.mask_margin(got, q, k, v, causal=causal, q_offset=off)
+        assert err <= TOL[dtype] and margin <= 0.25, (s, t, causal, off,
+                                                      err, margin)
+
+
+def _f32_layer(spec, seed):
+    """An unstacked layer's f32 weights N(0, 1/fan_in) from ``seed`` (ones
+    and zeros where the spec says), on the host and on the card."""
+    from repro_torch.models import common
+    host = common.layer_of(common.init_tree(
+        spec, torch.Generator().manual_seed(seed), "cpu", torch.float32), 0)
+    return host, common.tree_map(lambda t: t.cuda(), host)
+
+
+def _held(got, want, what):
+    got, want = got.float().cpu(), want.float()
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    assert err <= 1e-4, (what, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "audio"])
+def test_recurrent_layer_on_the_card_matches_the_host(family):
+    """One layer of each recurrent family at its published width in f32 on
+    the card against the host (TF32 off): xlstm-1.3b's mLSTM block (a
+    64-token chunk, then a decode step, state carried) and sLSTM block (16
+    tokens on a carried state); zamba2-1.2b's mamba2 block (the same) and
+    its shared attention (a 64-token chunk into its cache, flash's ffma
+    route); whisper-small cut to one encoder and one decoder layer (a
+    prefill with 1500 frames, then a decode step). Outputs and every state
+    leaf within 1e-4 of max|host|."""
+    _need_cuda()
+    from repro_torch.models import common, mamba2, whisper, xlstm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(7)
+    cuda = lambda tree: common.tree_map(lambda t: t.cuda(), tree)  # noqa
+    if family == "ssm":
+        cfg = configs.get("xlstm-1.3b").replace(dtype="float32")
+        m = xlstm.XLSTM(cfg)
+        st = common.tree_map(lambda t: t[:1].clone(),
+                             m.init_cache(1, 8, device="cpu")["mlstm"])
+        host, card = _f32_layer(xlstm.mlstm_shapes(cfg, 1), 0)
+        sts = {"host": st, "card": cuda(st)}
+        for t in (64, 1):
+            x = torch.randn(1, t, cfg.d_model, generator=g)
+            y_h = xlstm.mlstm_block(x, host, cfg, tuple(s[0] for s in
+                                                         sts["host"]))
+            y_c = xlstm.mlstm_block(x.cuda(), card, cfg,
+                                    tuple(s[0] for s in sts["card"]))
+            _held(y_c, y_h, f"mLSTM y (T {t})")
+            for a, b in zip(sts["card"], sts["host"]):
+                _held(a, b, f"mLSTM state (T {t})")
+        slstm = common.init_tree(xlstm.slstm_shapes(cfg),
+                                 torch.Generator().manual_seed(1), "cpu",
+                                 torch.float32)
+        st = tuple(0.1 * torch.randn(1, cfg.num_heads, cfg.d_model
+                                     // cfg.num_heads, generator=g)
+                   for _ in range(4))
+        st_c = cuda(st)
+        x = torch.randn(1, 16, cfg.d_model, generator=g)
+        _held(xlstm.slstm_block(x.cuda(), cuda(slstm), cfg, st_c),
+              xlstm.slstm_block(x, slstm, cfg, st), "sLSTM y")
+        for a, b in zip(st_c, st):
+            _held(a, b, "sLSTM state")
+    elif family == "hybrid":
+        cfg = configs.get("zamba2-1.2b").replace(dtype="float32")
+        m = mamba2.Zamba2(cfg)
+        st = common.tree_map(lambda t: t[:1].clone(),
+                             m.init_cache(1, 8, device="cpu")["mamba"])
+        host, card = _f32_layer(mamba2.mamba_shapes(cfg, 1), 0)
+        sts = {"host": st, "card": cuda(st)}
+        for t in (64, 1):
+            x = torch.randn(1, t, cfg.d_model, generator=g)
+            y_h = mamba2.mamba_block(x, host, cfg, tuple(s[0] for s in
+                                                          sts["host"]))
+            y_c = mamba2.mamba_block(x.cuda(), card, cfg,
+                                     tuple(s[0] for s in sts["card"]))
+            _held(y_c, y_h, f"mamba2 y (T {t})")
+            for a, b in zip(sts["card"], sts["host"]):
+                _held(a, b, f"mamba2 state (T {t})")
+        shared = common.init_tree(mamba2.param_shapes(cfg)["shared_attn"],
+                                  torch.Generator().manual_seed(2), "cpu",
+                                  torch.float32)
+        cache = m.init_cache(1, 128, torch.float32, device="cpu")["attn_0"]
+        cache_c = cuda(cache)
+        x = torch.randn(1, 64, cfg.d_model, generator=g)
+        pos = torch.arange(64) + 32
+        _held(m._shared_attn(x.cuda(), cuda(shared), pos.cuda(), cache_c,
+                             32),
+              m._shared_attn(x, shared, pos, cache, 32), "shared attention")
+        for a, b in zip(cache_c, cache):
+            _held(a, b, "shared attention KV")
+    else:
+        cfg = configs.get("whisper-small").replace(
+            dtype="float32", num_layers=1, enc_layers=1)
+        m = whisper.Whisper(cfg)
+        host = m.init(torch.Generator().manual_seed(3), "cpu")
+        card = cuda(host)
+        frames = torch.randn(1, cfg.enc_seq, cfg.d_model, generator=g)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 8), generator=g)
+        caches = {"host": m.init_cache(1, 64, torch.float32, device="cpu")}
+        caches["card"] = cuda(caches["host"])
+        l_h, _ = m.prefill(host, {"tokens": tokens, "frames": frames},
+                           caches["host"], start_pos=0)
+        l_c, _ = m.prefill(card, {"tokens": tokens.cuda(),
+                                  "frames": frames.cuda()},
+                           caches["card"], start_pos=0)
+        _held(l_c, l_h, "whisper prefill logits")
+        tok = l_h.argmax(-1)
+        pos = torch.tensor([8])
+        d_h, _ = m.decode_step(host, tok, pos, caches["host"])
+        d_c, _ = m.decode_step(card, tok.cuda(), pos.cuda(), caches["card"])
+        _held(d_c, d_h, "whisper decode logits")
+        for a, b in zip(_tree_leaves(caches["card"]),
+                        _tree_leaves(caches["host"])):
+            _held(a, b, "whisper caches")
+
+
+def _tree_leaves(tree):
+    """The tensors of a dict/tuple tree, in order."""
+    out = []
+    from repro_torch.models import common
+    common.tree_map(out.append, tree)
+    return out

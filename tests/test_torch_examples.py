@@ -12,7 +12,8 @@ from repro_torch.benchmarks import bench_checkpoint_io
 from repro_torch.benchmarks import run as bench_run
 from repro_torch.cluster.fault import (ElasticTrainOrchestrator,
                                        FailureInjector, HeartbeatMonitor)
-from repro_torch.examples import (elastic_cluster, energy_aware_training,
+from repro_torch.examples import (continuous_serving, elastic_cluster,
+                                  energy_aware_training,
                                   fault_tolerant_training, quickstart)
 
 REF_EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
@@ -35,11 +36,24 @@ def test_quickstart_trains_and_serves_on_the_host():
     assert [len(r.output) for r in reqs] == [8, 8, 8]
 
 
-def test_energy_aware_training_partitions_its_joules():
+def test_energy_aware_training_partitions_its_joules(monkeypatch):
+    # it trains zamba2-1.2b's smoke model, as the reference's example does
+    built = []
+    build = energy_aware_training.build_model
+    monkeypatch.setattr(energy_aware_training, "build_model",
+                        lambda cfg: built.append(cfg.name) or build(cfg))
     summary = energy_aware_training.main(["--device", "cpu"])
+    assert built == ["zamba2-1.2b-smoke"]
     assert summary["tokens"] == 8 * 2 * 64
     assert abs(sum(summary["energy_by_tag"].values())
                - summary["energy_j"]) <= 1e-6
+
+
+def test_continuous_serving_attributes_every_request():
+    stats, engine = continuous_serving.main(["--device", "cpu"])
+    assert stats["completed"] == 10 and stats["shed"] == 0
+    assert engine.admission.max_slots(4) == 4
+    assert all(r.energy_j > 0 for r in engine.finished)
 
 
 def test_fault_tolerant_training_restarts_and_finishes():
@@ -102,7 +116,8 @@ def test_checkpoint_io_bench_on_the_host(capsys):
 
 def test_examples_without_device_raise_on_a_host_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for ex in (quickstart, energy_aware_training, fault_tolerant_training):
+    for ex in (quickstart, energy_aware_training, fault_tolerant_training,
+               continuous_serving):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ex.main([])
 
