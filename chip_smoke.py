@@ -148,6 +148,19 @@ Phases, each of which must pass (any failure exits non-zero):
               the loop and read just after: one compile, one sync a step,
               the joules partitioned by tag, 4 x 2 x 6 x 2 flash launches
               all on wgmma. Then a profiled step.
+11b. parallel — the port's parallel layer at one NCCL rank (a one-rank
+              process group on a file:// store under build/,
+              make_host_mesh(1, 1, 1, "cuda")): the train phase's
+              configuration for 3 steps unsharded and, rebuilt from the
+              seed, through ShardedTrainStep (losses, grad norms and every
+              parameter's f64 sum and bit hash equal; the sharded run's
+              flash launches zeroed before and read after: 4 x 2 x 3 x 2,
+              all wgmma; one host sync a step); deepseek-moe-16b's MoE
+              layer at full width in f32 through expert parallelism
+              against the grouped path on that mesh (routing equal, y
+              within 1e-5 of max|y|); compress_grads_over_pod on a full
+              granite-20b layer's gradients twice (error feedback), card
+              against host bitwise, timed by events.
 12. timing  — each kernel held against its plain version and timed beside
               it, a PyTorch library call computing the same function, and
               its bound on the card: flash at the serve phase's prefill
@@ -2175,6 +2188,242 @@ def phase_train(card):
                                      c["seq"], cfg.head_dim))
 
 
+# the parallel phase: the train phase's configuration for 3 steps through
+# the sharded step at one NCCL rank (bitwise equal to the unsharded step);
+# deepseek-moe-16b's MoE layer in f32 at 4 x 256 tokens through expert
+# parallelism; the compressed pod reduction over one granite-20b layer's
+# gradients, twice (error feedback), timed over 5 calls
+PARALLEL = dict(steps=3, moe_x=(4, 256), moe_seed=0, moe_rel_tol=1e-5,
+                compress_iters=5)
+
+
+def _checksums(tree):
+    """Per leaf: the f64 sum and a bit-level hash (each element's 32 bits
+    as an integer, weighted by its index mod 65521 plus 1, summed in
+    int64), in chunks, so two states compare bit for bit by their
+    readings alone."""
+    import torch
+    out = {}
+    for name, t in _named(tree):
+        flat = t.detach().reshape(-1)
+        h = torch.zeros((), dtype=torch.int64, device=t.device)
+        for lo in range(0, flat.numel(), 1 << 26):
+            c = flat[lo:lo + (1 << 26)]
+            w = (torch.arange(lo, lo + c.numel(), device=t.device)
+                 % 65521 + 1)
+            h += (c.view(torch.int32).to(torch.int64) * w).sum()
+        out[name] = (flat.double().sum().item(), h.item())
+    return out
+
+
+def parallel_train(mesh, sharded):
+    """The train phase's model from its seed through ``PARALLEL["steps"]``
+    steps of train.loop.run, unsharded or through ShardedTrainStep on the
+    one-rank mesh; (history, per-leaf checksums of the parameters, flash
+    counts, host syncs, the last step's layer-0 gradients)."""
+    import torch
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
+                                           batch_to_device)
+    from repro_torch.models import build_model, common
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             tree_map)
+    from repro_torch.train.step import (ShardedTrainStep, StepConfig,
+                                        TrainState, make_grad_fn,
+                                        make_train_step)
+    c, steps = TRAIN, PARALLEL["steps"]
+    cfg, model, params = make_model(c["arch"], c["seed"], c["layers"],
+                                    dtype=torch.float32)
+    state = TrainState(params, init_opt_state(params))
+    del params
+    opt_cfg = OptConfig(lr=c["lr"], warmup_steps=min(20, c["steps"] // 5),
+                        total_steps=c["steps"])
+    step_cfg = StepConfig(num_microbatches=c["micro"])
+    layout = None
+    if sharded:
+        model = build_model(cfg, mesh)
+        layout = ShardedTrainStep(model, opt_cfg, step_cfg, mesh)
+        state = layout.layout(state)
+        step = layout
+    else:
+        step = make_train_step(model, opt_cfg, step_cfg)
+    data = SyntheticTokens(DataConfig(seed=c["seed"],
+                                      vocab_size=cfg.vocab_size,
+                                      seq_len=c["seq"],
+                                      global_batch=c["batch"]), cfg)
+    loop_cfg = loop_mod.LoopConfig(total_steps=steps, ckpt_every=steps + 1)
+    (state, history, _), wall, n_syncs, counts = counted_path(
+        lambda: loop_mod.run(step, state, data, loop_cfg, device="cuda",
+                             layout=layout))
+    sums = _checksums(state.params)
+    grads = None
+    if sharded:
+        # a gradient tree at full width for the compression check: the
+        # next step's gradients of layer 0
+        batch = batch_to_device(data.batch(steps), "cuda")
+        _, g = make_grad_fn(model, step_cfg)(state.params, batch)
+        grads = tree_map(torch.Tensor.clone, common.layer_of(g["layers"], 0))
+        del g
+    del state, model, step, layout
+    free_card()
+    log(f"[parallel] {'sharded' if sharded else 'unsharded'} step, "
+        f"{steps} steps in {wall:.2f} s: " + "; ".join(
+            f"step {r['step']} loss {r['loss']!r} grad norm "
+            f"{r['grad_norm']!r} wall {r['wall_s'] * 1e3:.1f} ms"
+            for r in history) + f"; host syncs {n_syncs}; flash {counts}")
+    return history, sums, counts, n_syncs, grads
+
+
+def phase_parallel(card):
+    """The port's parallel layer on the card at one NCCL rank (the
+    process group on a file:// store under build/, a mixed cuda:nccl /
+    cpu:gloo backend so the host side of (c) runs too), with
+    make_host_mesh(1, 1, 1, "cuda"):
+
+    (a) the train phase's configuration (granite-20b at full width, 4 of
+        52 layers, batch 8 x 512 in 2 microbatches, seed 0) for 3 steps,
+        unsharded and then rebuilt from the seed through ShardedTrainStep:
+        losses, grad norms and every parameter's checksums equal bit for
+        bit (one rank: every collective is the identity), the sharded
+        run's flash launches counted (zeroed just before, read just after:
+        layers x microbatches x steps x 2, all wgmma);
+    (b) deepseek-moe-16b's MoE layer at full width in f32 (weights and x
+        [4, 256, 2048] from a seed) through moe_apply_shard_map and
+        moe_apply on the same mesh: the two paths' groupings route alike
+        (ids, slots, keep equal) and y within 1e-5 of max|y|;
+    (c) compress_grads_over_pod on layer 0's gradients from (a)'s
+        sharded state, twice (error feedback), on the card and on the
+        host: outputs and error states equal bit for bit; timed with
+        events (GB/s of f32 gradient reduced) beside compression_ratio.
+    """
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common, moe
+    from repro_torch.parallel import compress
+    from repro_torch.parallel.sharding import Sharder
+    from repro_torch.train.optimizer import tree_map
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "parallel_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    mesh = make_host_mesh(1, 1, 1, "cuda")
+    c = TRAIN
+
+    # (a) the sharded train step against the unsharded one
+    plain, plain_sums, _, _, _ = parallel_train(mesh, sharded=False)
+    shard, shard_sums, counts, n_syncs, grads = parallel_train(
+        mesh, sharded=True)
+    n_flash, routes, windowed = counts
+    want_flash = c["layers"] * c["micro"] * PARALLEL["steps"] * 2
+    differ = [n for n in plain_sums if plain_sums[n] != shard_sums[n]]
+    walls = [(a["wall_s"], b["wall_s"]) for a, b in zip(plain, shard)]
+    log(f"[parallel] train: step walls unsharded / sharded (ms): "
+        + ", ".join(f"{a * 1e3:.1f} / {b * 1e3:.1f}" for a, b in walls)
+        + f"; leaves whose checksums differ: {differ}; card: {card}")
+    check_all("parallel", {
+        "sharded losses equal the unsharded ones bitwise": [
+            r["loss"] for r in plain] == [r["loss"] for r in shard],
+        "sharded grad norms equal the unsharded ones bitwise": [
+            r["grad_norm"] for r in plain] == [r["grad_norm"] for r in shard],
+        "every parameter's f64 sum and bit hash equal": not differ,
+        "sharded flash launches == layers x microbatches x steps x 2, all "
+        "wgmma": (n_flash == want_flash and routes == {
+            "wgmma": n_flash, "ffma": 0} and windowed == 0),
+        "host syncs == steps": n_syncs == PARALLEL["steps"],
+    })
+
+    # (b) expert parallelism against the grouped path on the same mesh
+    mcfg = configs.get("deepseek-moe-16b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PARALLEL["moe_seed"])
+    p = common.layer_of(common.init_tree(moe.moe_param_shapes(mcfg, 1), gen,
+                                         "cuda", torch.float32), 0)
+    b, s = PARALLEL["moe_x"]
+    x = torch.randn(b, s, mcfg.d_model, generator=gen, device="cuda")
+    shd = Sharder(mesh)
+    groups = moe._n_groups(b, shd, 0)
+    tg = b * s // groups
+    t_rank = b * s // mesh.shape[2]
+    routed = {}
+    for name, xs, cap in (
+            ("grouped", x.reshape(groups, tg, -1), moe.capacity_for(mcfg, tg)),
+            ("expert-parallel", x.reshape(1, t_rank, -1),
+             moe.capacity_for(mcfg, t_rank))):
+        logits = xs @ p["router"]
+        _, ids = moe.top_k(torch.softmax(logits, dim=-1),
+                           mcfg.experts_per_token)
+        _, (slot, _, _), _, keep, _ = moe.route(xs, logits, mcfg, cap)
+        routed[name] = (ids.reshape(-1).cpu(), slot.reshape(-1).cpu(),
+                        keep.reshape(-1).cpu(), cap)
+    ms = {}
+    out = {}
+    for name, impl in (("grouped", "gspmd"), ("expert-parallel",
+                                              "shard_map")):
+        fn = (lambda impl=impl: moe.moe_apply(x, p, mcfg, shd, impl=impl))
+        out[name] = fn()
+        ms[name] = cuda_timed(fn, iters=5, warmup=1)
+    (yg, auxg), (ye, auxe) = out["grouped"], out["expert-parallel"]
+    rel = ((ye - yg).abs().max() / yg.abs().max()).item()
+    same = all(torch.equal(u, v) for u, v in zip(routed["grouped"][:3],
+                                                  routed["expert-parallel"][:3]))
+    n_drop = int((~routed["grouped"][2]).sum())
+    log(f"[parallel] moe: {mcfg.name} MoE layer f32, x [{b},{s},"
+        f"{mcfg.d_model}]: grouped {groups} group(s) of {tg} tokens, "
+        f"capacity {routed['grouped'][3]}; expert-parallel {t_rank} tokens "
+        f"a rank, capacity {routed['expert-parallel'][3]}; {n_drop} of "
+        f"{routed['grouped'][2].numel()} choices dropped; ids, slots, keep "
+        f"equal {same}; max|y_ep - y| {rel:.3e} of max|y|; aux "
+        f"{auxg.item()!r} / {auxe.item()!r}; ms grouped "
+        f"{ms['grouped']:.3f}, expert-parallel {ms['expert-parallel']:.3f}")
+    check_all("parallel", {
+        "EP routing (ids, slots, keep) equals the grouped path's": same,
+        f"EP y within {PARALLEL['moe_rel_tol']:g} of max|y|": (
+            rel <= PARALLEL["moe_rel_tol"] and bool(torch.isfinite(ye).all())),
+    })
+    del p, x, out, yg, ye
+
+    # (c) the compressed pod reduction, on the card and on the host
+    n = sum(g.numel() for g in _leaves(grads))
+    host_grads = tree_map(torch.Tensor.cpu, grads)
+    sides = {}
+    for side, g in (("card", grads), ("host", host_grads)):
+        red1, err1 = compress.compress_grads_over_pod(g, mesh)
+        red2, err2 = compress.compress_grads_over_pod(g, mesh, err1)
+        sides[side] = [dict(_named(tree_map(torch.Tensor.cpu, t)))
+                       for t in (red1, err1, red2, err2)]
+        del red1, err1, red2, err2
+    bitwise = all(torch.equal(sides["card"][i][k], sides["host"][i][k])
+                  for i in range(4) for k in sides["host"][i])
+    err_ms = cuda_timed(lambda: compress.compress_grads_over_pod(grads, mesh),
+                        iters=PARALLEL["compress_iters"], warmup=1)
+    gbs = n * 4 / (err_ms / 1e3) / 1e9
+    ratio = compress.compression_ratio(n)
+    log(f"[parallel] compress: granite-20b layer 0's gradients, {n} f32 "
+        f"elements ({n * 4 / 1e9:.3f} GB) in {len(sides['host'][0])} "
+        f"leaves: card and "
+        f"host outputs and error states (two calls) equal bitwise "
+        f"{bitwise}; compress_grads_over_pod {err_ms:.3f} ms a call by "
+        f"events ({gbs:.1f} GB/s of f32 gradient); compression_ratio "
+        f"{ratio:.4f}; card: {card}")
+    check_all("parallel", {
+        "compressed reduction: card equals host bitwise": bitwise,
+    })
+    del grads, host_grads, sides
+    dist.destroy_process_group()
+    free_card()
+    wall = time.perf_counter() - t_phase
+    log(f"[parallel] phase in {wall:.1f} s")
+    return dict(compress_ms=err_ms, compress_gbs=gbs, ratio=ratio,
+                moe_ms=ms, walls=walls, seconds=wall)
+
+
 def _profiled(fn, n=3):
     """(host ms per call, device-busy ms per call, kernels per call,
     {kernel name: device ms per call}) of ``fn`` on the card: host time
@@ -2937,6 +3186,7 @@ def main() -> int:
     free_card()
     train = phase_train(card)
     free_card()
+    phase_parallel(card)
     flash_rows = phase_timing(cfg, shapes)
     window_rows = timing_window(wcfg)
     train_row = time_flash(*train["shape"][:3], train["shape"][3],

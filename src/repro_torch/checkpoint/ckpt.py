@@ -164,12 +164,17 @@ def gc_partial(directory):
 
 
 def restore(tree_like, directory, step: Optional[int] = None,
-            device=None) -> Tuple[Any, Dict]:
+            device=None, shardings=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``tree_like``.
 
     Each leaf comes back as a tensor of the manifest's dtype and shape, on
     ``device``, or where ``device`` is None on the device of the matching
-    leaf of ``tree_like`` (the host for a leaf that is not a tensor)."""
+    leaf of ``tree_like`` (the host for a leaf that is not a tensor).
+
+    shardings: optional matching tree of ``NamedSharding``
+    (``repro_torch.train.step.shardings``): each leaf comes back as this
+    rank's block of the full leaf (every rank reads the full leaf; a
+    multi-host deployment would read its blocks)."""
     directory = pathlib.Path(directory)
     steps = valid_steps(directory)
     if not steps:
@@ -178,6 +183,8 @@ def restore(tree_like, directory, step: Optional[int] = None,
     d = directory / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     out_leaves = []
+    shard_flat = (None if shardings is None
+                  else iter([sh for _, sh in _flatten(shardings)]))
     for key, like in _flatten(tree_like):
         meta = manifest["leaves"][key]
         dtype = _DTYPES[meta["dtype"]]
@@ -187,6 +194,8 @@ def restore(tree_like, directory, step: Optional[int] = None,
         if dtype == torch.bfloat16:
             t = t.view(torch.bfloat16)
         t = t.reshape(meta["shape"])
+        if shard_flat is not None:
+            t = next(shard_flat).block(t)
         dev = device if device is not None else (
             like.device if isinstance(like, torch.Tensor) else "cpu")
         out_leaves.append(t.to(dev))

@@ -69,11 +69,31 @@ def dalek_topology() -> Topology:
     return topo
 
 
+def gpu_topology(n_pods: int = 2, gpus_per_pod: int = 256,
+                 gpus_per_node: int = 8) -> Topology:
+    """A deployment of H100 hosts (the reference's ``tpu_topology``):
+    ``gpus_per_node`` GPUs a host on NVLink, the hosts of a pod on the
+    network, each host's uplink its GPUs' ports."""
+    topo = Topology()
+    part = hw.gpu_pod_partition(n_gpus=gpus_per_pod,
+                                gpus_per_node=gpus_per_node)
+    for p in range(n_pods):
+        pname = f"pod{p}"
+        for h in range(part.n_nodes):
+            node = Node(f"{pname}-host{h}", pname, part.node,
+                        f"10.{p}.{h // 256}.{h % 256}", h)
+            topo.add_node(node, part.node.net_gbps)
+    return topo
+
+
 def validate_addressing(topo: Topology) -> bool:
-    """Paper List. 1: /27 blocks per partition inside one /24."""
+    """Paper List. 1: /27 blocks per partition inside one /24 (pods of a
+    GPU deployment have their own /16 and are not checked)."""
     for pname, names in topo.partitions.items():
         ips = sorted(int(ipaddress.ip_address(topo.nodes[n].ip))
                      for n in names)
+        if "pod" in pname:
+            continue
         block = ips[0] >> 5
         if any((ip >> 5) != block for ip in ips):
             return False

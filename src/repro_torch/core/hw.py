@@ -5,7 +5,9 @@ The paper's core idea — *manage heterogeneous compute with first-class energy
 accounting* — needs a device model: peak compute, memory bandwidth, link
 bandwidth, TDP, idle and suspend power. The registry carries the paper's four
 consumer-grade partitions verbatim (used by the fidelity tests that reproduce
-Tab. 2 totals) and the NVIDIA H100 SXM the port runs on.
+Tab. 2 totals), the NVIDIA H100 SXM the port runs on, and a deployment
+of hosts of eight of them (``gpu_pod_partition``: NVLink inside a host,
+the network across hosts).
 """
 from __future__ import annotations
 
@@ -93,6 +95,16 @@ H100_SXM = DeviceSpec("H100 SXM", "nvidia", "gpu", 989e12, "bf16",
                       3.35e12, 80, 700, 73.64, 1.98, 0.345)
 
 
+# A host of eight H100 SXMs: the counterpart of the reference's TPU v5e pod
+# (TPU_V5E, TPU_V5E_ICI_BW, TPU_V5E_DCN_BW). The GPUs of a host talk over
+# NVLink, hosts over the network, whose per-GPU share is what the ``pod``
+# axis's reduction crosses. Data-sheet values, none measured: NVLink 4 per
+# GPU (NVIDIA H100 data sheet), and across hosts one 400 Gb/s ConnectX-7
+# port a GPU (NVIDIA DGX H100 data sheet).
+H100_NVLINK_BW = 900e9     # B/s per GPU
+H100_NET_BW = 50e9         # B/s per GPU across hosts
+
+
 def _dalek_node(name, cpu, gpu, ram, idle, susp, tdp, net=2.5):
     devs = (cpu,) + ((gpu,) if gpu else ())
     return NodeSpec(name, devs, ram, idle, susp, tdp, net_gbps=net)
@@ -121,6 +133,20 @@ RPI_IDLE_W, RPI_TDP_W, N_RPI = 3.0, 9.0, 4
 
 # paper Tab. 2 "Total" row for fidelity checks
 PAPER_TOTALS = {"idle_w": 727.0, "suspend_w": 112.0, "tdp_w": 5427.0}
+
+
+def gpu_pod_partition(name="h100-pod", n_gpus=256, gpus_per_node=8):
+    """Hosts of ``gpus_per_node`` H100 SXMs (the reference's
+    ``tpu_pod_partition``). From the NVIDIA DGX H100 data sheet: 2 TB of
+    host memory, 10.2 kW maximum, eight 400 Gb/s network ports. Not on a
+    data sheet, so allowances: idle is the GPUs' idle power (H100_SXM)
+    plus 150 W for the host (the reference's allowance for its TPU host),
+    suspend 0 W (a powered-off host), boot 300 s."""
+    node = NodeSpec(
+        f"{name}-host", (H100_SXM,) * gpus_per_node, ram_gb=2048,
+        idle_w=gpus_per_node * H100_SXM.idle_w + 150, suspend_w=0.0,
+        tdp_w=10_200.0, boot_s=300.0, net_gbps=gpus_per_node * 400.0)
+    return PartitionSpec_(name, node, n_gpus // gpus_per_node)
 
 
 def cluster_idle_w(mode: str = "off") -> float:

@@ -1,3 +1,3 @@
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import abstract_params, build_model
 
-__all__ = ["build_model"]
+__all__ = ["abstract_params", "build_model"]

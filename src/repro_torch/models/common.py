@@ -431,6 +431,33 @@ def mlp_shapes(d_model: int, d_ff: int, pre: tuple = ()):
             "w_down": (pre + (d_ff, d_model), d_ff)}
 
 
+# the logical axes of each leaf (``repro_torch.parallel.sharding``), tree
+# for tree beside the shapes above; ``pre`` is ``("layers",)`` for a stack
+
+
+def embed_axes():
+    return {"embedding": ("vocab", "embed"),
+            "unembed": ("embed", "vocab"),
+            "final_norm": ("norm",)}
+
+
+def attn_axes(cfg: ModelConfig, pre: tuple = ()):
+    return {
+        "wq": pre + ("embed", "heads", "head_dim"),
+        "wk": pre + ("embed", "kv_heads", "head_dim"),
+        "wv": pre + ("embed", "kv_heads", "head_dim"),
+        "wo": pre + ("heads", "head_dim", "embed"),
+        **({"q_norm": pre + ("norm",), "k_norm": pre + ("norm",)}
+           if cfg.qk_norm else {}),
+    }
+
+
+def mlp_axes(pre: tuple = (), hidden: str = "mlp"):
+    return {"w_gate": pre + ("embed", hidden),
+            "w_up": pre + ("embed", hidden),
+            "w_down": pre + (hidden, "embed")}
+
+
 def layer_of(v, i):
     """Layer ``i``'s slice of a stacked ``[L, ...]`` parameter tree."""
     if isinstance(v, dict):

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models.xlstm import CHUNK, _causal_conv
+from repro_torch.parallel.sharding import Sharder
 
 
 def mamba_shapes(cfg: ModelConfig, L: int) -> Dict:
@@ -154,13 +155,34 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return tree
 
 
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``param_shapes``' leaves, tree for tree."""
+    pax = ("layers",)
+    tree = common.embed_axes()
+    tree["mamba"] = {
+        "norm": pax + ("norm",),
+        "w_in": pax + ("embed", "ssm_inner"),
+        "conv": pax + ("conv_width", "ssm_inner"),
+        "a_log": pax + (None,),
+        "d_skip": pax + (None,),
+        "dt_bias": pax + (None,),
+        "out_norm": pax + ("ssm_inner",),
+        "w_out": pax + ("ssm_inner", "embed"),
+    }
+    tree["shared_attn"] = {"norm1": ("norm",), "norm2": ("norm",),
+                           "attn": common.attn_axes(cfg),
+                           "mlp": common.mlp_axes()}
+    return tree
+
+
 class Zamba2:
     """A Mamba2 stack with one shared attention + MLP block every
     ``attn_every`` layers."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None, *, shd_rules=None):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        self.shd = Sharder(mesh, rules=shd_rules)
         every = cfg.attn_every or (cfg.num_layers + 1)
         self.attn_sites = [i for i in range(cfg.num_layers)
                            if (i + 1) % every == 0]
@@ -179,6 +201,9 @@ class Zamba2:
         return common.init_tree(param_shapes(self.cfg), generator,
                                 resolve_device(device),
                                 self.dtype if dtype is None else dtype)
+
+    def param_axes(self) -> Dict:
+        return param_axes(self.cfg)
 
     def _shared_attn(self, x, p, positions, cache, cache_pos):
         h, _ = common.attention(common.rms_norm(x, p["norm1"]), p["attn"],
@@ -218,6 +243,15 @@ class Zamba2:
         positions = torch.arange(x.shape[1], device=x.device)
         x = self._stack(x, params, None, positions=positions)
         return common.unembed(x, params), 0.0
+
+    def cache_axes(self):
+        """The logical axes of ``init_cache``'s leaves."""
+        st = {"mamba": (("layers", "batch", "act_heads", None, None),
+                        ("layers", "batch", None, "ssm_inner"))}
+        for i in range(len(self.attn_sites)):
+            ax = ("batch", "kv_seq", "act_kv_heads", None)
+            st[f"attn_{i}"] = (ax, ax)
+        return st
 
     def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
                    device: DeviceLike = None):

@@ -3,8 +3,11 @@
 Shared experts (always-on, fused into one dense SwiGLU) plus routed experts
 with top-k routing, a fixed capacity and token dropping, as the reference's
 ``_moe_apply_gspmd``: tokens are split into ``groups`` row blocks
-(``gcd(B, 32)`` on one device), each block routes on its own, and the
-expert products are batched matmuls over all experts.
+(``gcd(B, 32)`` without a mesh; one per batch shard with one), each block
+routes on its own, and the expert products are batched matmuls over all
+experts. ``moe_apply_shard_map`` is the reference's expert parallelism:
+each ``model`` rank runs its own experts, and the dispatch buffers move by
+all-to-all.
 
 Three places where the port must take care to give the reference's
 integers, not only its floats:
@@ -37,6 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import mesh_shape
 
 #: one routing group per batch shard; on one device the reference's
 #: default (``n_shards`` 32) gives ``gcd(B, 32)`` groups
@@ -58,6 +63,20 @@ def moe_param_shapes(cfg: ModelConfig, L: int) -> Dict:
         fs = cfg.num_shared_experts * f
         tree["shared"] = {"w_gate": ((L, d, fs), d), "w_up": ((L, d, fs), d),
                           "w_down": ((L, fs, d), fs)}
+    return tree
+
+
+def moe_param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``moe_param_shapes``' stacked leaves."""
+    pax = ("layers",)
+    tree = {
+        "router": pax + ("embed", "experts"),
+        "w_gate": pax + ("experts", "embed", "expert_mlp"),
+        "w_up": pax + ("experts", "embed", "expert_mlp"),
+        "w_down": pax + ("experts", "expert_mlp", "embed"),
+    }
+    if cfg.num_shared_experts:
+        tree["shared"] = common.mlp_axes(pax)
     return tree
 
 
@@ -144,26 +163,112 @@ def combine(expert_out, routing, weights, keep, t: int, k: int):
         g, t, k, d).sum(dim=2)
 
 
-def moe_apply(x, p, cfg: ModelConfig):
-    """x [B, S, D] -> (y [B, S, D], mean aux), routed in ``gcd(B, 32)``
-    groups, as the reference on one device."""
+def _experts(dispatch, wg, wu, wd, lead="g"):
+    """The SwiGLU experts over a dispatch buffer [G, E, C, D] (``lead``
+    "g") or [E, C, D] (``lead`` "") and weights [E, D, F], [E, D, F],
+    [E, F, D]."""
+    h = F.silu(torch.einsum(f"{lead}ecd,edf->{lead}ecf", dispatch, wg))
+    h = h * torch.einsum(f"{lead}ecd,edf->{lead}ecf", dispatch, wu)
+    return torch.einsum(f"{lead}ecf,efd->{lead}ecd", h, wd)
+
+
+def _n_groups(b: int, shd, groups: int) -> int:
+    """Routing groups for ``b`` rows: ``groups`` if given, else one per
+    batch shard of the mesh (``gcd(B, 32)`` without one). On a DeviceMesh
+    ``b`` is the rank's rows, and the rank routes its share of the global
+    batch's groups."""
+    if shd is None or shd.mesh is None:
+        return groups if groups > 0 else n_groups(b)
+    sizes = mesh_shape(shd.mesh)
+    n_shards = math.prod(sizes[a] for a in shd.batch_axes(b))
+    if not shd.local:
+        return groups if groups > 0 else math.gcd(b, n_shards)
+    total = groups if groups > 0 else math.gcd(b * n_shards, n_shards)
+    if total % n_shards:
+        raise ValueError(f"{total} routing groups over {n_shards} batch "
+                         "shards")
+    return total // n_shards
+
+
+def moe_apply(x, p, cfg: ModelConfig, shd=None, groups: int = 0,
+              impl: str = "gspmd"):
+    """x [B, S, D] -> (y [B, S, D], mean aux). ``impl="shard_map"`` on a
+    DeviceMesh runs expert parallelism (:func:`moe_apply_shard_map`);
+    otherwise the tokens route in groups (:func:`_n_groups`) and the
+    expert products run over all experts."""
+    if impl == "shard_map" and shd is not None and shd.local:
+        return moe_apply_shard_map(x, p, cfg, shd)
     b, s, d = x.shape
     k = cfg.experts_per_token
-    groups = n_groups(b)
+    groups = _n_groups(b, shd, groups)
     tg = b * s // groups
     capacity = capacity_for(cfg, tg)
 
     xf = x.reshape(groups, tg, d)
     logits = xf @ p["router"].to(x.dtype)                       # [G, T, E]
     dispatch, routing, weights, keep, aux = route(xf, logits, cfg, capacity)
-
-    wg, wu, wd = (p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
-                  p["w_down"].to(x.dtype))
-    h = F.silu(torch.einsum("gecd,edf->gecf", dispatch, wg))
-    h = h * torch.einsum("gecd,edf->gecf", dispatch, wu)
-    out = torch.einsum("gecf,efd->gecd", h, wd)
-
+    out = _experts(dispatch, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
+                   p["w_down"].to(x.dtype))
     y = combine(out, routing, weights, keep, tg, k).reshape(b, s, d)
     if cfg.num_shared_experts:
         y = y + common.mlp(x, p["shared"])
     return y, aux.mean()
+
+
+def moe_apply_shard_map(x, p, cfg: ModelConfig, shd):
+    """Expert parallelism with explicit all-to-alls over the ``model``
+    ranks (the reference's ``moe_apply_shard_map``).
+
+    ``x`` is the rank's rows [B_l, S, D]. Unless the batch is split over
+    ``model`` too, the ``model`` ranks hold the same rows and each routes
+    its 1/TP slice of them; the ``[TP, E_l, C, D]`` dispatch buffer goes
+    out by all-to-all, each rank runs its ``E / TP`` experts on the slots
+    every peer sent it, the outputs come back by a second all-to-all, and
+    the rank combines them and all-gathers the tokens over ``model``. The
+    expert weights are the full ``[E, ...]`` tree (the rank takes its
+    experts) or the rank's own ``[E_l, ...]`` block. ``aux`` is averaged
+    over every rank."""
+    mesh = shd.mesh
+    e, k = cfg.num_experts, cfg.experts_per_token
+    bl, s, d = x.shape
+    tp = mesh_shape(mesh).get("model", 1)
+    if e % tp:
+        raise ValueError(f"{e} experts over {tp} model ranks")
+    e_local = e // tp
+    group = mesh.get_group("model")
+    m = mesh.get_local_rank("model")
+    cover = "model" in shd.batch_axes(bl)
+    t_local = bl * s
+    if cover:
+        t_rank = t_local            # tokens already split over "model"
+    else:
+        if t_local % tp:
+            raise ValueError(f"{t_local} tokens over {tp} model ranks")
+        t_rank = t_local // tp      # each model rank routes its slice
+    capacity = capacity_for(cfg, t_rank)
+
+    xf = x.reshape(t_local, d)
+    xr = xf if cover else xf[m * t_rank:(m + 1) * t_rank]
+    xr = xr[None]                                               # one group
+    logits = xr @ p["router"].to(x.dtype)
+    dispatch, routing, weights, keep, aux = route(xr, logits, cfg, capacity)
+    buf = dispatch[0].reshape(tp, e_local, capacity, d)
+    # rank j receives every peer's slots for ITS experts
+    recv = comm.all_to_all(buf, group)               # [tp(src), E_l, C, D]
+    recv = recv.transpose(0, 1).reshape(e_local, tp * capacity, d)
+
+    def mine(w):
+        w = w[m * e_local:(m + 1) * e_local] if w.shape[0] == e else w
+        return w.to(x.dtype)
+
+    out = _experts(recv, mine(p["w_gate"]), mine(p["w_up"]),
+                   mine(p["w_down"]), lead="")
+    out = out.reshape(e_local, tp, capacity, d).transpose(0, 1)
+    back = comm.all_to_all(out, group).reshape(1, e, capacity, d)
+    yr = combine(back, routing, weights, keep, t_rank, k)[0]
+    y = yr if cover else comm.all_gather(yr, group)
+    aux = comm.all_reduce_mean(aux.mean())
+    y = y.reshape(bl, s, d)
+    if cfg.num_shared_experts:
+        y = y + common.mlp(x, p["shared"])
+    return y, aux

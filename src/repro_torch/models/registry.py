@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba2, transformer, whisper, xlstm
 from repro_torch.models.mamba2 import Zamba2
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.models.whisper import Whisper
@@ -56,15 +57,31 @@ def serving_caps(cfg: ModelConfig) -> ServingCaps:
     raise ValueError(f"unknown family {cfg.family}")
 
 
-def build_model(cfg: ModelConfig, **kw):
+def build_model(cfg: ModelConfig, mesh=None, **kw):
     """The model for ``cfg``'s family: ``DecoderLM`` (dense, MoE, VLM),
-    ``XLSTM`` (ssm), ``Zamba2`` (hybrid) or ``Whisper`` (audio)."""
+    ``XLSTM`` (ssm), ``Zamba2`` (hybrid) or ``Whisper`` (audio). ``mesh``
+    (an abstract mesh or a DeviceMesh) and ``shd_rules`` set the model's
+    ``Sharder``; ``moe_impl="shard_map"`` runs expert parallelism."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return DecoderLM(cfg, **kw)
+        return DecoderLM(cfg, mesh, **kw)
     if cfg.family == "ssm":
-        return XLSTM(cfg, **kw)
+        return XLSTM(cfg, mesh, **kw)
     if cfg.family == "hybrid":
-        return Zamba2(cfg, **kw)
+        return Zamba2(cfg, mesh, **kw)
     if cfg.family == "audio":
-        return Whisper(cfg, **kw)
+        return Whisper(cfg, mesh, **kw)
     raise ValueError(f"unknown family {cfg.family}")
+
+
+_SHAPES = {DecoderLM: transformer.param_shapes, XLSTM: xlstm.param_shapes,
+           Zamba2: mamba2.param_shapes, Whisper: whisper.param_shapes}
+
+
+def abstract_params(model):
+    """(shape tree, logical-axes tree) of ``model``'s parameters, without
+    allocation: the ``param_specs`` input."""
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return tuple(tree[0])
+    return shapes(_SHAPES[type(model)](model.cfg)), model.param_axes()

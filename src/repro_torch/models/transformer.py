@@ -39,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
+from repro_torch.parallel.sharding import Sharder
 
 
 def _dense_layer_shapes(cfg: ModelConfig, pre: tuple, f: int) -> Dict:
@@ -80,6 +81,30 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return tree
 
 
+def _dense_layer_axes(cfg: ModelConfig, pre: tuple) -> Dict:
+    return {"norm1": pre + ("norm",), "norm2": pre + ("norm",),
+            "attn": common.attn_axes(cfg, pre), "mlp": common.mlp_axes(pre)}
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``param_shapes``' leaves, tree for tree (the
+    reference's ``init`` returns them beside the parameters)."""
+    tree = common.embed_axes()
+    if cfg.frontend_stub and cfg.family == "vlm":
+        tree["patch_proj"] = ("embed", None)
+    pax = ("layers",)
+    if cfg.is_moe:
+        tree["layers"] = {"norm1": pax + ("norm",), "norm2": pax + ("norm",),
+                          "attn": common.attn_axes(cfg, pax),
+                          "moe": moe_mod.moe_param_axes(cfg)}
+    else:
+        tree["layers"] = _dense_layer_axes(cfg, pax)
+    if cfg.first_k_dense:
+        tree["dense_prefix"] = {f"layer_{i}": _dense_layer_axes(cfg, ())
+                                for i in range(cfg.first_k_dense)}
+    return tree
+
+
 def head_mask(cfg: ModelConfig) -> Optional[torch.Tensor]:
     """Which of the ``q_heads`` query heads are real (None without
     padding): each KV group holds its real heads first, then zeroed pads,
@@ -103,7 +128,8 @@ def layer_flags(cfg: ModelConfig) -> np.ndarray:
 class DecoderLM:
     """Functional decoder-only LM over an explicit parameter dict."""
 
-    def __init__(self, cfg: ModelConfig, remat: bool = True):
+    def __init__(self, cfg: ModelConfig, mesh=None, *, remat: bool = True,
+                 shd_rules=None, moe_impl: str = "gspmd"):
         if cfg.local_global_period > 0 and (cfg.is_moe or cfg.first_k_dense):
             # the reference's windowed stack runs ``layers/mlp`` on every
             # layer and has no dense prefix, so it cannot run these either
@@ -114,6 +140,8 @@ class DecoderLM:
         self.dtype = getattr(torch, cfg.dtype)
         self.remat = remat
         self.n_scan = cfg.num_layers - cfg.first_k_dense
+        self.shd = Sharder(mesh, rules=shd_rules)
+        self.moe_impl = moe_impl
 
     # -- params ------------------------------------------------------------
 
@@ -139,6 +167,9 @@ class DecoderLM:
                 a["wq"].mul_(mask[:, None])
                 a["wo"].mul_(mask[:, None, None])
         return params
+
+    def param_axes(self) -> Dict:
+        return param_axes(self.cfg)
 
     # -- forward -----------------------------------------------------------
 
@@ -186,7 +217,8 @@ class DecoderLM:
         x = x + h
         if is_moe:
             ff, aux = moe_mod.moe_apply(common.rms_norm(x, p["norm2"]),
-                                        p["moe"], self.cfg)
+                                        p["moe"], self.cfg, self.shd,
+                                        impl=self.moe_impl)
             return x + ff, aux
         return self._mlp_block(x, p), 0.0
 
@@ -310,6 +342,15 @@ class DecoderLM:
             return {"global": (g, g), "local": (loc, loc)}
         shape = (cfg.num_layers, batch_size, max_seq) + tail
         return (shape, shape)
+
+    def cache_axes(self):
+        """The logical axes of ``init_cache``'s leaves."""
+        ax = ("layers", "batch", "kv_seq", "act_kv_heads", None)
+        if self.cfg.local_global_period > 0:
+            # ring (window) caches are small: never worth seq-sharding
+            axl = ("layers", "batch", None, "act_kv_heads", None)
+            return {"global": (ax, ax), "local": (axl, axl)}
+        return (ax, ax)
 
     def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
                    device: DeviceLike = None):

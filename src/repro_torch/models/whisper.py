@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
+from repro_torch.parallel.sharding import Sharder
 
 
 def sinusoid(positions, d_model, dtype):
@@ -84,12 +85,34 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return tree
 
 
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``param_shapes``' leaves, tree for tree."""
+    pax = ("layers",)
+    norm = pax + ("norm",)
+    tree = common.embed_axes()
+    tree["encoder"] = {"norm1": norm, "norm2": norm,
+                       "attn": common.attn_axes(cfg, pax),
+                       "mlp": common.mlp_axes(pax)}
+    tree["enc_final_norm"] = ("norm",)
+    tree["decoder"] = {
+        "norm1": norm, "norm_x": norm, "norm2": norm,
+        "self_attn": common.attn_axes(cfg, pax),
+        "cross_attn": {"wq": pax + ("embed", "heads", "head_dim"),
+                       "wk": pax + ("embed", "heads", "head_dim"),
+                       "wv": pax + ("embed", "heads", "head_dim"),
+                       "wo": pax + ("heads", "head_dim", "embed")},
+        "mlp": common.mlp_axes(pax),
+    }
+    return tree
+
+
 class Whisper:
     """Functional encoder-decoder over an explicit parameter dict."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None, *, shd_rules=None):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        self.shd = Sharder(mesh, rules=shd_rules)
 
     def init(self, generator: Optional[torch.Generator] = None,
              device: DeviceLike = None,
@@ -99,6 +122,9 @@ class Whisper:
         return common.init_tree(param_shapes(self.cfg), generator,
                                 resolve_device(device),
                                 self.dtype if dtype is None else dtype)
+
+    def param_axes(self) -> Dict:
+        return param_axes(self.cfg)
 
     # -- encoder -------------------------------------------------------------
 
@@ -174,6 +200,12 @@ class Whisper:
                             for _ in range(2))
                 for name, shape in (("self", self_shape),
                                     ("cross", cross_shape))}
+
+    def cache_axes(self):
+        """The logical axes of ``init_cache``'s leaves."""
+        ax_self = ("layers", "batch", "kv_seq", "act_kv_heads", None)
+        ax_cross = ("layers", "batch", None, "act_heads", None)
+        return {"self": (ax_self, ax_self), "cross": (ax_cross, ax_cross)}
 
     def _cross(self, caches):
         return tuple(c.to(self.dtype) for c in caches["cross"])

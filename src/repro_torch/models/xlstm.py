@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
+from repro_torch.parallel.sharding import Sharder
 
 I_CLAMP = 8.0  # clamp on the input-gate pre-activation (exp gate)
 CHUNK = 256    # the chunkwise form's chunk (the reference's default)
@@ -253,12 +254,41 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return tree
 
 
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``param_shapes``' leaves, tree for tree."""
+    pax = ("layers",)
+    tree = common.embed_axes()
+    tree["mlstm"] = {
+        "norm": pax + ("norm",),
+        "w_up": pax + ("embed", "ssm_inner"),
+        "conv": pax + ("conv_width", "ssm_inner"),
+        "wq": pax + ("ssm_inner", None),
+        "wk": pax + ("ssm_inner", None),
+        "wv": pax + ("ssm_inner", None),
+        "w_gates": pax + ("ssm_inner", None),
+        "b_gates": pax + (None,),
+        "out_norm": pax + ("ssm_inner",),
+        "w_down": pax + ("ssm_inner", "embed"),
+    }
+    for i in range(len(XLSTM(cfg).slstm_idx)):
+        tree[f"slstm_{i}"] = {
+            "norm": ("norm",),
+            "w_in": ("embed", "ssm_inner"),
+            "r": (None, "heads", None, None),
+            "b": (None,),
+            "out_norm": ("norm",),
+            "ffn": common.mlp_axes(),
+        }
+    return tree
+
+
 class XLSTM:
     """Functional xLSTM over an explicit parameter dict."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None, *, shd_rules=None):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        self.shd = Sharder(mesh, rules=shd_rules)
         every = cfg.slstm_every or (cfg.num_layers + 1)
         self.slstm_idx = [i for i in range(cfg.num_layers)
                           if (i + 1) % every == 0]
@@ -278,6 +308,9 @@ class XLSTM:
         return common.init_tree(param_shapes(self.cfg), generator,
                                 resolve_device(device),
                                 self.dtype if dtype is None else dtype)
+
+    def param_axes(self) -> Dict:
+        return param_axes(self.cfg)
 
     def _stack(self, x, params, states):
         """The layers in order; ``states`` (None in training) written in
@@ -310,6 +343,16 @@ class XLSTM:
         return common.unembed(x, params), 0.0
 
     # -- serving: the state is O(1) in sequence length -----------------------
+
+    def cache_axes(self):
+        """The logical axes of ``init_cache``'s leaves."""
+        st = {"mlstm": (("layers", "batch", "act_heads", None, None),
+                        ("layers", "batch", "act_heads", None),
+                        ("layers", "batch", None, "ssm_inner"))}
+        for i in range(len(self.slstm_idx)):
+            ax = ("batch", "act_heads", None)
+            st[f"slstm_{i}"] = (ax, ax, ax, ax)
+        return st
 
     def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
                    device: DeviceLike = None):

@@ -1,0 +1,308 @@
+"""Logical-axis sharding: maps model-declared logical axes onto mesh axes.
+
+The reference's layout (``repro.parallel.sharding``), kept rule for rule: a
+fast intra-pod network carries the ``data`` and ``model`` mesh axes and a
+slow inter-pod network the ``pod`` axis (DALEK's 2.5 GbE analogue).
+Parameters are FSDP-sharded over ``data`` and tensor-parallel over
+``model``; the ``pod`` axis only carries data parallelism (the gradient
+all-reduce, optionally compressed: ``repro_torch.parallel.compress``).
+
+Every parameter and key activation declares *logical* axes (e.g.
+``("layers", "embed", "heads", "head_dim")``); :func:`spec_for` resolves
+them to a :class:`PartitionSpec` with divisibility checks.
+
+A mesh here is anything that names its axes' sizes: a dict of sizes, an
+``AbstractMesh`` (``repro_torch.launch.mesh``) or a
+``torch.distributed.DeviceMesh``. Where the reference pins GSPMD's
+propagation, a rank here holds its own block of each tensor, so
+:class:`Sharder` is the identity on tensors; :class:`NamedSharding` says
+which block a rank holds, cuts it from a full tensor and gathers it back.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Mapping, Optional, Sequence
+
+import torch
+
+# logical axis -> preferred mesh axis (None = replicate)
+LOGICAL_RULES = {
+    # parameter axes
+    "layers": None,          # stacked-layer axis, never sharded
+    "vocab": "model",        # TP over vocabulary (embed + unembed + logits)
+    "embed": "data",         # FSDP: weight-shard d_model over the data axis
+    "heads": "model",        # TP over attention heads
+    "kv_heads": "model",     # TP over KV heads (dropped when indivisible: MQA)
+    "head_dim": None,
+    "mlp": "model",          # TP over FFN hidden
+    "experts": "model",      # EP: experts over the model axis
+    "expert_mlp": None,      # per-expert FFN hidden stays local
+    "ssm_inner": "model",    # TP over SSM inner channels
+    "ssm_state": None,
+    "conv_width": None,
+    "norm": None,
+    # activation axes
+    "batch": ("pod", "data"),
+    "seq": None,
+    "kv_seq": None,          # overridden to "model" for seq-sharded caches
+    "act_embed": None,
+    "act_heads": "model",
+    "act_kv_heads": "model",
+    "act_experts": "model",
+    "act_vocab": "model",
+    "act_mlp": "model",
+    "qblock": None,
+}
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: a mesh-axis name, a tuple of names (split
+    major to minor) or None (replicated)."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def mesh_shape(mesh) -> dict:
+    """Axis name -> size of a dict, an ``AbstractMesh`` or a DeviceMesh."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def is_device_mesh(mesh) -> bool:
+    """True for a DeviceMesh: tensors on it are each rank's own blocks."""
+    return getattr(mesh, "mesh_dim_names", None) is not None
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry, major to minor."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_for(
+    mesh,
+    logical_axes: Sequence[Optional[str]],
+    shape: Optional[Sequence[int]] = None,
+    rules: Optional[dict] = None,
+) -> PartitionSpec:
+    """Resolve logical axes to a PartitionSpec.
+
+    Mesh axes are dropped when (a) absent from the mesh or already used by
+    an earlier dim or (b) the dim size is known and not divisible by the
+    mesh axes' size (the last axis goes first). Trailing Nones are
+    trimmed."""
+    sizes = mesh_shape(mesh)
+    rules = {**LOGICAL_RULES, **(rules or {})}
+    used = set()
+    out = []
+    for i, name in enumerate(logical_axes):
+        mesh_axis = rules.get(name) if name is not None else None
+        keep = [a for a in spec_axes(mesh_axis)
+                if a in sizes and a not in used]
+        if shape is not None:
+            size = math.prod(sizes[a] for a in keep)
+            while keep and size > 0 and shape[i] % size != 0:
+                size //= sizes[keep.pop()]
+        if not keep:
+            out.append(None)
+        else:
+            used.update(keep)
+            out.append(tuple(keep) if len(keep) > 1 else keep[0])
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def _shape_of(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+
+
+def tree_specs(mesh, axes_tree, shape_tree=None, rules=None):
+    """Map a tree (dicts and tuples) of logical-axis tuples, and optionally
+    a matching tree of shapes (tensors, or anything with a ``shape``, or
+    shape tuples), to PartitionSpecs."""
+    def go(axes, shp):
+        if _is_axes(axes):
+            return spec_for(mesh, axes,
+                            None if shp is None else _shape_of(shp), rules)
+        if isinstance(axes, dict):
+            return {k: go(v, None if shp is None else shp[k])
+                    for k, v in axes.items()}
+        return tuple(go(a, None if shp is None else s) for a, s in
+                     zip(axes, shp if shp is not None else [None] * len(axes)))
+    return go(axes_tree, shape_tree)
+
+
+class NamedSharding:
+    """A PartitionSpec on a mesh: the block of a tensor each rank holds.
+
+    Along a dim split over axes ``(a1, a2)`` there are ``|a1| * |a2|``
+    blocks, and the rank at coordinates ``(c1, c2)`` holds block ``c1 *
+    |a2| + c2`` (major to minor, as JAX splits it). Ranks whose coordinates
+    differ only on axes the spec does not name hold the same block."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+        self.sizes = mesh_shape(mesh)
+
+    def __repr__(self):
+        return f"NamedSharding({self.sizes}, {self.spec!r})"
+
+    @property
+    def shards(self) -> int:
+        """Distinct blocks of a tensor laid out by this spec."""
+        return math.prod(self.sizes[a] for e in self.spec
+                         for a in spec_axes(e))
+
+    @property
+    def replicas(self) -> int:
+        """Ranks that hold each block."""
+        return math.prod(self.sizes.values()) // self.shards
+
+    def coords(self, rank: Optional[int] = None) -> dict:
+        """Mesh coordinates (axis -> index) of ``rank`` (the caller's own
+        rank for None) on a DeviceMesh."""
+        names = self.mesh.mesh_dim_names
+        if rank is None:
+            return dict(zip(names, self.mesh.get_coordinate()))
+        where = (self.mesh.mesh == rank).nonzero()[0].tolist()
+        return dict(zip(names, where))
+
+    def block_slices(self, shape, coords: dict) -> tuple:
+        """Per-dim slices of the block at ``coords`` of a tensor of
+        ``shape``."""
+        out = []
+        for i, n in enumerate(shape):
+            axes = spec_axes(self.spec[i]) if i < len(self.spec) else ()
+            parts, idx = 1, 0
+            for a in axes:
+                parts *= self.sizes[a]
+                idx = idx * self.sizes[a] + coords[a]
+            step = n // parts
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def block(self, t: torch.Tensor, coords: Optional[dict] = None):
+        """The block of the full tensor ``t`` at ``coords`` (the caller's
+        rank for None): ``t`` itself when the spec splits nothing, else a
+        contiguous copy."""
+        if self.shards == 1:
+            return t
+        if coords is None:
+            coords = self.coords()
+        return t[self.block_slices(t.shape, coords)].contiguous()
+
+    def full_shape(self, block_shape) -> tuple:
+        """The full tensor's shape from one block's."""
+        out = list(block_shape)
+        for i, e in enumerate(self.spec):
+            out[i] *= math.prod(self.sizes[a] for a in spec_axes(e))
+        return tuple(out)
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's block (a collective over the
+        mesh's ranks; the block itself when the spec splits nothing)."""
+        if self.shards == 1:
+            return block
+        import torch.distributed as dist
+        world = dist.get_world_size()
+        parts = [torch.empty_like(block) for _ in range(world)]
+        dist.all_gather(parts, block.contiguous())
+        full = block.new_empty(self.full_shape(block.shape))
+        for r, part in enumerate(parts):
+            full[self.block_slices(full.shape, self.coords(r))] = part
+        return full
+
+    def placements(self) -> list:
+        """DTensor placements, one per mesh dim: ``Shard(i)`` where the
+        spec splits tensor dim ``i`` over that mesh dim, else
+        ``Replicate()``. A dim split over several mesh dims must name them
+        in the mesh's order (DTensor splits left to right)."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = list(self.sizes)
+        out = [Replicate()] * len(names)
+        for i, e in enumerate(self.spec):
+            axes = spec_axes(e)
+            pos = [names.index(a) for a in axes]
+            if pos != sorted(pos):
+                raise ValueError(f"{self.spec}: dim {i} splits over {axes}, "
+                                 f"not in the mesh's order {names}")
+            for p in pos:
+                out[p] = Shard(i)
+        return out
+
+
+class Sharder:
+    """Logical-axis specs for a model on a mesh; no-op without one.
+
+    Model code may call ``shd(x, "batch", "seq", "act_heads", None)`` at
+    layer boundaries, as the reference pins GSPMD there: on this port a
+    rank computes on its own block, so the call returns ``x``. With a
+    DeviceMesh the model's tensors are the rank's blocks (``local``); the
+    mesh axes its batch rows are split over are those of the global
+    batch's spec, which the caller that laid the batch out names with
+    :meth:`rank_batch` (all of the ``batch`` rule's axes otherwise)."""
+
+    def __init__(self, mesh=None, rules: Optional[dict] = None):
+        self.mesh = mesh
+        self.rules = rules
+        self._batch_axes = None
+
+    @property
+    def local(self) -> bool:
+        return self.mesh is not None and is_device_mesh(self.mesh)
+
+    def spec(self, logical_axes, shape=None) -> PartitionSpec:
+        assert self.mesh is not None
+        return spec_for(self.mesh, logical_axes, shape, self.rules)
+
+    def __call__(self, x, *logical_axes):
+        return x
+
+    def named(self, spec) -> list:
+        """The DTensor placements of ``spec`` on this sharder's mesh."""
+        assert self.mesh is not None
+        return NamedSharding(self.mesh, spec).placements()
+
+    def batch_axes(self, b: int) -> tuple:
+        """The mesh axes a batch of ``b`` rows is split over: the spec of
+        ``b`` rows for global tensors; for a rank's rows on a DeviceMesh,
+        the global batch's (:meth:`rank_batch`)."""
+        if self.mesh is None:
+            return ()
+        if self.local:
+            if self._batch_axes is not None:
+                return self._batch_axes
+            spec = self.spec(("batch",))
+        else:
+            spec = self.spec(("batch",), (b,))
+        return spec_axes(spec[0]) if len(spec) else ()
+
+    @contextlib.contextmanager
+    def rank_batch(self, axes: Sequence[str]):
+        """Within the block, the rank's batch rows are its share of a
+        global batch split over ``axes``."""
+        prev, self._batch_axes = self._batch_axes, tuple(axes)
+        try:
+            yield self
+        finally:
+            self._batch_axes = prev

@@ -21,6 +21,9 @@ for the reference's signatures only (the decode step factories,
 ``make_adapter`` and ``ContinuousEngine`` accept it and pass it nowhere):
 the reference samples only when it is given a key, which its engines never
 pass, so it decodes greedily under either setting, and so does the port.
+
+``serve_rules`` and ``cache_specs`` give the caches' sharding specs (the
+next slice's dry-run sizes the serving cells with them).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.models.common import (cache_slot_view, copy_cache_block,
                                        mask_cache_tail, paged_gather,
                                        paged_scatter_block, paged_scatter_slot,
                                        reset_cache_blocks)
+from repro_torch.parallel.sharding import tree_specs
 
 # ---------------------------------------------------------------------------
 # prompt-length bucketing
@@ -245,3 +249,26 @@ def make_block_ops(stats: Optional[TraceStats] = None, on_compile=None):
                           on_compile=on_compile),
             counting_call(copy_cache_block, "copy_block", stats,
                           on_compile=on_compile))
+
+
+# ---------------------------------------------------------------------------
+# sharding specs for the caches (specs only: the engines serve on one
+# device, as the reference's do)
+
+
+def serve_rules(shape):
+    """Sharding-rule overrides per shape cell.
+
+    batch=1 (long_500k): nothing to shard on batch -> sequence-shard KV
+    caches over ("pod","data") and keep TP on heads.
+    """
+    if shape.global_batch == 1:
+        return {"batch": None, "kv_seq": ("pod", "data")}
+    return {}
+
+
+def cache_specs(mesh, model, cache_sds, rules=None):
+    """PartitionSpecs of a cache tree (``model.cache_axes()``); the leaves
+    of ``cache_sds`` need only a ``shape`` (``init_cache(...,
+    device="meta")`` allocates nothing)."""
+    return tree_specs(mesh, model.cache_axes(), cache_sds, rules)

@@ -66,25 +66,41 @@ def run(train_step, state, data, loop_cfg: LoopConfig, device=None,
         roofline_terms: Optional[Dict[str, float]] = None,
         on_step: Optional[Callable] = None,
         tracer: Optional[Tracer] = None,
-        metrics_registry: Optional[MetricsRegistry] = None):
+        metrics_registry: Optional[MetricsRegistry] = None,
+        layout=None):
     """Run training; returns (state, history, summary).
 
     ``device``: where the batches go (None keeps the host's numpy
     batches). ``tracer``/``metrics_registry`` plug the loop into the unified
     observability layer: one ``train_step`` span per step (referencing its
     energy sample window for the timeline export), ``checkpoint`` spans,
-    and registry-backed counters the launcher can snapshot to JSON."""
+    and registry-backed counters the launcher can snapshot to JSON.
+    ``layout``: the ``ShardedTrainStep`` of a state held in each rank's
+    blocks; a checkpoint then gathers full leaves and rank 0 writes them,
+    and a restore places each rank's blocks. Every rank feeds the global
+    batch, so the token count is the global batch's."""
     session, power = make_session()
     m = metrics_registry if metrics_registry is not None else MetricsRegistry()
     dev = H100_SXM
     saver = ckpt_mod.AsyncSaver()
+    writer = layout is None or torch.distributed.get_rank() == 0
     start_step = 0
     if loop_cfg.ckpt_dir:
-        ckpt_mod.gc_partial(loop_cfg.ckpt_dir)
+        if writer:
+            ckpt_mod.gc_partial(loop_cfg.ckpt_dir)
+        if layout is not None:
+            torch.distributed.barrier()
         steps = ckpt_mod.valid_steps(loop_cfg.ckpt_dir)
         if steps:
-            state, manifest = ckpt_mod.restore(state, loop_cfg.ckpt_dir)
+            state, manifest = ckpt_mod.restore(
+                state, loop_cfg.ckpt_dir,
+                shardings=None if layout is None else layout.shardings)
             start_step = manifest["step"]
+
+    def save(step):
+        full = state if layout is None else layout.gather(state)
+        if writer:
+            saver.save(full, loop_cfg.ckpt_dir, step)
 
     dvfs = None
     if loop_cfg.power_cap_w is not None and roofline_terms is not None:
@@ -136,11 +152,12 @@ def run(train_step, state, data, loop_cfg: LoopConfig, device=None,
                          if tracer is not None
                          else contextlib.nullcontext(NULL_SPAN))
                 with ck_cm, session.region("checkpoint"):
-                    saver.save(state, loop_cfg.ckpt_dir, step + 1)
-                ckpt_mod.prune(loop_cfg.ckpt_dir, loop_cfg.ckpt_keep)
+                    save(step + 1)
+                if writer:
+                    ckpt_mod.prune(loop_cfg.ckpt_dir, loop_cfg.ckpt_keep)
                 m.counter("checkpoints_saved").inc()
         if loop_cfg.ckpt_dir:
-            saver.save(state, loop_cfg.ckpt_dir, loop_cfg.total_steps)
+            save(loop_cfg.total_steps)
             saver.wait()
     finally:
         prefetch.close()

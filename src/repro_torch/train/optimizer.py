@@ -16,6 +16,7 @@ import math
 from typing import Dict, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,19 +74,33 @@ def init_opt_state(params) -> OptState:
         step=torch.zeros((), dtype=torch.int32, device=leaf.device))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, replicas=None) -> torch.Tensor:
+    """The L2 norm over every leaf. With ``replicas`` (a matching tree of
+    ints) the leaves are each rank's blocks of a gradient spread over the
+    process group, each block held by that many ranks: the squares of a
+    block count once over its holders, and the sum is all-reduced."""
+    reps = [1] * len(tree_leaves(tree)) if replicas is None else \
+        tree_leaves(replicas)
     total = None
-    for g in tree_leaves(tree):
+    for g, r in zip(tree_leaves(tree), reps):
         sq = g.float().square().sum()
+        if replicas is not None:
+            sq = sq / r
         total = sq if total is None else total + sq
+    if replicas is not None:
+        dist.all_reduce(total)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params, grads, state: OptState):
+def adamw_update(cfg: OptConfig, params, grads, state: OptState,
+                 replicas=None):
     """Returns (params, state, metrics): ``params`` and the moments updated
-    in place; ``grads`` (f32) are scaled in place by the clip and spent."""
-    gnorm = global_norm(grads)
+    in place; ``grads`` (f32) are scaled in place by the clip and spent.
+    ``params``, ``grads`` and the moments may be each rank's blocks of a
+    sharded state: ``replicas`` then makes the clip see the whole
+    gradient's norm (``global_norm``)."""
+    gnorm = global_norm(grads, replicas)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

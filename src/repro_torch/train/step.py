@@ -5,18 +5,32 @@ A Python loop over microbatches takes the place of the reference's
 ``lax.scan``; gradients are taken with ``torch.autograd.grad`` with respect
 to detached views of the parameters (so the state's tensors never carry
 ``requires_grad``), accumulated in f32 and divided by the microbatch count.
-The sharding-spec helpers of the reference (``batch_specs``,
-``param_specs``, ``state_specs``, ``shardings``) wait for the port's
-parallelism slice: this step runs on one device.
+
+The reference's sharding-spec helpers (``batch_specs``, ``param_specs``,
+``state_specs``, ``shardings``) are here spec for spec, and
+:class:`ShardedTrainStep` is the step on a DeviceMesh whose result is the
+one-process step's on the same mesh shape: the state at rest is each
+rank's block of every leaf (FSDP's memory layout), each parameter is
+gathered to full before use, the rank runs ``make_grad_fn`` on its rows of
+each microbatch, the gradients are summed over the ranks and AdamW
+updates each rank's own blocks. Compute over ``model`` runs replicated on
+the gathered weights (the reference's function, not split Megatron-style);
+MoE layers may run expert parallelism over it (``moe_impl="shard_map"``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import chunked_softmax_xent, softmax_xent
+from repro_torch.models.registry import abstract_params
+from repro_torch.parallel.sharding import (NamedSharding, P, PartitionSpec,
+                                           mesh_shape, spec_axes, spec_for,
+                                           tree_specs)
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import (OptConfig, OptState, tree_leaves,
                                          tree_map)
@@ -41,7 +55,36 @@ class StepConfig:
     vocab_chunks: int = 1
 
 
-def make_loss_fn(model, step_cfg: StepConfig):
+@dataclasses.dataclass
+class RankShare:
+    """How one rank's loss adds up to the global one: its rows are one of
+    ``batch_shards`` blocks of the global batch, each held by ``replicas``
+    ranks. The ranks' losses sum to the global loss, so their gradients
+    sum to its gradient: the cross-entropy, a mean over the valid tokens,
+    is the rank's mean weighted by its share of the global valid count (an
+    all-reduce), and the aux term (a mean over groups) counts 1 /
+    ``batch_shards``; both are divided among the replicas."""
+
+    batch_shards: int = 1
+    replicas: int = 1
+
+    def rank_loss(self, xent, mask, aux_term):
+        local = mask.sum()
+        total = local.clone()
+        dist.all_reduce(total)
+        total = total / self.replicas
+        return (xent * (local / total.clamp_min(1.0))
+                + aux_term / self.batch_shards) / self.replicas
+
+
+def make_loss_fn(model, step_cfg: StepConfig, share: RankShare = None):
+    """The loss of a microbatch; with ``share``, one rank's part of the
+    global microbatch's loss."""
+    def total(xent, mask, aux):
+        if share is None:
+            return xent + step_cfg.aux_loss_weight * aux
+        return share.rank_loss(xent, mask, step_cfg.aux_loss_weight * aux)
+
     if step_cfg.vocab_chunks > 1 and hasattr(model, "hidden"):
         def loss_fn(params, mb):
             h, aux = model.hidden(params, mb)
@@ -50,7 +93,7 @@ def make_loss_fn(model, step_cfg: StepConfig):
             mask = (labels != step_cfg.label_ignore).float()
             loss = chunked_softmax_xent(h, params, labels.clamp_min(0),
                                         mask, step_cfg.vocab_chunks)
-            return loss + step_cfg.aux_loss_weight * aux
+            return total(loss, mask, aux)
         return loss_fn
 
     def loss_fn(params, mb):
@@ -59,14 +102,15 @@ def make_loss_fn(model, step_cfg: StepConfig):
         logits = logits[:, -labels.shape[1]:]
         mask = (labels != step_cfg.label_ignore).float()
         loss = softmax_xent(logits, labels.clamp_min(0), mask)
-        return loss + step_cfg.aux_loss_weight * aux
+        return total(loss, mask, aux)
     return loss_fn
 
 
-def make_grad_fn(model, step_cfg: StepConfig):
+def make_grad_fn(model, step_cfg: StepConfig, share: RankShare = None):
     """Returns grad_fn(params, batch) -> (loss, f32 grads): the train
-    step's loss and gradients before the optimizer, microbatched."""
-    loss_fn = make_loss_fn(model, step_cfg)
+    step's loss and gradients before the optimizer, microbatched (with
+    ``share``, one rank's part of them: ``RankShare``)."""
+    loss_fn = make_loss_fn(model, step_cfg, share)
     n_micro = step_cfg.num_microbatches
 
     def grad_fn(params, batch):
@@ -120,3 +164,127 @@ def make_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig):
         return TrainState(new_params, new_opt), metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# sharding specs, and the train step on a DeviceMesh
+
+
+def batch_specs(mesh, batch_sds, rules=None):
+    """Shard the leading (batch) dim of every input over ("pod","data")."""
+    return {k: spec_for(mesh, ("batch",) + (None,) * (len(x.shape) - 1),
+                        tuple(x.shape), rules)
+            for k, x in batch_sds.items()}
+
+
+def param_specs(mesh, params_sds, axes, rules=None):
+    """PartitionSpecs of a parameter tree from its logical axes
+    (``abstract_params``) and shapes."""
+    return tree_specs(mesh, axes, params_sds, rules)
+
+
+def state_specs(mesh, params_sds, axes, rules=None):
+    ps = param_specs(mesh, params_sds, axes, rules)
+    return TrainState(params=ps, opt=OptState(m=ps, v=ps, step=P()))
+
+
+def _spec_map(fn, tree):
+    if isinstance(tree, PartitionSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, v) for k, v in tree.items()}
+    return type(tree)(*(_spec_map(fn, v) for v in tree))
+
+
+def shardings(mesh, spec_tree):
+    """A ``NamedSharding`` for each spec of ``spec_tree``."""
+    return _spec_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+class ShardedTrainStep:
+    """The train step on a DeviceMesh over the whole process group.
+
+    ``layout`` cuts a full state into the rank's blocks (``state_specs``:
+    ``m`` and ``v`` follow their parameter), ``gather`` puts full leaves
+    back together (the checkpoint's), and a call takes the blocks and the
+    GLOBAL batch (every rank the same) and returns the updated blocks and
+    the global loss and grad norm. The rank's rows of microbatch ``i`` are
+    its block of that microbatch, so the microbatches hold the rows they
+    hold in the one-process step; the MoE routing groups follow the
+    global microbatch's batch spec (``Sharder.rank_batch``). At one rank
+    every collective is the identity and the step is the one-process step
+    bit for bit."""
+
+    def __init__(self, model, opt_cfg: OptConfig, step_cfg: StepConfig,
+                 mesh, rules=None):
+        self.model, self.opt_cfg, self.step_cfg = model, opt_cfg, step_cfg
+        self.mesh, self.rules = mesh, rules
+        self.shardings = shardings(
+            mesh, state_specs(mesh, *abstract_params(model), rules))
+        self.replicas = tree_map(lambda s: s.replicas,
+                                 self.shardings.params)
+        self.share = RankShare()
+        self.grad_fn = make_grad_fn(model, step_cfg, self.share)
+
+    def layout(self, state: TrainState) -> TrainState:
+        """The rank's blocks of a full state (each full leaf is dropped as
+        its block is cut)."""
+        def cut(tree, sh):
+            for k in list(tree):
+                if isinstance(tree[k], dict):
+                    cut(tree[k], sh[k])
+                else:
+                    tree[k] = sh[k].block(tree[k])
+        lay = self.shardings.params
+        for tree in (state.params, state.opt.m, state.opt.v):
+            cut(tree, lay)
+        return state
+
+    def gather(self, state: TrainState) -> TrainState:
+        """The full state from every rank's blocks (a collective)."""
+        lay = self.shardings.params
+        full = lambda tree: tree_map(lambda b, sh: sh.gather(b), tree, lay)
+        return TrainState(full(state.params),
+                          OptState(full(state.opt.m), full(state.opt.v),
+                                   state.opt.step))
+
+    def rank_rows(self, batch):
+        """(the rank's rows of each microbatch, in order; the mesh axes the
+        global microbatch is split over)."""
+        n_micro = self.step_cfg.num_microbatches
+        rows = batch["tokens"].shape[0]
+        if rows % n_micro:
+            raise ValueError(f"batch {rows} is not a multiple of {n_micro} "
+                             "microbatches")
+        size = rows // n_micro
+        spec = spec_for(self.mesh, ("batch",), (size,), self.rules)
+        split = NamedSharding(self.mesh, spec)
+        out = {}
+        for k, x in batch.items():
+            x = torch.as_tensor(x)
+            out[k] = torch.cat([split.block(x[i * size:(i + 1) * size])
+                                for i in range(n_micro)])
+        return out, spec_axes(spec[0]) if len(spec) else ()
+
+    def __call__(self, state: TrainState, batch):
+        rows, axes = self.rank_rows(batch)
+        sizes = mesh_shape(self.mesh)
+        self.share.batch_shards = math.prod(sizes[a] for a in axes)
+        self.share.replicas = math.prod(sizes.values()) \
+            // self.share.batch_shards
+        lay = self.shardings.params
+        full = tree_map(lambda b, sh: sh.gather(b), state.params, lay)
+        with self.model.shd.rank_batch(axes):
+            loss, grads = self.grad_fn(full, rows)
+        del full
+        dist.all_reduce(loss)
+
+        def reduce(g, sh):
+            dist.all_reduce(g)
+            return sh.block(g)
+        grads = tree_map(reduce, grads, lay)
+        new_params, new_opt, metrics = opt_mod.adamw_update(
+            self.opt_cfg, state.params, grads, state.opt,
+            replicas=self.replicas)
+        metrics = dict(metrics, loss=loss)
+        return TrainState(new_params, new_opt), metrics

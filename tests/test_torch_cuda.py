@@ -869,3 +869,140 @@ def _tree_leaves(tree):
     from repro_torch.models import common
     common.tree_map(out.append, tree)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer at one NCCL rank (one card); two-card runs skip here
+
+
+def _card_group(tmp_path):
+    from torch_dist_worker import one_rank
+    torch.cuda.set_device(0)
+    return one_rank(tmp_path, backend="cpu:gloo,cuda:nccl")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-20b", "deepseek-moe-16b"])
+def test_sharded_step_at_one_nccl_rank_equals_the_unsharded_step(tmp_path,
+                                                                 arch):
+    """The smoke model's f32 masters from seed 0 on the card, 2 steps of
+    batch 4 x 32 in 2 microbatches: ``ShardedTrainStep`` on
+    ``make_host_mesh(1, 1, 1, "cuda")`` against ``make_train_step`` of the
+    same model on that mesh, bit for bit (one rank: every collective is
+    the identity)."""
+    _need_cuda()
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
+                                           batch_to_device)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             tree_leaves)
+    from repro_torch.train.step import (ShardedTrainStep, StepConfig,
+                                        TrainState, make_train_step)
+    cfg = configs.get_smoke(arch)
+    data = SyntheticTokens(DataConfig(seed=2, vocab_size=cfg.vocab_size,
+                                      seq_len=32, global_batch=4), cfg)
+    with _card_group(tmp_path):
+        mesh = make_host_mesh(1, 1, 1, "cuda")
+        runs = []
+        for sharded in (False, True):
+            model = build_model(cfg, mesh)
+            params = model.init(torch.Generator("cuda").manual_seed(0),
+                                "cuda", dtype=torch.float32)
+            state = TrainState(params, init_opt_state(params))
+            oc, sc = OptConfig(lr=1e-3), StepConfig(num_microbatches=2)
+            if sharded:
+                step = ShardedTrainStep(model, oc, sc, mesh)
+                state = step.layout(state)
+            else:
+                step = make_train_step(model, oc, sc)
+            out = []
+            for i in range(2):
+                state, m = step(state, batch_to_device(data.batch(i),
+                                                       "cuda"))
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((out, [p.cpu() for p in tree_leaves(state.params)]))
+    (plain, pp), (shard, sp) = runs
+    assert plain == shard
+    assert all(torch.equal(a, b) for a, b in zip(pp, sp))
+
+
+@pytest.mark.cuda
+def test_expert_parallel_at_one_nccl_rank_matches_the_grouped_path(tmp_path):
+    """deepseek-moe's smoke MoE layer in f32 on the card: the
+    expert-parallel path (both all-to-alls and the all-gather on NCCL)
+    against the grouped path on the same one-rank mesh, y and the
+    gradients within 1e-5 of max."""
+    _need_cuda()
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common, moe
+    from repro_torch.parallel.sharding import Sharder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke("deepseek-moe-16b").replace(dtype="float32")
+    g = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(4, 16, cfg.d_model, generator=g, device="cuda")
+    with _card_group(tmp_path):
+        shd = Sharder(make_host_mesh(1, 1, 1, "cuda"))
+        out = []
+        for impl in ("gspmd", "shard_map"):
+            p = common.layer_of(common.init_tree(
+                moe.moe_param_shapes(cfg, 1),
+                torch.Generator("cuda").manual_seed(1), "cuda",
+                torch.float32), 0)
+            leaves = [p[k].requires_grad_() for k in ("router", "w_gate",
+                                                      "w_up", "w_down")]
+            y, aux = moe.moe_apply(x, p, cfg, shd, impl=impl)
+            grads = torch.autograd.grad((y * y).sum() + aux, leaves)
+            out.append((y.detach(), grads))
+    (yg, gg), (ye, ge) = out
+    assert float((ye - yg).abs().max()) <= 1e-5 * float(yg.abs().max())
+    for a, b in zip(ge, gg):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_compressed_reduction_on_the_card_equals_the_host(tmp_path):
+    """``compress_grads_over_pod`` at one rank, twice (error feedback), on
+    the card over NCCL and on the host over gloo: outputs and error states
+    equal bit for bit."""
+    _need_cuda()
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import compress
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    g = torch.Generator().manual_seed(0)
+    host = {"w": torch.randn(1000, 257, generator=g) * 1e-3,
+            "b": {"a": torch.randn(4099, generator=g)}}
+    card = tree_map(torch.Tensor.cuda, host)
+    with _card_group(tmp_path):
+        mesh = make_host_mesh(1, 1, 1, "cuda")
+        got = []
+        for tree in (card, host):
+            r1, e1 = compress.compress_grads_over_pod(tree, mesh)
+            r2, e2 = compress.compress_grads_over_pod(tree, mesh, e1)
+            got.append([x.cpu() for t in (r1, e1, r2, e2)
+                        for x in tree_leaves(t)])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason=f"needs 2 cards; torch.cuda.device_count() is "
+                           f"{torch.cuda.device_count()}")
+def test_trainer_on_two_cards_under_torchrun(tmp_path):
+    """``repro_torch.launch.train --mesh-data 2`` under torchrun on two
+    cards (NCCL, one card a rank) runs and logs its steps."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2", "-m", "repro_torch.launch.train", "--smoke",
+         "--mesh-data", "2", "--steps", "2", "--batch", "4", "--seq", "32",
+         "--log-json", str(tmp_path / "log.json")],
+        env=dict(os.environ, PYTHONPATH=src), capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    history = json.loads((tmp_path / "log.json").read_text())["history"]
+    assert len(history) == 2 and all(np.isfinite(r["loss"])
+                                     for r in history)

@@ -283,7 +283,10 @@ def test_mlstm_block(with_state):
         st = tc.tree_map(lambda c: c[0] + 0.1 * torch.randn(
             c[0].shape, generator=torch.Generator().manual_seed(5)),
                          tm.init_cache(2, MAX_SEQ, device="cpu")["mlstm"])
-        jst = tuple(jnp.asarray(s.numpy()) for s in st)
+        # a private copy for the reference: on the CPU jnp.asarray of the
+        # tensor's numpy view may alias it, and the port writes the state
+        # in place while the reference's dispatch may still read it
+        jst = tuple(jnp.asarray(np.array(s.numpy())) for s in st)
     else:
         st = jst = None
     jx, jnew = jxlstm.mlstm_block(jnp.asarray(x), jl, jcfg, SHD, jst,
@@ -339,7 +342,10 @@ def test_mamba_block(t, with_state):
         g = torch.Generator().manual_seed(8)
         st = tuple(0.1 * torch.randn(c[0].shape, generator=g) for c in
                    tm.init_cache(2, MAX_SEQ, device="cpu")["mamba"])
-        jst = tuple(jnp.asarray(s.numpy()) for s in st)
+        # a private copy for the reference: on the CPU jnp.asarray of the
+        # tensor's numpy view may alias it, and the port writes the state
+        # in place while the reference's dispatch may still read it
+        jst = tuple(jnp.asarray(np.array(s.numpy())) for s in st)
     else:
         st = jst = None
     jx, jnew = jmamba.mamba_block(jnp.asarray(x), jl, jcfg, SHD, jst,

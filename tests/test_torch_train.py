@@ -463,8 +463,12 @@ def test_launch_train_on_the_host(tmp_path):
     assert (tmp_path / "ck" / "step_00000004" / "_COMMITTED").exists()
 
 
-def test_launch_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 13"):
+def test_launch_train_refuses_a_mesh(monkeypatch):
+    """A mesh runs one rank a process under torchrun: outside it (no
+    WORLD_SIZE) a mesh of 2 ranks is refused (``tests/test_torch_parallel.py``
+    runs it under torchrun)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun"):
         ttrain.main(["--smoke", "--device", "cpu", "--mesh-data", "2"])
 
 

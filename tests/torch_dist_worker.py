@@ -1,0 +1,173 @@
+"""One rank of a multi-process test of the port's parallel layer, and the
+parent's helpers to start them.
+
+    python tests/torch_dist_worker.py TASK RANK WORLD STORE OUT ARGS_JSON
+
+Joins a ``gloo`` process group of WORLD ranks on the ``file://`` STORE,
+runs TASK with the JSON arguments and writes what the parent compares to
+OUT/RANK.pt. Module-level imports are torch, numpy and the standard
+library only: a rank never imports JAX (the parent computes the reference
+side).
+"""
+import contextlib
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = pathlib.Path(__file__).resolve().parent
+SRC = HERE.parent / "src"
+TIMEOUT_S = 120
+
+
+def spawn(task, world, tmp_path, args, timeout=TIMEOUT_S):
+    """Run TASK on WORLD ranks, one process each, and return each rank's
+    result. A rank that fails, or a group that outlives ``timeout`` (a
+    deadlock), fails the caller with the ranks' output; every process is
+    gone when this returns."""
+    out = pathlib.Path(tmp_path) / f"{task}-{world}"
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "torch_dist_worker.py"), task, str(r),
+         str(world), str(out / "store"), str(out), json.dumps(args)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    assert not bad, f"ranks {bad} failed:\n" + "\n".join(
+        logs[r][-3000:] for r in bad)
+    return [torch.load(out / f"{r}.pt") for r in range(world)]
+
+
+@contextlib.contextmanager
+def one_rank(tmp_path, backend="gloo"):
+    """A one-rank process group in this process (``file://`` store in
+    ``tmp_path``), torn down on exit."""
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/store1",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(args):
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(data=args.get("data", 1),
+                          model=args.get("model", 1),
+                          pod=args.get("pod", 1))
+
+
+def train(args):
+    """``args["steps"]`` sharded train steps from the seeded state on a
+    global batch from a numpy seed; the losses, grad norms, the rank's
+    blocks and the gathered parameters."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import (ShardedTrainStep, StepConfig,
+                                        TrainState)
+    mesh = _mesh(args)
+    cfg = configs.get_smoke(args["arch"]).replace(dtype="float32")
+    model = build_model(cfg, mesh, **args.get("model_kw", {}))
+    params = model.init(torch.Generator().manual_seed(0), "cpu",
+                        dtype=torch.float32)
+    state = TrainState(params, init_opt_state(params))
+    step = ShardedTrainStep(model, OptConfig(**args["opt"]),
+                            StepConfig(num_microbatches=args["micro"]), mesh)
+    state = step.layout(state)
+    rng = np.random.default_rng(args["seed"])
+    tokens = rng.integers(0, cfg.vocab_size, tuple(args["batch"]))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    losses, norms = [], []
+    for _ in range(args["steps"]):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    full = step.gather(state)
+    return {"loss": losses, "grad_norm": norms, "blocks": state.params,
+            "full": full.params, "coords": step.shardings.params[
+                "final_norm"].coords()}
+
+
+def moe_ep(args):
+    """Expert parallelism on the mesh: the rank's rows of a global x
+    through ``moe_apply_shard_map``; y, aux and the summed gradients of a
+    loss whose ranks' parts add up to ``sum(y * r)``."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import NamedSharding, Sharder
+    mesh = _mesh(args)
+    cfg = configs.get_smoke("deepseek-moe-16b").replace(
+        capacity_factor=args["capacity_factor"], dtype="float32")
+    p = torch.load(args["params"])
+    x_full, r_full = torch.load(args["inputs"])
+    shd = Sharder(mesh)
+    rows = NamedSharding(mesh, shd.spec(("batch",), (x_full.shape[0],)))
+    x, r = rows.block(x_full), rows.block(r_full)
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()
+              if k != "shared"}
+    with shd.rank_batch(shd.batch_axes(x_full.shape[0])):
+        y, aux = moe.moe_apply(x, dict(p, **leaves), cfg, shd,
+                               impl="shard_map")
+    loss = (y * r).sum() / rows.replicas
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    for g in grads:
+        dist.all_reduce(g)
+    return {"y": y.detach(), "aux": aux.detach(), "coords": rows.coords(),
+            "grads": dict(zip(leaves, grads))}
+
+
+def compress(args):
+    """``compressed_psum_pod`` and two steps of ``compress_grads_over_pod``
+    (error feedback carried) on the rank's gradients from a numpy seed."""
+    from repro_torch.parallel import compress as tcomp
+    mesh = _mesh(args)
+    rng = np.random.default_rng(args["seed"] + 100 * mesh.get_rank())
+    flat = torch.from_numpy(rng.normal(size=args["n"]).astype(np.float32))
+    out = {"flat": flat, "psum": tcomp.compressed_psum_pod(
+        flat, mesh.get_group("pod"))}
+    err = None
+    for i in range(2):
+        grads = {"b": torch.from_numpy(rng.normal(size=(3, 100)).astype(
+            np.float32)), "a": torch.from_numpy(rng.normal(
+                size=(7, 61)).astype(np.float32))}
+        red, err = tcomp.compress_grads_over_pod(grads, mesh, err)
+        out[f"grads{i}"], out[f"red{i}"], out[f"err{i}"] = grads, red, err
+    return out
+
+
+def main(argv):
+    task, rank, world, store, out, args = argv
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=int(rank), world_size=int(world))
+    try:
+        result = {"train": train, "moe_ep": moe_ep,
+                  "compress": compress}[task](json.loads(args))
+        torch.save(result, pathlib.Path(out) / f"{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
