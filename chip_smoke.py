@@ -161,6 +161,26 @@ Phases, each of which must pass (any failure exits non-zero):
               within 1e-5 of max|y|); compress_grads_over_pod on a full
               granite-20b layer's gradients twice (error feedback), card
               against host bitwise, timed by events.
+11c. dryrun — the port's dry-run (launch.dryrun: one rank's step on the
+              meta device, counted by perf.op_cost) held against the
+              card (the counted step's flash launches are the kernels
+              line's dryrun_launches of the train row): (a) the train
+              phase's configuration through ShardedTrainStep on a
+              one-device RankMesh, counted on meta and for one step on
+              the card under the same counter: FLOPs equal, 4 x 2 x 2
+              flash launches on wgmma, the dry-run's peak within 10 % of
+              max_memory_allocated; (b) (in the serve
+              phase, before granite is freed) granite-20b's decode_step
+              at full depth on a contiguous cache of batch 4 x 512: FLOPs
+              equal on meta and on the card, the memory term beside the
+              profile's device-busy time; (c) the depth cuts of PERF.md §4
+              against 80 GB (granite-20b trains at 4 layers, not at 52;
+              internvl2-76b serves at 32 layers, not at 80; deepseek-moe-16b
+              whole); (d) one production cell of each family on the 16 x 16
+              mesh, each completing; (e) (after record_cli) the port's
+              regression gate on the bench phase's rows and the two replay
+              reports: rc 0, 1 (a compiles raised), 1 (a row slowed 20 %),
+              0.
 12. timing  — each kernel held against its plain version and timed beside
               it, a PyTorch library call computing the same function, and
               its bound on the card: flash at the serve phase's prefill
@@ -181,7 +201,11 @@ Phases, each of which must pass (any failure exits non-zero):
               each kernel's device time under the profiler beside the
               library call's and the names of the kernels it launched, at
               512^3 that of every tile of the wgmma and FFMA routes, and
-              for dpa4 the mma route's and the transpose's share).
+              for dpa4 the mma route's and the transpose's share). At
+              every flash shape the op torch.ops.repro_torch.flash_fwd
+              is timed beside its CUDA implementation called directly
+              (alternated, the medians of 5 rounds): the host cost of
+              the dispatcher.
 13. cli     — `python -m repro_torch.launch.serve --arch granite-20b
               --smoke`, `--arch gemma3-27b --smoke --engine static
               --trace-out ...`, `python -m repro_torch.launch.train
@@ -758,6 +782,9 @@ def phase_kernels_measurement():
 
 
 BENCH_REPEATS = 3
+# the regression gate's inputs: the bench phase's rows and the record_cli
+# phase's two replay reports
+GATE_DIR = ROOT / "build" / "gate"
 
 
 def phase_bench():
@@ -772,7 +799,7 @@ def phase_bench():
                                         bench_launch_latency, bench_peak)
     from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
     from repro_torch.kernels.stream import stream as sk
-    readings = {}
+    readings, first = {}, {}
     for name in sk.launches:
         sk.launches[name] = 0                 # the bench path starts here
     for name in dk.launches:
@@ -793,7 +820,13 @@ def phase_bench():
                 log(f"[bench] run {rep}: {line}")
             for name, row in rows.rows.items():
                 readings.setdefault(name, []).append(row)
+            if rep == 0:
+                first.update(rows.rows)
     torch.cuda.synchronize()
+    # the first run's rows, as ``--json`` writes them: the dryrun phase's
+    # regression gate reads them
+    GATE_DIR.mkdir(parents=True, exist_ok=True)
+    (GATE_DIR / "bench_rows.json").write_text(json.dumps(first, indent=2))
     launches = {name: sk.launches[name] for name in STREAM_REPLACES}
     launches.update({f"dpa_matmul/{v}": dk.launches[v] for v in DPA_IN})
     routes = dict(dk.route_launches)
@@ -2424,6 +2457,285 @@ def phase_parallel(card):
                 moe_ms=ms, walls=walls, seconds=wall)
 
 
+# the dryrun phase: the port's dry-run (launch.dryrun: one rank's step on
+# the meta device, counted by perf.op_cost) held against the card. (a) the
+# train phase's configuration sized on a one-device mesh and then run for
+# one step on the card under the same counter: FLOPs equal, flash launched
+# as often as the train phase's step launches it, the peak within
+# ``peak_rel`` of max_memory_allocated; (b) granite-20b's decode_step at
+# full width and depth on a contiguous cache, counted on meta and on the
+# card (in the serve phase, before granite is freed): FLOPs equal; (c) the
+# depth cuts of PERF.md §4 against 80 GB; (d) one production cell of each
+# family on the single mesh (every cell completes: the whole grid takes
+# longer than the phase's budget, and runs device-free with the CLI); (e)
+# the cross-run gate on the card's own rows (after record_cli)
+ONE_DEVICE = {"data": 1, "model": 1}
+DRYRUN = dict(
+    decode_batch=4, decode_seq=512, peak_rel=0.10, budget_s=120.0,
+    # (arch, layers (None: full depth), cell, want fits)
+    cuts=(("granite-20b", None, "train_phase", False),
+          ("granite-20b", 4, "train_phase", True),
+          ("internvl2-76b", None, "vlm_phase", False),
+          ("internvl2-76b", 32, "vlm_phase", True),
+          ("deepseek-moe-16b", None, "serve_phase", True)),
+    # one production cell of each family (the dense one also trains)
+    cells=(("granite-20b", "train_4k"), ("granite-20b", "prefill_32k"),
+           ("deepseek-moe-16b", "decode_32k"),
+           ("internvl2-76b", "prefill_32k"), ("xlstm-1.3b", "long_500k"),
+           ("zamba2-1.2b", "decode_32k"), ("whisper-small", "decode_32k")))
+
+
+def phase_cells():
+    """The card phases' shapes as dry-run cells: the train phase (batch 8
+    x 512), the VLM phase's forward (256 patches + 256 tokens), the serve
+    phase (batch 4, 512 positions) and its decode step."""
+    from repro_torch.configs.base import ShapeConfig
+    return {
+        "train_phase": ShapeConfig("train_phase", "train", TRAIN["seq"],
+                                   TRAIN["batch"]),
+        "vlm_phase": ShapeConfig("vlm_phase", "prefill", 256, 1),
+        "serve_phase": ShapeConfig("serve_phase", "prefill",
+                                   SERVE["max_seq"], SERVE["batch"]),
+        "decode_phase": ShapeConfig("decode_phase", "decode",
+                                    DRYRUN["decode_seq"],
+                                    DRYRUN["decode_batch"]),
+    }
+
+
+def dryrun_decode(eng, profile, card):
+    """(b): granite-20b's decode_step (full width and depth, the serve
+    phase's bf16 weights) on a contiguous cache of batch 4 x 512 at
+    position 511: its FLOPs counted once on the meta device by the dry-run
+    and once on the card by the same counter must be equal. The memory
+    term is printed beside the profile phase's device-busy time of a
+    decode step (the paged pool's, at batch 4)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.perf import op_cost
+    c = DRYRUN
+    t0 = time.perf_counter()
+    rec, meta = dryrun.analyze_cell("granite-20b",
+                                    phase_cells()["decode_phase"],
+                                    ONE_DEVICE)
+    meta_s = time.perf_counter() - t0
+    model, params = eng.model, eng.params
+    cache = model.init_cache(c["decode_batch"], c["decode_seq"],
+                             device="cuda")
+    tok = torch.zeros((c["decode_batch"], 1), dtype=torch.int32,
+                      device="cuda")
+    with torch.no_grad(), op_cost.OpCounter() as on_card:
+        logits, _ = model.decode_step(params, tok, c["decode_seq"] - 1,
+                                      cache)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all())
+    del cache, logits
+    rl = rec["roofline"]
+    busy = profile["decode step (4 rows)"]["device_ms"]
+    log(f"[dryrun] (b) {eng.model.cfg.name} decode_step, batch "
+        f"{c['decode_batch']} x {c['decode_seq']} at position "
+        f"{c['decode_seq'] - 1}: FLOPs meta {meta.flops:.6e} card "
+        f"{on_card.flops:.6e}; bytes meta {meta.bytes:.6e} card "
+        f"{on_card.bytes:.6e}; compute term {rl['compute_s'] * 1e3:.3f} ms, "
+        f"memory term {rl['memory_s'] * 1e3:.3f} ms (bytes / 3.35 TB/s) "
+        f"beside the profile phase's decode step device-busy {busy:.3f} ms; "
+        f"dry-run peak {rec['peak_gb']:.2f} GB, fits {rec['fits']}; "
+        f"meta count in {meta_s:.1f} s; card: {card}")
+    check_all("dryrun", {
+        "(b) decode: FLOPs on meta == FLOPs on the card": (
+            meta.flops == on_card.flops > 0),
+        "(b) decode: logits finite": finite,
+    })
+    return dict(flops=meta.flops, memory_ms=rl["memory_s"] * 1e3,
+                compute_ms=rl["compute_s"] * 1e3, busy_ms=busy,
+                seconds=meta_s)
+
+
+def dryrun_train(card, train):
+    """(a): the train phase's configuration (granite-20b at full width, 4
+    of 52 layers, batch 8 x 512 in 2 microbatches) through
+    ShardedTrainStep on a one-device RankMesh: counted on the meta device
+    by the dry-run, then one step on the card under the same counter
+    (f32 master weights from the train phase's seed). FLOPs equal exactly,
+    the counted step's flash launches equal the train phase's per step
+    (layers x microbatches x 2, all wgmma), and the dry-run's peak within
+    ``peak_rel`` of max_memory_allocated for that step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
+                                           batch_to_device)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import build_model
+    from repro_torch.perf import op_cost
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import (ShardedTrainStep, StepConfig,
+                                        TrainState)
+    c = TRAIN
+    cfg = configs.get(c["arch"]).replace(num_layers=c["layers"])
+    t0 = time.perf_counter()
+    rec, meta = dryrun.analyze_cell(c["arch"], phase_cells()["train_phase"],
+                                    ONE_DEVICE, {"n_micro": c["micro"]}, cfg)
+    meta_s = time.perf_counter() - t0
+    other = torch.cuda.memory_allocated()
+    _, _, params = make_model(c["arch"], c["seed"], c["layers"],
+                              dtype=torch.float32)
+    mesh = RankMesh(ONE_DEVICE)
+    step = ShardedTrainStep(build_model(cfg, mesh),
+                            OptConfig(lr=c["lr"], total_steps=c["steps"]),
+                            StepConfig(num_microbatches=c["micro"]), mesh)
+    state = step.layout(TrainState(params, init_opt_state(params)))
+    del params
+    data = SyntheticTokens(DataConfig(seed=c["seed"],
+                                      vocab_size=cfg.vocab_size,
+                                      seq_len=c["seq"],
+                                      global_batch=c["batch"]), cfg)
+    batch = batch_to_device(data.batch(0), "cuda")
+    torch.cuda.synchronize()
+    zero_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with op_cost.OpCounter() as on_card:
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    n_flash, routes, windowed = flash_counts()
+    loss = metrics["loss"].item()
+    del state, step, batch, metrics
+    free_card()
+    rl = rec["roofline"]
+    dry_peak = rec["analysis"]["peak_bytes"]
+    want_flash = c["layers"] * c["micro"] * 2
+    model_flop = 6 * rec["n_params"] * c["batch"] * c["seq"]
+    log(f"[dryrun] (a) {cfg.name} train step ({c['layers']} of "
+        f"{configs.get(c['arch']).num_layers} layers, batch {c['batch']} x "
+        f"{c['seq']} in {c['micro']} microbatches) on a one-device "
+        f"RankMesh: FLOPs meta {meta.flops:.6e} card {on_card.flops:.6e} "
+        f"({meta.flops / model_flop:.3f}x the model FLOPs 6·N·tokens "
+        f"{model_flop:.4e}); bytes meta {meta.bytes:.6e} card "
+        f"{on_card.bytes:.6e}; compute term {rl['compute_s'] * 1e3:.1f} ms, "
+        f"memory term {rl['memory_s'] * 1e3:.1f} ms beside the train "
+        f"phase's step wall {train['step_ms']:.1f} ms (counted step "
+        f"{wall * 1e3:.1f} ms under the counter); peak dry-run "
+        f"{dry_peak / 1e9:.3f} GB (arguments "
+        f"{rec['analysis']['memory']['argument_bytes'] / 1e9:.3f} GB), card "
+        f"max_memory_allocated {peak / 1e9:.3f} GB "
+        f"({dry_peak / peak - 1:+.2%}; {other / 1e9:.3f} GB other "
+        f"allocations before the step), the train phase's "
+        f"{train['peak_gb']:.2f} GB; flash {n_flash} launches by route "
+        f"{routes}, windowed {windowed}; loss {loss:.4f}; meta count in "
+        f"{meta_s:.1f} s; card: {card}")
+    check_all("dryrun", {
+        "(a) train: FLOPs on meta == FLOPs on the card": (
+            meta.flops == on_card.flops > 0),
+        "(a) train: flash launches == layers x microbatches x 2, all "
+        "wgmma": (n_flash == want_flash and routes == {"wgmma": n_flash,
+                                                       "ffma": 0}
+                  and windowed == 0),
+        f"(a) train: dry-run peak (with the other allocations) within "
+        f"{DRYRUN['peak_rel']:.0%} of max_memory_allocated": abs(
+            dry_peak + other - peak) <= DRYRUN["peak_rel"] * peak,
+        "(a) train: loss finite": math.isfinite(loss),
+    })
+    return dict(flops=meta.flops, launches=n_flash, peak=peak,
+                dry_peak=dry_peak, compute_ms=rl["compute_s"] * 1e3,
+                memory_ms=rl["memory_s"] * 1e3, seconds=meta_s)
+
+
+def dryrun_sizes(card):
+    """(c) and (d), device-free: the depth cuts of PERF.md §4 on a
+    one-device mesh against 80 GB, and one production cell of each family
+    on the single (16 x 16) mesh, a line a cell."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cells = phase_cells()
+    checks = {}
+    for arch, layers, cell, want in DRYRUN["cuts"]:
+        cfg = configs.get(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        shape = cells[cell]
+        variant = {"n_micro": TRAIN["micro"]} if shape.kind == "train" \
+            else None
+        rec, _ = dryrun.analyze_cell(arch, shape, ONE_DEVICE, variant, cfg)
+        mem = rec["analysis"]["memory"]
+        log(f"[dryrun] (c) {arch} at {cfg.num_layers} layers, {cell} "
+            f"({shape.kind}, batch {shape.global_batch} x "
+            f"{shape.seq_len}): {rec['n_params'] / 1e9:.3f} B params; "
+            f"peak {rec['peak_gb']:.2f} GB (arguments "
+            f"{mem['argument_bytes'] / 1e9:.2f} GB) against "
+            f"{dryrun.H100_SXM.mem_gb} GB: fits {rec['fits']}")
+        checks[f"(c) {arch} at {cfg.num_layers} layers, {cell}: fits "
+               f"{want}"] = rec["fits"] is want
+    cuts_s = time.perf_counter() - t0
+    out_dir = ROOT / "build" / "dryrun_phase"
+    for arch, shape in DRYRUN["cells"]:
+        rec = dryrun.run_cell(arch, shape, "single", force=True,
+                              out_dir=out_dir)
+        if "error" in rec:
+            log(rec["traceback"])
+        else:
+            rl = rec["roofline"]
+            t = max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
+            log(f"[dryrun] (d) single/{arch}/{shape}: dominant "
+                f"{rl['dominant']}, roofline fraction "
+                f"{rl['compute_s'] / t:.3f} (compute {rl['compute_s']:.4g} "
+                f"s, memory {rl['memory_s']:.4g} s, collective "
+                f"{rl['collective_s']:.4g} s), {rec['peak_gb']:.2f} GB a "
+                f"rank, fits {rec['fits']}, {rec['wall_s']:.1f} s")
+        checks[f"(d) single/{arch}/{shape} completes"] = "error" not in rec
+    log(f"[dryrun] (c) in {cuts_s:.1f} s, (d) in "
+        f"{time.perf_counter() - t0 - cuts_s:.1f} s; card: {card}")
+    check_all("dryrun", checks)
+    return time.perf_counter() - t0
+
+
+def dryrun_gate():
+    """(e): the port's regression gate (in-process, ``main(argv)``) on the
+    card's own rows: the bench phase's rows against themselves (rc 0),
+    against a copy with one ``compiles`` raised by 1 (rc 1) and with one
+    timed row above 50 us slowed by 20 % (rc 1); the record_cli phase's
+    two replay reports against each other (rc 0)."""
+    from repro_torch.benchmarks import regression_gate
+    t0 = time.perf_counter()
+    rows_path = GATE_DIR / "bench_rows.json"
+    rows = json.loads(rows_path.read_text())
+    compiled = sorted(n for n, r in rows.items() if "compiles" in r)
+    timed = sorted(n for n, r in rows.items() if "compiles" not in r
+                   and r["us_per_call"] >= regression_gate.MIN_GATED_US)
+    if not compiled or not timed:
+        raise AssertionError(f"bench rows without a compile row or a timed "
+                             f"row above 50 us: {sorted(rows)}")
+    raised = json.loads(rows_path.read_text())
+    raised[compiled[0]]["compiles"] += 1
+    slowed = json.loads(rows_path.read_text())
+    slowed[timed[0]]["us_per_call"] *= 1.2
+    for name, doc in (("raised", raised), ("slowed", slowed)):
+        (GATE_DIR / f"{name}.json").write_text(json.dumps(doc))
+    cases = {
+        "rows against themselves": ([rows_path, rows_path], 0),
+        f"one compiles raised by 1 ({compiled[0]})": (
+            [rows_path, GATE_DIR / "raised.json"], 1),
+        f"one row slowed by 20 % ({timed[0]})": (
+            [rows_path, GATE_DIR / "slowed.json"], 1),
+        "the two replay reports": ([GATE_DIR / "replay_a.json",
+                                    GATE_DIR / "replay_b.json"], 0),
+    }
+    rcs = {}
+    for name, (files, _) in cases.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs[name] = regression_gate.main([str(f) for f in files])
+        for line in buf.getvalue().strip().splitlines():
+            log(f"[dryrun] (e) {name}: {line}")
+    log(f"[dryrun] (e) gate return codes {rcs} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check_all("dryrun", {f"(e) gate rc {want}: {name}": rcs[name] == want
+                         for name, (_, want) in cases.items()})
+    return rcs
+
+
 def _profiled(fn, n=3):
     """(host ms per call, device-busy ms per call, kernels per call,
     {kernel name: device ms per call}) of ``fn`` on the card: host time
@@ -2577,6 +2889,30 @@ def flash_work(s, t, d, h, hkv, q_offset, itemsize, window=None,
     return n_bytes, 4 * d * h * pairs
 
 
+def flash_dispatch(q, k, v, causal, win, off, rounds=5):
+    """The flash op's host dispatch at one shape: CUDA events a call over
+    back-to-back calls of the op (``torch.ops.repro_torch.flash_fwd``, as
+    every path reaches the kernel) and of its CUDA implementation called
+    directly (``ops._flash_fwd_cuda``: the same planned launch without the
+    dispatcher), alternated ``rounds`` times so that both meet the host's
+    load alike; (op ms, direct ms), each the median of its rounds. The
+    two outputs are held equal bitwise."""
+    import statistics
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    op = lambda: torch.ops.repro_torch.flash_fwd(  # noqa: E731
+        q, k, v, causal, win, off)
+    direct = lambda: ops._flash_fwd_cuda(q, k, v, causal, win, off)  # noqa: E731
+    if not torch.equal(op(), direct()):
+        raise AssertionError("flash through the op differs from the direct "
+                             "launch")
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(cuda_timed(op))
+        b.append(cuda_timed(direct))
+    return statistics.median(a), statistics.median(b)
+
+
 def phase_timing(cfg, shapes):
     """Flash at each of the serve phase's prefill shapes, bf16: the planned
     call (wgmma) and the ffma route beside the plain version and sdpa with
@@ -2644,6 +2980,7 @@ def phase_timing(cfg, shapes):
             if not err <= tol:
                 raise AssertionError(f"flash {name} disagrees at S {s} "
                                      f"q_offset {off}: {err} > {tol}")
+        op_ms, direct_ms = flash_dispatch(q, k, v, True, None, off)
         n_bytes, n_ops = flash_work(s, t, d, h, hkv, off, 2)
         t_bytes = n_bytes / PEAK_BYTES * 1e3
         t_ops = n_ops / PEAK_OPS["bfloat16"] * 1e3
@@ -2657,6 +2994,7 @@ def phase_timing(cfg, shapes):
                 bound_by="bytes" if t_bytes > t_ops else "operations",
                 max_abs_err=max(errs[route], errs["float32"])
                 if route == "ffma" else errs[route]))
+        rows["wgmma"][-1].update(op_ms=op_ms, direct_ms=direct_ms)
         log(f"[timing] flash bf16 q[1,{h},{s},{d}] kv[1,{hkv},{t},{d}] "
             f"q_offset {off} (plan {planned[0]} tile {planned[1]}): events "
             f"wgmma {events['wgmma']:.4f} ms, ffma {events['ffma']:.4f} ms, "
@@ -2670,7 +3008,8 @@ def phase_timing(cfg, shapes):
             f"({'bytes' if t_bytes > t_ops else 'operations'}); max|err| "
             f"bf16 wgmma {errs['wgmma']:.3e}, ffma {errs['ffma']:.3e} (tol "
             f"{FLASH_TOL['bfloat16']:g}), f32 {errs['float32']:.3e} (tol "
-            f"{FLASH_TOL['float32']:g})")
+            f"{FLASH_TOL['float32']:g}); dispatch: the op {op_ms:.4f} ms, "
+            f"the direct launch {direct_ms:.4f} ms by events")
     return rows
 
 
@@ -2698,6 +3037,7 @@ def timing_flash_f32(shape):
              if c != before[r]}
     if taken != {"ffma": 23}:
         raise AssertionError(f"the f32 calls took routes {taken}")
+    op_ms, direct_ms = flash_dispatch(q, k, v, True, None, 0)
     err = (call() - ref.attention(q, k, v)).abs().max().item()
     if not err <= FLASH_TOL["float32"]:
         raise AssertionError(f"flash ffma f32 disagrees: {err}")
@@ -2706,6 +3046,7 @@ def timing_flash_f32(shape):
                     cuda_timed(sdpa), n_bytes, n_ops, PEAK_OPS["float32"],
                     err),
                device_ms=_device_ms(call), library_device_ms=_device_ms(sdpa),
+               op_ms=op_ms, direct_ms=direct_ms,
                timed_at=f"f32 q[1,{h},{s},{d}] kv[1,{hkv},{t},{d}] "
                         f"q_offset 0 (the f32 smoke model's prefill)")
     log(f"[timing] flash ffma {row['timed_at']}: events {row['ms']:.4f} ms, "
@@ -2713,7 +3054,8 @@ def timing_flash_f32(shape):
         f"ms; device {row['device_ms']:.4f} ms, sdpa mask "
         f"{row['library_device_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
         f"({row['bound_by']}); max|err| {err:.3e} (tol "
-        f"{FLASH_TOL['float32']:g})")
+        f"{FLASH_TOL['float32']:g}); dispatch: the op {op_ms:.4f} ms, the "
+        f"direct launch {direct_ms:.4f} ms by events")
     return row
 
 
@@ -2766,6 +3108,7 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
              if c != before[r]}
     if taken != {"wgmma": 23}:
         raise AssertionError(f"the timed calls took routes {taken}")
+    op_ms, direct_ms = flash_dispatch(q, k, v, causal, win, off)
     device = _device_ms(call)
     plain_ms = cuda_timed(lambda: ref.attention(
         q, k, v, window=win, q_offset=off, causal=causal), iters=5)
@@ -2792,6 +3135,7 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     row = dict(_row(ms, plain_ms, lib_ms[first][0], b * n_bytes,
                     b * n_ops, PEAK_OPS["bfloat16"], err),
                device_ms=device, library_device_ms=lib_ms[first][1],
+               op_ms=op_ms, direct_ms=direct_ms,
                timed_at=f"bf16 q[{b},{h},{s},{d}] kv[{b},{hkv},{t},{d}] "
                         f"q_offset {off}, "
                         + (f"window {win}" if causal else "non-causal")
@@ -2809,8 +3153,22 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
         f"{b * n_ops / device / 1e9:.1f} TFLOP/s by device time; max|err| "
         f"{err:.3e}, sdpa "
         + ", ".join(f"{n} {e:.3e}" for n, e in lib_err.items())
-        + f" (tol {tol:g})")
+        + f" (tol {tol:g}); dispatch: the op {op_ms:.4f} ms, the direct "
+        f"launch {direct_ms:.4f} ms by events")
     return row
+
+
+#: a flash timing row's keys that go into the kernels line (the first five
+#: in every row)
+FLASH_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "device_ms", "library_device_ms", "is_causal_ms",
+              "is_causal_device_ms", "op_ms", "direct_ms", "timed_at")
+
+
+def flash_keys(row) -> dict:
+    """A flash timing row's numbers for the kernels line."""
+    return {k: row[k] for k in FLASH_KEYS[:5]} | {
+        k: row[k] for k in FLASH_KEYS[5:] if k in row}
 
 
 def _row(ms, plain_ms, lib_ms, n_bytes, n_ops, peak_ops, err):
@@ -3093,9 +3451,13 @@ def phase_record_cli():
                          text=True, timeout=300)
     for line in rec.stdout.strip().splitlines():
         log(f"[record_cli] record: {line}")
+    GATE_DIR.mkdir(parents=True, exist_ok=True)
+    replay = py + ["repro_torch.launch.replay", str(trace), "--ttl", "0.3",
+                   "--cap", "150"]
     runs = {
-        "replay": py + ["repro_torch.launch.replay", str(trace), "--ttl",
-                        "0.3", "--cap", "150", "--check-determinism"],
+        "replay": replay + ["--check-determinism", "--json",
+                            str(GATE_DIR / "replay_a.json")],
+        "replay again": replay + ["--json", str(GATE_DIR / "replay_b.json")],
         **{f"bench {b}": py + ["repro_torch.benchmarks.run", "--only", b]
            for b in ("energy", "elastic", "scheduler")},
     }
@@ -3156,7 +3518,7 @@ def main() -> int:
     f32_launches, f32_shape = phase_small()
     cfg, eng, launches, shapes = phase_serve(card)
     launches.update(bench_launches)
-    phase_profile(eng)
+    dry_b = dryrun_decode(eng, phase_profile(eng), card)
     del eng                                    # frees the 56 GB of weights
     free_card()
     wcfg, wmodel, wparams, weng, wlaunches, wshapes = phase_serve_window(
@@ -3186,6 +3548,8 @@ def main() -> int:
     free_card()
     train = phase_train(card)
     free_card()
+    dry_a = dryrun_train(card, train)
+    dry_s = dryrun_sizes(card)
     phase_parallel(card)
     flash_rows = phase_timing(cfg, shapes)
     window_rows = timing_window(wcfg)
@@ -3228,6 +3592,19 @@ def main() -> int:
         errs, dpa_rows[("dpa_matmul/dpa4", 4096)]["transpose_device_ms"])
     phase_cli()
     phase_record_cli()
+    t_gate = time.perf_counter()
+    gate_rcs = dryrun_gate()
+    log(f"[dryrun] phase: (a) train FLOPs {dry_a['flops']:.6e} equal on meta "
+        f"and the card, {dry_a['launches']} flash launches, peak dry-run "
+        f"{dry_a['dry_peak'] / 1e9:.3f} GB vs card "
+        f"{dry_a['peak'] / 1e9:.3f} GB, compute / memory terms "
+        f"{dry_a['compute_ms']:.1f} / {dry_a['memory_ms']:.1f} ms; (b) "
+        f"decode FLOPs {dry_b['flops']:.6e} equal, memory term "
+        f"{dry_b['memory_ms']:.2f} ms vs device busy {dry_b['busy_ms']:.2f} "
+        f"ms; (c), (d) in {dry_s:.1f} s; (e) gate {gate_rcs}; the phase's "
+        f"dry-run work {dry_a['seconds'] + dry_b['seconds'] + dry_s + time.perf_counter() - t_gate:.1f} s "
+        f"(budget {DRYRUN['budget_s']:.0f} s; the card steps of (a) and (b) "
+        f"not included); card: {card}")
     # flash on each route at its own path's shape: wgmma at the serve's
     # largest prefill (bf16), launches from the serve phase; ffma at the
     # f32 smoke model's prefill, launches from that model (its bf16 times
@@ -3253,9 +3630,7 @@ def main() -> int:
             "max_abs_err": max([flash_errs[route], top["max_abs_err"]]
                                + [r["max_abs_err"]
                                   for r in flash_rows[route]]),
-            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "device_ms",
-                                   "library_device_ms", "timed_at")},
+            **flash_keys(top),
         })
     # the same wgmma route on gemma3-27b's serve: its local layers (window
     # 1024) and its global layers (causal), each timed at S 2048 and
@@ -3271,9 +3646,7 @@ def main() -> int:
             "launches": wlaunches[tag],
             "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"],
                                held_err),
-            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "device_ms",
-                                   "library_device_ms", "timed_at")},
+            **flash_keys(row),
         })
     # the same wgmma route under the train phase's gradient: granite-20b's
     # 4 layers x 2 microbatches x 6 steps, each a forward and a remat
@@ -3285,11 +3658,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/"
                     "flash_attention.py:22",
         "launches": train["launches"],
+        # the dryrun phase's counted step (one step of the same
+        # configuration through ShardedTrainStep on a one-device RankMesh
+        # under the op counter) launched flash this often, all wgmma
+        "dryrun_launches": dry_a["launches"],
         "max_abs_err": max(flash_errs["wgmma"], train_row["max_abs_err"]),
-        **{k: train_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms", "device_ms",
-                                     "library_device_ms", "is_causal_ms",
-                                     "is_causal_device_ms", "timed_at")},
+        **flash_keys(train_row),
     })
     # the same wgmma route on the MoE and VLM paths: deepseek-moe-16b's
     # serve (28 layers x prefills) and internvl2-76b's forward and text
@@ -3306,11 +3680,7 @@ def main() -> int:
             "launches": n,
             "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"],
                                held),
-            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "device_ms",
-                                   "library_device_ms", "is_causal_ms",
-                                   "is_causal_device_ms", "timed_at")
-               if k in row},
+            **flash_keys(row),
         })
     # the same wgmma route on the recurrent families' serves, head dim 64
     # and MHA: whisper-small's (its encoder's non-causal launches and its
@@ -3327,11 +3697,7 @@ def main() -> int:
             "launches": rec[arch]["launches"],
             "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"],
                                rec_held_err),
-            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "device_ms",
-                                   "library_device_ms", "is_causal_ms",
-                                   "is_causal_device_ms", "timed_at")
-               if k in row},
+            **flash_keys(row),
         })
     # STREAM at 128 MiB f32, dpa_matmul at 4096^3; each error is the
     # largest over every case the kernel was held at

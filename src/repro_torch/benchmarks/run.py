@@ -9,8 +9,9 @@ others run (their rows name the host CPU).
         [--device cpu]
 
 ``--only checkpoint`` runs the checkpoint I/O bench alone (``--only
-bandwidth|peak|launch|energy|elastic|scheduler|serving`` the others;
-serving is ``bench_serving``'s scenarios on the smoke models).
+bandwidth|peak|launch|energy|elastic|scheduler|serving|roofline`` the
+others; serving is ``bench_serving``'s scenarios on the smoke models,
+roofline the report of the dry-run's records, which touches no device).
 """
 import argparse
 import importlib
@@ -25,6 +26,7 @@ MODULES = [
     ("launch latency (Fig. 8)", "repro_torch.benchmarks.bench_launch_latency"),
     ("checkpoint I/O (Fig. 9)", "repro_torch.benchmarks.bench_checkpoint_io"),
     ("serving (continuous vs static)", "repro_torch.benchmarks.bench_serving"),
+    ("roofline (dry-run)", "repro_torch.benchmarks.bench_roofline"),
     ("energy platform (Sec. 4)", "repro_torch.benchmarks.bench_energy_platform"),
     ("elastic power (Sec. 3.4)", "repro_torch.benchmarks.bench_elastic"),
     ("hetero scheduling (Sec. 6.1)", "repro_torch.benchmarks.bench_scheduler"),

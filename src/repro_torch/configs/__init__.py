@@ -1,3 +1,6 @@
-from repro_torch.configs.base import ARCH_NAMES, ModelConfig, get, get_smoke
+from repro_torch.configs.base import (ARCH_NAMES, SHAPES, ModelConfig,
+                                     ShapeConfig, all_cells, get, get_smoke,
+                                     shape_cells)
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get", "get_smoke"]
+__all__ = ["ARCH_NAMES", "SHAPES", "ModelConfig", "ShapeConfig", "all_cells",
+           "get", "get_smoke", "shape_cells"]

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +155,21 @@ def get(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module_for(name).SMOKE_CONFIG
+
+
+def shape_cells(arch: str) -> Tuple[str, ...]:
+    """Which assigned shapes run for this arch: every arch trains at 4k,
+    prefills and decodes at 32k; the subquadratic ones also decode at
+    500k."""
+    cfg = get(arch)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        cells.append("long_500k")
+    return tuple(cells)
+
+
+def all_cells():
+    """Every (arch, shape) cell, in ``ARCH_NAMES`` order."""
+    for arch in ARCH_NAMES:
+        for shape in shape_cells(arch):
+            yield arch, shape

@@ -20,6 +20,16 @@ stand-in, so this backward is the reference's, not a fallback.
 Routes: ``wgmma`` (bf16 with D 64 or 128 on 16-byte-aligned tensors:
 tensor cores, GQA-packed query tiles fed by a TMA ring) and ``ffma`` (f32,
 and other bf16: f32 FMA on the CUDA cores, true f32 for f32 inputs).
+
+The forward is the custom op ``torch.ops.repro_torch.flash_fwd`` (a
+``torch.library`` op), so that a dispatch mode (``torch.utils.flop_counter.FlopCounterMode``, the port's
+``perf.op_cost`` counter) sees the kernel as one op: its CPU
+implementation is the plain version, its CUDA implementation the planned
+kernel, its fake (the meta device) an empty output of q's shape, and its
+flop formula counts ``4·B·H·S·T·D``, dense S x T, as the reference's
+XLA program does (``blocked_attention`` computes every key block and
+masks after the dot). The kernel itself skips the blocks its mask hides:
+its bound counts the visible (query, key) pairs instead.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
@@ -141,12 +152,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _forward(q, k, v, causal, window, q_offset):
-    """The plain version on the host, the planned kernel on the card."""
-    if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    """The plain version on the host, the planned kernel on the card, an
+    empty output on the meta device: the custom op ``flash_fwd``."""
+    return torch.ops.repro_torch.flash_fwd(q, k, v, causal, window,
+                                           q_offset)
+
+
+# the op's library, defined once at import; its kernels are registered
+# straight on the dispatcher: ``torch.library.custom_op``'s per-call
+# wrappers cost ~45 us a call by CUDA events on the H100's host, more
+# than the rest of a serve-shape call (~31 us)
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window, int q_offset) -> Tensor")
+
+
+def _flash_fwd_cpu(q, k, v, causal, window, q_offset):
+    """The forward on host tensors: the plain version."""
+    return ref.attention(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def _flash_fwd_cuda(q, k, v, causal, window, q_offset):
+    """The forward on CUDA tensors: the planned kernel, counted."""
     b, h, s, d = q.shape
     index = q.device.index
     if index is None:
@@ -155,6 +183,24 @@ def _forward(q, k, v, causal, window, q_offset):
     route, block_m = plan(b, h, k.shape[1], s, k.shape[2], d, q.dtype,
                           _sm_count(index), aligned)
     return _launch(q, k, v, causal, window, q_offset, route, block_m)
+
+
+@torch.library.register_fake("repro_torch::flash_fwd", lib=_LIB)
+def _flash_fwd_fake(q, k, v, causal, window, q_offset):
+    """Shapes only (the meta device): launches nothing."""
+    return torch.empty_like(q)
+
+
+_LIB.impl("flash_fwd", _flash_fwd_cpu, "CPU")
+_LIB.impl("flash_fwd", _flash_fwd_cuda, "CUDA")
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_flop(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    """2·B·H·S·T·D for QKᵀ and as many for PV, over every (query, key)
+    pair whatever the mask."""
+    b, h, s, d = q_shape
+    return 4 * b * h * s * k_shape[2] * d
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,0 +1,354 @@
+"""Dry-run: count every (architecture x input shape) cell on the production
+meshes without a device, and record the roofline's inputs (the
+reference's ``repro.launch.dryrun``).
+
+The reference lowers and compiles each cell for 512 fake CPU devices and
+reads the executable. The port has no compiler: it runs ONE RANK's step
+of the cell on the meta device (shapes and dtypes, no storage), on a
+``launch.mesh.RankMesh`` whose collectives are shape-only stand-ins,
+under the op counter (``perf.op_cost``). Nothing is allocated on any
+device and no process group is opened. A train cell runs
+``ShardedTrainStep`` (each parameter gathered to full, the rank's rows of
+each microbatch, full f32 gradients all-reduced, AdamW on the rank's
+blocks: what a rank of the port runs); a serve cell runs the model's
+``prefill`` or ``decode_step`` on the rank's batch rows with the
+parameters gathered to full (the port computes every head on a rank, so
+its caches split over the batch only).
+
+Run:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-20b \\
+        --shape train_4k --mesh single
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+
+Records land in build/dryrun/<mesh>/<arch>__<shape>.json and are read by
+the port's roofline report (``repro_torch.benchmarks.bench_roofline``).
+Each holds the reference's keys, ``peak_gb`` (decimal GB) and ``fits``:
+the rank's peak live bytes at most ``H100_SXM.mem_gb``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import time
+import traceback
+
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.core.hw import H100_SXM
+from repro_torch.core.tracing import TraceStats, counting_call
+from repro_torch.launch.mesh import RankMesh, make_production_mesh
+from repro_torch.models import abstract_params, build_model, token_batch_specs
+from repro_torch.parallel.sharding import (LOGICAL_RULES, NamedSharding,
+                                           mesh_shape)
+from repro_torch.perf import op_cost, roofline, step_analysis
+from repro_torch.serve.step import abstract_cache, cache_specs
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.train.optimizer import OptConfig, tree_map
+from repro_torch.train.step import (ShardedTrainStep, StepConfig, TrainState,
+                                    batch_specs, param_specs, state_specs)
+
+RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
+
+# per-shape microbatching (the reference's choice)
+N_MICRO = {"train_4k": 16}
+
+#: variants whose flag the port's model does not have (XLA scheduling and
+#: precision knobs of the reference)
+XLA_ONLY = ("barrier", "carry_barrier", "scores_bf16")
+
+
+def serve_rules(cfg, shape, mesh):
+    """Cell-specific sharding-rule overrides for serving."""
+    rules = {}
+    sizes = mesh_shape(mesh)
+    model_size = sizes.get("model", 1)
+    if shape.global_batch == 1:
+        # long-context decode, batch unshardable: sequence-shard the caches
+        rules["batch"] = None
+        rules["kv_seq"] = ("pod", "data") if "pod" in sizes else ("data",)
+    elif cfg.num_kv_heads % model_size != 0:
+        # GQA/MQA: too few KV heads for TP -> shard cache sequence instead
+        # (flash-decoding-style parallel KV)
+        rules["kv_seq"] = "model"
+    return rules
+
+
+FSDP_RULES = {
+    # pure ZeRO-3 layout: every param's embed dim + the batch sharded over
+    # the WHOLE mesh; no tensor parallelism (no activation all-reduces)
+    "embed": ("pod", "data", "model"),
+    "vocab": None, "heads": None, "kv_heads": None, "mlp": None,
+    "experts": None, "ssm_inner": None,
+    "batch": ("pod", "data", "model"),
+    "act_heads": None, "act_kv_heads": None, "act_experts": None,
+    "act_vocab": None, "act_mlp": None,
+}
+
+EP_RULES = {
+    # MoE hybrid: ZeRO-3 everywhere (batch + param embed dims over the whole
+    # mesh) EXCEPT experts, which shard over ``model`` and run via
+    # all-to-all EP — no expert-weight gathers, dense compute fully
+    # data-parallel
+    "embed": ("pod", "data", "model"),
+    "vocab": None, "heads": None, "kv_heads": None, "mlp": None,
+    "experts": "model", "ssm_inner": None,
+    "batch": ("pod", "data", "model"),
+    "act_heads": None, "act_kv_heads": None, "act_experts": None,
+    "act_vocab": None, "act_mlp": None,
+}
+
+
+def _meta(shapes, dtype):
+    """Meta tensors of a shape tree."""
+    return tree_map(lambda s: torch.empty(s, dtype=dtype, device="meta"),
+                    shapes)
+
+
+def _cut(tree, spec_tree, mesh):
+    """The rank's blocks of ``tree`` (nested dicts and tuples of
+    tensors) laid out by ``spec_tree`` on ``mesh`` (a ``RankMesh``)."""
+    if isinstance(tree, torch.Tensor):
+        return NamedSharding(mesh, spec_tree).block(tree)
+    if isinstance(tree, dict):
+        return {k: _cut(tree[k], spec_tree[k], mesh) for k in tree}
+    return tuple(_cut(t, s, mesh) for t, s in zip(tree, spec_tree))
+
+
+def _shape(shape) -> ShapeConfig:
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def build_cell(arch: str, shape_name, mesh, variant=None, cfg=None):
+    """Returns (fn, args, cfg, shape, info): ``fn(*args)`` runs one rank's
+    step of the cell on meta tensors.
+
+    ``mesh``: an abstract mesh (``make_production_mesh``, a dict of axis
+    sizes); ``shape_name``: a name of ``SHAPES`` or a ``ShapeConfig``;
+    ``cfg``: the config to run (``configs.get(arch)`` by default; a cut
+    depth, for example). ``variant`` (perf hillclimbing): {layout:
+    "2d"|"fsdp"|"ep", n_micro: int, cast_once: bool, vocab_chunks: int,
+    moe_shard_map: bool}. ``info["argument_bytes"]`` holds the rank's
+    argument bytes from the specs."""
+    variant = dict(variant or {})
+    refused = [k for k in XLA_ONLY if variant.get(k)]
+    if refused:
+        raise ValueError(f"variant {refused}: an XLA knob the port's model "
+                         "has no counterpart for")
+    sizes = mesh_shape(mesh)
+    base = cfg if cfg is not None else configs.get(arch)
+    cfg = base.adapt_for_mesh(sizes.get("model", 1))
+    shape = _shape(shape_name)
+    rank = RankMesh(sizes)
+    n_chips = rank.size
+
+    if shape.kind == "train":
+        layout = variant.get("layout", "2d")
+        rules = None
+        if layout == "fsdp":
+            rules = dict(FSDP_RULES)
+        elif layout == "ep":
+            rules = dict(EP_RULES)
+            variant = dict(variant, moe_shard_map=1, n_micro=1)
+        if rules is not None:
+            # drop axes absent from this mesh
+            rules = {k: (tuple(a for a in v if a in sizes)
+                         if isinstance(v, tuple) else v)
+                     for k, v in rules.items()}
+            if layout == "fsdp" and shape.global_batch % n_chips:
+                raise ValueError("fsdp layout needs batch divisible by chip "
+                                 "count")
+        kw = ({"moe_impl": "shard_map"} if variant.get("moe_shard_map")
+              and cfg.is_moe else {})
+        model = build_model(cfg, rank, shd_rules=rules, **kw)
+        shapes, axes = abstract_params(model)
+        dp_total = n_chips // sizes.get("model", 1)
+        default_micro = 1 if layout == "fsdp" else min(
+            N_MICRO.get(shape.name, 8),
+            max(shape.global_batch // (dp_total or 1), 1))
+        n_micro = variant.get("n_micro", default_micro)
+        step_cfg = StepConfig(num_microbatches=n_micro,
+                              cast_params_once=bool(variant.get("cast_once")),
+                              vocab_chunks=variant.get("vocab_chunks", 1))
+        step = ShardedTrainStep(model, OptConfig(), step_cfg, rank, rules)
+        params = _meta(shapes, getattr(torch, cfg.param_dtype))
+        state = TrainState(params, opt_mod.abstract_opt_state(params))
+        batch = token_batch_specs(cfg, shape)
+        arg_bytes = (
+            step_analysis.rank_bytes(sizes, state_specs(sizes, shapes, axes,
+                                                        rules), state)
+            + step_analysis.rank_bytes(sizes, batch_specs(sizes, batch,
+                                                          rules), batch))
+        state = step.layout(state)
+        info = {"kind": "train", "n_micro": n_micro, "layout": layout,
+                "variant": variant, "argument_bytes": arg_bytes}
+        return step, (state, batch), cfg, shape, info
+
+    # serving cells: bf16 params, the rank's batch rows
+    scfg = cfg.replace(param_dtype="bfloat16")
+    model = build_model(scfg, rank)
+    shapes, axes = abstract_params(model)
+    rules = serve_rules(scfg, shape, rank)
+    pspecs = param_specs(sizes, shapes, axes, rules)
+    lay = tree_map(lambda s: NamedSharding(rank, s), pspecs)
+    full_params = _meta(shapes, getattr(torch, scfg.param_dtype))
+    # the port's model computes every head on a rank: its caches and
+    # batch split over the batch axes only
+    row_rules = {k: None for k in LOGICAL_RULES}
+    row_rules["batch"] = rules.get("batch", LOGICAL_RULES["batch"])
+    max_seq = shape.seq_len + (
+        scfg.stub_prefix_len if scfg.family == "vlm" else 0)
+    cache = abstract_cache(model, shape.global_batch, max_seq)
+    cspecs = cache_specs(sizes, model, cache, row_rules)
+    arg_bytes = (step_analysis.rank_bytes(sizes, pspecs, full_params)
+                 + step_analysis.rank_bytes(sizes, cspecs, cache))
+    params = _cut(full_params, pspecs, rank)
+    del full_params
+    cache = _cut(cache, cspecs, rank)
+
+    def gathered(p):
+        return tree_map(lambda b, sh: sh.gather(b), p, lay)
+
+    if shape.kind == "prefill":
+        batch = token_batch_specs(scfg, shape)
+        bspecs = batch_specs(sizes, batch, row_rules)
+        arg_bytes += step_analysis.rank_bytes(sizes, bspecs, batch)
+        batch = _cut(batch, bspecs, rank)
+
+        def fn(p, b, c):
+            with torch.no_grad():
+                return model.prefill(gathered(p), b, c)
+
+        return fn, (params, batch, cache), scfg, shape, {
+            "kind": "prefill", "rules": str(rules),
+            "argument_bytes": arg_bytes}
+
+    # decode: one new token against a cache of seq_len
+    tok = torch.empty((shape.global_batch, 1), dtype=torch.int32,
+                      device="meta")
+    tspec = batch_specs(sizes, {"t": tok}, row_rules)["t"]
+    arg_bytes += step_analysis.rank_bytes(sizes, tspec, tok)
+    tok = NamedSharding(rank, tspec).block(tok)
+    pos = shape.seq_len - 1
+
+    def fn(p, t, c):
+        with torch.no_grad():
+            return model.decode_step(gathered(p), t, pos, c)
+
+    return fn, (params, tok, cache), scfg, shape, {
+        "kind": "decode", "rules": str(rules), "argument_bytes": arg_bytes}
+
+
+def count_cell(fn, args):
+    """Run ``fn(*args)`` under a memory-tracking op counter that scales
+    loops; returns the counter. The arguments are live from the start."""
+    counter = op_cost.OpCounter(scale_loops=True, track_memory=True)
+    with counter:
+        counter.track(args)
+        out = fn(*args)
+        del out
+    return counter
+
+
+def analyze_cell(arch, shape_name, mesh, variant=None, cfg=None):
+    """Build, count and analyze one cell on ``mesh``; returns the record's
+    body (without timing keys) and the counter."""
+    fn, args, cfg, shape, info = build_cell(arch, shape_name, mesh,
+                                            variant, cfg)
+    stats = TraceStats()
+    counted = counting_call(fn, f"{info['kind']}:{arch}/{shape.name}",
+                            stats)
+    counter = count_cell(counted, args)
+    del args
+    analysis = step_analysis.analyze(counter, info.pop("argument_bytes"))
+    n_chips = RankMesh(mesh).size
+    shapes, _ = abstract_params(build_model(cfg))
+    n_total = roofline.count_params(shapes)
+    n_active = roofline.active_params(cfg, n_total)
+    mf = roofline.model_flops(cfg, shape, n_active)
+    rl = roofline.compute_roofline(analysis, n_chips, mf)
+    mem = analysis["memory"]
+    hbm = (mem["argument_bytes"] + mem["temp_bytes"])
+    mem_k = (analysis["bytes_accessed"]
+             - analysis["attn_score_bytes"]) / roofline.HBM_BW
+    t_k = max(rl.compute_s, mem_k, rl.collective_s)
+    rec = dict(info, analysis=analysis, roofline=rl.to_dict(),
+               n_params=n_total, n_params_active=n_active,
+               jit_traces=stats.snapshot(),
+               hbm_per_device_gb=hbm / 2 ** 30,
+               hbm_adjusted_gb=(hbm - analysis["f32_hoist_bytes"]) / 2 ** 30,
+               peak_gb=analysis["peak_bytes"] / 1e9,
+               fits=analysis["peak_bytes"] <= H100_SXM.mem_gb * 1e9,
+               memory_s_with_kernel=mem_k,
+               roofline_frac_with_kernel=rl.compute_s / t_k if t_k else 0.0)
+    return rec, counter
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, force=False,
+             out_dir=None):
+    out_dir = pathlib.Path(out_dir or RESULTS) / mesh_kind
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = out_dir / f"{arch}__{shape_name}.json"
+    if out_path.exists() and not force:
+        rec = json.loads(out_path.read_text())
+        if "error" not in rec:
+            print(f"[skip] {mesh_kind}/{arch}/{shape_name} (cached)")
+            return rec
+
+    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    t0 = time.time()
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+           "n_chips": mesh.size}
+    try:
+        body, _ = analyze_cell(arch, shape_name, mesh)
+        rec.update(body, wall_s=time.time() - t0)
+        rl = rec["roofline"]
+        print(f"[ok] {mesh_kind}/{arch}/{shape_name}: "
+              f"dominant={rl['dominant']} useful={rl['useful_ratio']:.2f} "
+              f"hbm={rec['hbm_per_device_gb']:.2f}GiB fits={rec['fits']} "
+              f"wall={rec['wall_s']:.0f}s")
+    except Exception as e:  # noqa: BLE001  (recorded; the CLI exits 1)
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        rec["wall_s"] = time.time() - t0
+        print(f"[FAIL] {mesh_kind}/{arch}/{shape_name}: {rec['error'][:300]}")
+    out_path.write_text(json.dumps(rec, indent=2, default=float))
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out-dir", default=None,
+                    help=f"records' directory (default {RESULTS})")
+    args = ap.parse_args(argv)
+
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    if args.all:
+        cells = list(configs.all_cells())
+    else:
+        if args.arch is None:
+            ap.error("--arch (or --all) is required")
+        shapes = [args.shape] if args.shape else list(
+            configs.shape_cells(args.arch))
+        cells = [(args.arch, s) for s in shapes]
+
+    failures = 0
+    for mesh_kind in meshes:
+        for arch, shape in cells:
+            rec = run_cell(arch, shape, mesh_kind, force=args.force,
+                           out_dir=args.out_dir)
+            failures += 1 if "error" in rec else 0
+    print(f"done: {len(cells) * len(meshes)} cells, {failures} failures")
+    raise SystemExit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,6 +6,12 @@ analogue: only data-parallel gradient reductions cross it. The
 production mesh is *abstract*: its axis names and sizes, which is all the
 sharding specs read; it touches no device and no process group.
 
+A ``RankMesh`` is one rank's view of a mesh with no process group: the
+axes' sizes, rank 0's coordinates and a stand-in group per axis
+(``parallel.comm.ShapeGroup``). The dry-run runs a rank's step on it: the
+model treats its tensors as the rank's blocks, as on a DeviceMesh, and
+each collective is shape-only.
+
 The host mesh is a ``torch.distributed`` DeviceMesh over the running
 process group's ranks, axes ("pod", "data", "model") in that order (a dim
 split over ("pod", "data") is then split major to minor, as JAX does).
@@ -34,6 +40,39 @@ class AbstractMesh:
     @property
     def size(self) -> int:
         return math.prod(self.axis_sizes)
+
+
+class RankMesh:
+    """Rank 0 of a mesh (an ``AbstractMesh``, a dict of sizes or anything
+    with ``shape``) with stand-in collectives. Every rank's blocks have
+    one shape, so rank 0's step is every rank's to count. ``world`` is
+    the stand-in group of every rank."""
+
+    def __init__(self, mesh):
+        from repro_torch.parallel.sharding import mesh_shape
+        self.sizes = mesh_shape(mesh)
+        self.mesh_dim_names = tuple(self.sizes)
+        self.shape = tuple(self.sizes.values())
+        self.coords = {a: 0 for a in self.sizes}
+        self.world = self.get_group()
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def get_coordinate(self):
+        return [self.coords[a] for a in self.mesh_dim_names]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def get_group(self, axis=None):
+        """The stand-in group along ``axis`` (a name or a tuple of names;
+        every axis for None)."""
+        from repro_torch.parallel.comm import ShapeGroup
+        axes = self.mesh_dim_names if axis is None else (
+            (axis,) if isinstance(axis, str) else tuple(axis))
+        return ShapeGroup(self.sizes, axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import loops
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models.xlstm import CHUNK, _causal_conv
@@ -54,37 +55,45 @@ def ssd_chunkwise(x, b_mat, c_mat, dt, a, state, chunk=CHUNK):
 
     The state update's three-operand product (``"bsn,bshp,bsh->bhnp"``)
     folds the decay into x first and is then one batched matmul."""
-    bs, t, nh, p = x.shape
-    n = b_mat.shape[-1]
-    w = min(chunk, t)
-    assert t % w == 0, (t, w)
-    S = state
+    w = min(chunk, x.shape[1])
+    assert x.shape[1] % w == 0, (x.shape[1], w)
     mask = torch.tril(torch.ones((w, w), dtype=torch.bool, device=x.device))
-    ys = []
-    for c0 in range(0, t, w):
-        sl = slice(c0, c0 + w)
-        xf = x[:, sl].float()
-        bf, cf = b_mat[:, sl].float(), c_mat[:, sl].float()
-        dtc = dt[:, sl]
-        logf = dtc * a                                     # [B,W,H] <= 0
-        lc = torch.cumsum(logf, dim=1)
-        ltot = lc[:, -1]                                   # [B,H]
-        # intra-chunk
-        dm = lc[:, :, None, :] - lc[:, None, :, :]         # [B,W,W,H]
-        A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
-        cb = cf @ bf.transpose(-1, -2)                     # [B,W,W]
-        scores = cb[..., None] * A * dtc[:, None, :, :]    # [B,W,W,H]
-        xh = xf.transpose(1, 2)                            # [B,H,W,P]
-        y_intra = scores.permute(0, 3, 1, 2) @ xh          # [B,H,W,P]
-        # inter-chunk
-        y_inter = (cf[:, None] @ S) * torch.exp(lc).transpose(1, 2)[..., None]
-        ys.append((y_intra + y_inter).transpose(1, 2))
-        # state update
-        sdecay = torch.exp(ltot[:, None] - lc) * dtc       # [B,W,H]
-        xs = (xf * sdecay[..., None]).reshape(bs, w, nh * p)
-        upd = (bf.transpose(-1, -2) @ xs).reshape(bs, n, nh, p)
-        S = torch.exp(ltot)[..., None, None] * S + upd.permute(0, 2, 1, 3)
-    return torch.cat(ys, dim=1), S
+    # the chunks have one shape: without a gradient a dry-run runs the
+    # first (core.loops.scan; under one, the block's remat recomputes them)
+    chunks = list(zip(*(t.split(w, dim=1) for t in (x, b_mat, c_mat, dt))))
+    S, ys = loops.scan(_ssd_chunk, (state,), chunks, (a, mask),
+                         scale_grad=False)
+    return torch.cat(ys, dim=1), S[0]
+
+
+def _ssd_chunk(carry, xs, a, mask):
+    """One chunk of ``ssd_chunkwise``: carry (S,) and the chunk's x
+    [B,W,H,P], b/c [B,W,N], dt [B,W,H] -> (carry, y [B,W,H,P])."""
+    S, = carry
+    x, b_mat, c_mat, dtc = xs
+    bs, w, nh, p = x.shape
+    n = b_mat.shape[-1]
+    xf = x.float()
+    bf, cf = b_mat.float(), c_mat.float()
+    logf = dtc * a                                         # [B,W,H] <= 0
+    lc = torch.cumsum(logf, dim=1)
+    ltot = lc[:, -1]                                       # [B,H]
+    # intra-chunk
+    dm = lc[:, :, None, :] - lc[:, None, :, :]             # [B,W,W,H]
+    A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
+    cb = cf @ bf.transpose(-1, -2)                         # [B,W,W]
+    scores = cb[..., None] * A * dtc[:, None, :, :]        # [B,W,W,H]
+    xh = xf.transpose(1, 2)                                # [B,H,W,P]
+    y_intra = scores.permute(0, 3, 1, 2) @ xh              # [B,H,W,P]
+    # inter-chunk
+    y_inter = (cf[:, None] @ S) * torch.exp(lc).transpose(1, 2)[..., None]
+    y = (y_intra + y_inter).transpose(1, 2)
+    # state update
+    sdecay = torch.exp(ltot[:, None] - lc) * dtc           # [B,W,H]
+    xs_ = (xf * sdecay[..., None]).reshape(bs, w, nh * p)
+    upd = (bf.transpose(-1, -2) @ xs_).reshape(bs, n, nh, p)
+    S = torch.exp(ltot)[..., None, None] * S + upd.permute(0, 2, 1, 3)
+    return (S,), y
 
 
 def ssd_step(x, b_mat, c_mat, dt, a, state):

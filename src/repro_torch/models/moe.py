@@ -267,7 +267,7 @@ def moe_apply_shard_map(x, p, cfg: ModelConfig, shd):
     back = comm.all_to_all(out, group).reshape(1, e, capacity, d)
     yr = combine(back, routing, weights, keep, t_rank, k)[0]
     y = yr if cover else comm.all_gather(yr, group)
-    aux = comm.all_reduce_mean(aux.mean())
+    aux = comm.all_reduce_mean(aux.mean(), comm.world_group(mesh))
     y = y.reshape(bl, s, d)
     if cfg.num_shared_experts:
         y = y + common.mlp(x, p["shared"])

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import mamba2, transformer, whisper, xlstm
 from repro_torch.models.mamba2 import Zamba2
 from repro_torch.models.transformer import DecoderLM
@@ -85,3 +87,23 @@ def abstract_params(model):
             return {k: shapes(v) for k, v in tree.items()}
         return tuple(tree[0])
     return shapes(_SHAPES[type(model)](model.cfg)), model.param_axes()
+
+
+def token_batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The train or prefill batch of ``shape`` for this arch as meta
+    tensors (the reference's ShapeDtypeStructs, in its dtypes): int32
+    ``tokens`` (and ``labels`` to train), bf16 ``frames`` for audio and
+    bf16 ``patch_embeddings`` for the VLM."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = dict(device="meta")
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int32, **meta)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.empty((b, cfg.enc_seq, cfg.d_model),
+                                      dtype=torch.bfloat16, **meta)
+    if cfg.family == "vlm":
+        batch["patch_embeddings"] = torch.empty(
+            (b, cfg.stub_prefix_len, cfg.d_model), dtype=torch.bfloat16,
+            **meta)
+    if shape.kind == "train":
+        batch["labels"] = torch.empty((b, s), dtype=torch.int32, **meta)
+    return batch

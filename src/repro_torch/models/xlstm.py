@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import loops
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.parallel.sharding import Sharder
@@ -111,37 +112,45 @@ def mlstm_chunkwise(q, k, v, logi, logf, state, chunk=CHUNK):
     w = min(chunk, t)
     assert t % w == 0, (t, w)
     scale = 1.0 / np.sqrt(dh)
-    C, n = state
     mask = torch.tril(torch.ones((w, w), dtype=torch.bool, device=q.device))
-    hs = []
-    for c0 in range(0, t, w):
-        sl = slice(c0, c0 + w)
-        # heads first: [B,NH,W,dh]
-        qh = (q[:, sl].float() * scale).transpose(1, 2)
-        kh = k[:, sl].float().transpose(1, 2)
-        vh = v[:, sl].float().transpose(1, 2)
-        li, lf = logi[:, sl], logf[:, sl]
-        lc = torch.cumsum(lf, dim=1)                      # [B,W,NH] inclusive
-        ltot = lc[:, -1]                                  # [B,NH]
-        # intra-chunk: decay matrix A[t,s] = exp(lc_t - lc_s + li_s), s<=t
-        dm = lc[:, :, None, :] - lc[:, None, :, :] + li[:, None, :, :]
-        A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
-        scores = (qh @ kh.transpose(-1, -2)) * A.permute(0, 3, 1, 2)
-        num_intra = scores @ vh                           # [B,NH,W,dh]
-        den_intra = scores.sum(dim=-1)                    # [B,NH,W]
-        # inter-chunk: carried state decayed to each position
-        decay_t = torch.exp(lc).transpose(1, 2)           # [B,NH,W]
-        num_inter = (qh @ C) * decay_t[..., None]
-        den_inter = (qh @ n[..., None])[..., 0] * decay_t
-        den = (den_intra + den_inter).abs().clamp_min(1.0)
-        hs.append(((num_intra + num_inter) / den[..., None]).transpose(1, 2))
-        # state update: C' = exp(ltot) C + sum_s exp(ltot - lc_s + li_s) k v^T
-        sdecay = torch.exp(ltot[:, None] - lc + li).transpose(1, 2)
-        ks = kh * sdecay[..., None]                       # [B,NH,W,dh]
-        e = torch.exp(ltot)
-        C = e[..., None, None] * C + ks.transpose(-1, -2) @ vh
-        n = e[..., None] * n + ks.sum(dim=-2)
-    return torch.cat(hs, dim=1), (C, n)
+    # the chunks have one shape: without a gradient a dry-run runs the
+    # first (core.loops.scan; under one, the block's remat recomputes them)
+    chunks = list(zip(*(x.split(w, dim=1) for x in (q, k, v, logi, logf))))
+    state, hs = loops.scan(_mlstm_chunk, tuple(state), chunks,
+                             (mask, scale), scale_grad=False)
+    return torch.cat(hs, dim=1), state
+
+
+def _mlstm_chunk(state, xs, mask, scale):
+    """One chunk of ``mlstm_chunkwise``: state (C, n) and the chunk's q,
+    k, v [B,W,NH,dh] and log gates [B,W,NH] -> (state, h [B,W,NH,dh])."""
+    C, n = state
+    q, k, v, li, lf = xs
+    # heads first: [B,NH,W,dh]
+    qh = (q.float() * scale).transpose(1, 2)
+    kh = k.float().transpose(1, 2)
+    vh = v.float().transpose(1, 2)
+    lc = torch.cumsum(lf, dim=1)                          # [B,W,NH] inclusive
+    ltot = lc[:, -1]                                      # [B,NH]
+    # intra-chunk: decay matrix A[t,s] = exp(lc_t - lc_s + li_s), s<=t
+    dm = lc[:, :, None, :] - lc[:, None, :, :] + li[:, None, :, :]
+    A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
+    scores = (qh @ kh.transpose(-1, -2)) * A.permute(0, 3, 1, 2)
+    num_intra = scores @ vh                               # [B,NH,W,dh]
+    den_intra = scores.sum(dim=-1)                        # [B,NH,W]
+    # inter-chunk: carried state decayed to each position
+    decay_t = torch.exp(lc).transpose(1, 2)               # [B,NH,W]
+    num_inter = (qh @ C) * decay_t[..., None]
+    den_inter = (qh @ n[..., None])[..., 0] * decay_t
+    den = (den_intra + den_inter).abs().clamp_min(1.0)
+    h = ((num_intra + num_inter) / den[..., None]).transpose(1, 2)
+    # state update: C' = exp(ltot) C + sum_s exp(ltot - lc_s + li_s) k v^T
+    sdecay = torch.exp(ltot[:, None] - lc + li).transpose(1, 2)
+    ks = kh * sdecay[..., None]                           # [B,NH,W,dh]
+    e = torch.exp(ltot)
+    C = e[..., None, None] * C + ks.transpose(-1, -2) @ vh
+    n = e[..., None] * n + ks.sum(dim=-2)
+    return (C, n), h
 
 
 def mlstm_step(q, k, v, logi, logf, state):
@@ -199,6 +208,26 @@ def mlstm_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
     return x + h @ p["w_down"].to(h.dtype)
 
 
+def _slstm_step(carry, wx_t, r):
+    """One token of the sLSTM: carry (c, n, m, h) and the token's input
+    projection [B,4,NH,dh] -> (carry, h)."""
+    c, n, m, h = carry
+    rec = torch.einsum("bhd,ghde->bghe", h, r)            # [B,4,NH,dh]
+    pre = wx_t + rec
+    zi, ii, fi, oi = pre.unbind(1)
+    zi = torch.tanh(zi)
+    oi = torch.sigmoid(oi)
+    logi = ii.clamp_max(I_CLAMP)
+    logf = common.log_sigmoid(fi)
+    m_new = torch.maximum(logf + m, logi)
+    i_ = torch.exp(logi - m_new)
+    f_ = torch.exp(logf + m - m_new)
+    c = f_ * c + i_ * zi
+    n = f_ * n + i_
+    h = oi * c / n.abs().clamp_min(1.0)
+    return (c, n, m_new, h), h
+
+
 def slstm_block(x, p, cfg: ModelConfig, state):
     """Time-recurrent sLSTM with exponential gating and its stabiliser ``m``
     (which starts at -1e30, so the first step's gates reduce correctly): a
@@ -218,24 +247,9 @@ def slstm_block(x, p, cfg: ModelConfig, state):
         carry = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
     else:
         carry = state
-    c, n, m, h = carry
-    hs = []
-    for i in range(t):
-        rec = torch.einsum("bhd,ghde->bghe", h, r)        # [B,4,NH,dh]
-        pre = wx[:, i] + rec
-        zi, ii, fi, oi = pre.unbind(1)
-        zi = torch.tanh(zi)
-        oi = torch.sigmoid(oi)
-        logi = ii.clamp_max(I_CLAMP)
-        logf = common.log_sigmoid(fi)
-        m_new = torch.maximum(logf + m, logi)
-        i_ = torch.exp(logi - m_new)
-        f_ = torch.exp(logf + m - m_new)
-        c = f_ * c + i_ * zi
-        n = f_ * n + i_
-        h = oi * c / n.abs().clamp_min(1.0)
-        m = m_new
-        hs.append(h)
+    # the tokens have one shape: a dry-run runs the first (core.loops.scan)
+    (c, n, m, h), hs = loops.scan(_slstm_step, tuple(carry),
+                                    wx.unbind(1), (r,))
     if state is not None:
         for dst, src in zip(state, (c, n, m, h)):
             dst.copy_(src)

@@ -1,4 +1,4 @@
-"""Collectives that carry a gradient.
+"""Collectives that carry a gradient, and their shape-only stand-ins.
 
 ``torch.distributed``'s collectives have no autograd, so each one the
 model runs under a gradient is a ``torch.autograd.Function`` whose backward
@@ -7,60 +7,148 @@ global one: the backward of an all-to-all is the reverse all-to-all, that
 of an all-gather is the rank's slice of a sum over the group, and that of
 a mean over the group is the mean of the gradients. Each rank then holds a
 partial gradient of every weight it used, and the train step sums them.
+
+A :class:`ShapeGroup` (a ``launch.mesh.RankMesh``'s group: one rank's view
+of a mesh with no process group) stands in for a process group: each
+collective on it allocates what the real one allocates, moves no data,
+and is reported to the running op counter (``core.loops.counter``) with
+its result's bytes and the group's size. The dry-run runs a rank's step
+on such groups, on meta tensors; at one rank each collective is the
+identity, as the real one is, on any tensor.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import loops
 
-def _all_to_all(x, group):
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
+
+class ShapeGroup:
+    """The ranks along ``axes`` of a stand-in mesh (sizes ``sizes``) seen
+    from its rank 0. Above one rank its collectives take meta tensors
+    only: on real ones their results would be garbage."""
+
+    rank = 0
+
+    def __init__(self, sizes: dict, axes):
+        self.axes = tuple(axes)
+        self.size = math.prod(sizes[a] for a in self.axes)
+        self.crosses_pod = "pod" in self.axes and sizes["pod"] > 1
+
+    def _report(self, op: str, x: torch.Tensor, result: torch.Tensor):
+        if self.size > 1 and x.device.type != "meta":
+            raise RuntimeError(
+                f"a stand-in {op} over {self.size} ranks moves no data: it "
+                f"takes meta tensors only, not {x.device} ones")
+        c = loops.counter()
+        if c is not None:
+            c.collective(op, result.numel() * result.element_size(),
+                         self.size, self.crosses_pod)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        self._report("all-reduce", t, t)
+        return t
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
+        self._report("all-gather", x, out)
+        if self.size == 1:
+            out.copy_(x)
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        self._report("all-to-all", x, out)
+        if self.size == 1:
+            out.copy_(x)
+        return out
+
+
+class _ProcessGroup:
+    """``torch.distributed``'s collectives on ``group`` (None: the default
+    process group)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    @property
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=0)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x.contiguous(), group=self.group)
+        return out
+
+
+def _on(group):
+    """The collectives of ``group``: a stand-in's own, else
+    ``torch.distributed``'s."""
+    return group if isinstance(group, ShapeGroup) else _ProcessGroup(group)
+
+
+def world_group(mesh):
+    """The group of every rank of ``mesh``: a ``RankMesh``'s stand-in (its
+    ``world``), else None (the default process group, which a DeviceMesh
+    spans)."""
+    return getattr(mesh, "world", None)
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the group in place."""
+    return _on(group).all_reduce(t)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
-        return _all_to_all(x, group)
+        ctx.ops = _on(group)
+        return ctx.ops.all_to_all(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_to_all(g, ctx.group), None
+        return ctx.ops.all_to_all(g), None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=0)
+        ctx.ops = _on(group)
+        return ctx.ops.all_gather(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        n = dist.get_world_size(ctx.group)
-        return g.chunk(n, dim=0)[dist.get_rank(ctx.group)], None
+        ops = ctx.ops
+        g = ops.all_reduce(g.contiguous().clone())
+        return g.chunk(ops.size, dim=0)[ops.rank], None
 
 
 class _AllReduceMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y / dist.get_world_size(group)
+        ctx.ops = _on(group)
+        return ctx.ops.all_reduce(x.clone()) / ctx.ops.size
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g / dist.get_world_size(ctx.group), None
+        return ctx.ops.all_reduce(g.clone()) / ctx.ops.size, None
 
 
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:

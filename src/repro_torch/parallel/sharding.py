@@ -26,6 +26,8 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
+from repro_torch.parallel import comm
+
 # logical axis -> preferred mesh axis (None = replicate)
 LOGICAL_RULES = {
     # parameter axes
@@ -178,14 +180,10 @@ class NamedSharding:
         """Ranks that hold each block."""
         return math.prod(self.sizes.values()) // self.shards
 
-    def coords(self, rank: Optional[int] = None) -> dict:
-        """Mesh coordinates (axis -> index) of ``rank`` (the caller's own
-        rank for None) on a DeviceMesh."""
-        names = self.mesh.mesh_dim_names
-        if rank is None:
-            return dict(zip(names, self.mesh.get_coordinate()))
-        where = (self.mesh.mesh == rank).nonzero()[0].tolist()
-        return dict(zip(names, where))
+    def coords(self) -> dict:
+        """The caller's mesh coordinates (axis -> index)."""
+        return dict(zip(self.mesh.mesh_dim_names,
+                        self.mesh.get_coordinate()))
 
     def block_slices(self, shape, coords: dict) -> tuple:
         """Per-dim slices of the block at ``coords`` of a tensor of
@@ -219,18 +217,26 @@ class NamedSharding:
         return tuple(out)
 
     def gather(self, block: torch.Tensor) -> torch.Tensor:
-        """The full tensor from every rank's block (a collective over the
-        mesh's ranks; the block itself when the spec splits nothing)."""
+        """The full tensor from every rank's block (an all-gather over the
+        mesh's ranks, which are numbered row-major over its coordinates,
+        as ``init_device_mesh`` and a ``RankMesh`` number them; the block
+        itself when the spec splits nothing)."""
         if self.shards == 1:
             return block
-        import torch.distributed as dist
-        world = dist.get_world_size()
-        parts = [torch.empty_like(block) for _ in range(world)]
-        dist.all_gather(parts, block.contiguous())
-        full = block.new_empty(self.full_shape(block.shape))
-        for r, part in enumerate(parts):
-            full[self.block_slices(full.shape, self.coords(r))] = part
-        return full
+        names = list(self.sizes)
+        parts = comm.all_gather(block, comm.world_group(self.mesh))
+        parts = parts.view(tuple(self.sizes.values()) + tuple(block.shape))
+        # ranks that differ only on axes the spec does not name hold the
+        # same block: take coordinate 0 of those axes
+        split = [a for e in self.spec for a in spec_axes(e)]
+        parts = parts[tuple(slice(None) if a in split else 0 for a in names)]
+        kept = [a for a in names if a in split]
+        # full dim i is (its axes, major to minor; the block's dim i)
+        order = []
+        for i in range(block.dim()):
+            axes = spec_axes(self.spec[i]) if i < len(self.spec) else ()
+            order += [kept.index(a) for a in axes] + [len(kept) + i]
+        return parts.permute(order).reshape(self.full_shape(block.shape))
 
     def placements(self) -> list:
         """DTensor placements, one per mesh dim: ``Shard(i)`` where the

@@ -272,3 +272,9 @@ def cache_specs(mesh, model, cache_sds, rules=None):
     of ``cache_sds`` need only a ``shape`` (``init_cache(...,
     device="meta")`` allocates nothing)."""
     return tree_specs(mesh, model.cache_axes(), cache_sds, rules)
+
+
+def abstract_cache(model, batch: int, max_seq: int):
+    """The cache tree of ``batch`` rows of ``max_seq`` positions on the
+    meta device (``init_cache``'s shapes and dtypes; nothing allocated)."""
+    return model.init_cache(batch, max_seq, device="meta")

@@ -16,7 +16,8 @@ import math
 from typing import Dict, NamedTuple
 
 import torch
-import torch.distributed as dist
+
+from repro_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,11 +75,23 @@ def init_opt_state(params) -> OptState:
         step=torch.zeros((), dtype=torch.int32, device=leaf.device))
 
 
-def global_norm(tree, replicas=None) -> torch.Tensor:
+def abstract_opt_state(params_sds) -> OptState:
+    """The optimizer state of a parameter shape tree (``abstract_params``'
+    shapes, or tensors) on the meta device: f32 ``m`` and ``v`` of each
+    parameter's shape and the int32 step; nothing is allocated."""
+    def f32(p):
+        shape = p.shape if hasattr(p, "shape") else p
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
+    return OptState(m=tree_map(f32, params_sds), v=tree_map(f32, params_sds),
+                    step=torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def global_norm(tree, replicas=None, group=None) -> torch.Tensor:
     """The L2 norm over every leaf. With ``replicas`` (a matching tree of
     ints) the leaves are each rank's blocks of a gradient spread over the
-    process group, each block held by that many ranks: the squares of a
-    block count once over its holders, and the sum is all-reduced."""
+    process group (``group``: None for the default one, or a stand-in),
+    each block held by that many ranks: the squares of a block count once
+    over its holders, and the sum is all-reduced."""
     reps = [1] * len(tree_leaves(tree)) if replicas is None else \
         tree_leaves(replicas)
     total = None
@@ -88,19 +101,19 @@ def global_norm(tree, replicas=None) -> torch.Tensor:
             sq = sq / r
         total = sq if total is None else total + sq
     if replicas is not None:
-        dist.all_reduce(total)
+        comm.all_reduce(total, group)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params, grads, state: OptState,
-                 replicas=None):
+                 replicas=None, group=None):
     """Returns (params, state, metrics): ``params`` and the moments updated
     in place; ``grads`` (f32) are scaled in place by the clip and spent.
     ``params``, ``grads`` and the moments may be each rank's blocks of a
-    sharded state: ``replicas`` then makes the clip see the whole
-    gradient's norm (``global_norm``)."""
-    gnorm = global_norm(grads, replicas)
+    sharded state: ``replicas`` (and ``group``) then make the clip see the
+    whole gradient's norm (``global_norm``)."""
+    gnorm = global_norm(grads, replicas, group)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

@@ -24,10 +24,11 @@ import math
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.core import loops
 from repro_torch.models.common import chunked_softmax_xent, softmax_xent
 from repro_torch.models.registry import abstract_params
+from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import (NamedSharding, P, PartitionSpec,
                                            mesh_shape, spec_axes, spec_for,
                                            tree_specs)
@@ -67,11 +68,11 @@ class RankShare:
 
     batch_shards: int = 1
     replicas: int = 1
+    group: object = None
 
     def rank_loss(self, xent, mask, aux_term):
         local = mask.sum()
-        total = local.clone()
-        dist.all_reduce(total)
+        total = comm.all_reduce(local.clone(), self.group)
         total = total / self.replicas
         return (xent * (local / total.clamp_min(1.0))
                 + aux_term / self.batch_shards) / self.replicas
@@ -129,7 +130,9 @@ def make_grad_fn(model, step_cfg: StepConfig, share: RankShare = None):
                              f"multiple of {n_micro} microbatches")
         size = batch["tokens"].shape[0] // n_micro
         loss = gacc = None
-        for i in range(n_micro):
+        # the microbatches have one shape: a dry-run runs the first two
+        # (core.loops.trips)
+        for i in loops.trips(n_micro):
             mb = {k: x[i * size:(i + 1) * size] for k, x in batch.items()}
             lm = loss_fn(params, mb)
             grads = [g.float() for g in torch.autograd.grad(lm, leaves)]
@@ -140,6 +143,9 @@ def make_grad_fn(model, step_cfg: StepConfig, share: RankShare = None):
                 loss = loss + lm
                 for a, g in zip(gacc, grads):
                     a.add_(g)
+                del g
+            # this trip's gradients go before the next trip makes its own
+            del grads
         if n_micro > 1:
             loss = loss / n_micro
             for a in gacc:
@@ -202,7 +208,9 @@ def shardings(mesh, spec_tree):
 
 
 class ShardedTrainStep:
-    """The train step on a DeviceMesh over the whole process group.
+    """The train step on a DeviceMesh over the whole process group, or on
+    a ``launch.mesh.RankMesh`` (one rank's step with stand-in collectives:
+    the dry-run's, on meta tensors).
 
     ``layout`` cuts a full state into the rank's blocks (``state_specs``:
     ``m`` and ``v`` follow their parameter), ``gather`` puts full leaves
@@ -223,7 +231,8 @@ class ShardedTrainStep:
             mesh, state_specs(mesh, *abstract_params(model), rules))
         self.replicas = tree_map(lambda s: s.replicas,
                                  self.shardings.params)
-        self.share = RankShare()
+        self.group = comm.world_group(mesh)
+        self.share = RankShare(group=self.group)
         self.grad_fn = make_grad_fn(model, step_cfg, self.share)
 
     def layout(self, state: TrainState) -> TrainState:
@@ -277,14 +286,13 @@ class ShardedTrainStep:
         with self.model.shd.rank_batch(axes):
             loss, grads = self.grad_fn(full, rows)
         del full
-        dist.all_reduce(loss)
+        comm.all_reduce(loss, self.group)
 
         def reduce(g, sh):
-            dist.all_reduce(g)
-            return sh.block(g)
+            return sh.block(comm.all_reduce(g, self.group))
         grads = tree_map(reduce, grads, lay)
         new_params, new_opt, metrics = opt_mod.adamw_update(
             self.opt_cfg, state.params, grads, state.opt,
-            replicas=self.replicas)
+            replicas=self.replicas, group=self.group)
         metrics = dict(metrics, loss=loss)
         return TrainState(new_params, new_opt), metrics

@@ -152,6 +152,35 @@ def test_flash_counts_the_planned_route(dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_custom_op_is_the_direct_launch_and_is_counted(dtype):
+    """The forward through ``torch.ops.repro_torch.flash_fwd`` is bitwise
+    the planned kernel launched directly; the op counter sees it on CUDA
+    tensors, as one op of 4·B·H·S·T·D FLOPs, counted once as a launch."""
+    _need_cuda()
+    from repro_torch.perf import op_cost
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (b, h, hkv, s, t, d, causal, window, off) in CASES:
+        q = torch.randn(b, h, s, d, device="cuda", generator=g).to(dtype)
+        k = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dtype)
+        v = torch.randn(b, hkv, t, d, device="cuda", generator=g).to(dtype)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        route, bm = ops.plan(b, h, hkv, s, t, d, dtype, sms)
+        direct = ops.launch(q, k, v, route=route, block_m=bm, **kw)
+        before = ops.launches
+        with op_cost.OpCounter() as c:
+            got = torch.ops.repro_torch.flash_fwd(q, k, v, causal, window,
+                                                  off)
+        assert ops.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, direct), (b, h, hkv, s, t, d, causal)
+        assert c.flops == 4 * b * h * s * t * d
+        assert c.by_op[("flash_fwd", 1.0)][2] == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d,route,bm,shift,err", [
     (torch.float32, 128, "wgmma", 64, 0, RuntimeError),  # wgmma is bf16 only
     (torch.bfloat16, 32, "wgmma", 64, 0, RuntimeError),  # rows below a box

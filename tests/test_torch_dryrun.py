@@ -1,0 +1,252 @@
+"""The port's dry-run against the reference's compiled cells, its per-rank
+bytes against the blocks a 2-rank gloo run cuts, and the depth cuts
+PERF.md §4 made by hand, sized on the meta device.
+
+Reference side: a granite-20b smoke cell at 2 layers in f32, compiled on
+one CPU device (``jax.jit(...).lower(...).compile()``, as the reference's
+dry-run does on its mesh): a train step (batch 8 x 32 in 2 microbatches)
+and a prefill (batch 2 x 64, bf16 weights and caches). Port side: the
+same cell through ``launch.dryrun.build_cell`` on a one-device mesh,
+counted on the meta device.
+
+- argument bytes: equal to ``memory_analysis().argument_size_in_bytes``
+  exactly (the same leaves in the same dtypes);
+- FLOPs against ``repro.perf.hlo_cost.analyze_text``: within 1 % on the
+  prefill cell (the same dots: projections, attention over the cache,
+  the MLP and the last token's logits), within 5 % on the train cell,
+  whose one named difference is the flash backward's recompute: the
+  reference differentiates XLA's attention, which keeps its softmax for
+  the backward; the port's kernel keeps none, so ``attention_grads``
+  recomputes QKᵀ and PV (``4·B·H·S·T·D`` a layer a microbatch) before
+  the 8·B·H·S·T·D of the backward proper. The test counts that term and
+  holds the rest equal to 1e-6.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.configs.base import ShapeConfig as JShape
+from repro.models import abstract_params as jabstract
+from repro.models import build_model as jbuild
+from repro.models import token_batch_specs as jbatch
+from repro.perf import hlo_cost
+from repro.serve.step import abstract_cache as jcache
+from repro.train import optimizer as jopt
+from repro.train.step import StepConfig as JStepConfig
+from repro.train.step import TrainState as JTrainState
+from repro.train.step import make_train_step as jmake_step
+from repro_torch import configs as tconfigs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import RankMesh
+from repro_torch.models import abstract_params, build_model
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import NamedSharding, P
+from repro_torch.perf import op_cost, step_analysis
+from repro_torch.train.optimizer import abstract_opt_state, tree_map
+from repro_torch.train.step import TrainState, param_specs, state_specs
+from torch_dist_worker import spawn
+
+ONE = {"data": 1, "model": 1}
+TRAIN = ShapeConfig("train_smoke", "train", 32, 8)
+PREFILL = ShapeConfig("prefill_smoke", "prefill", 64, 2)
+N_MICRO = 2
+
+
+def _cfgs():
+    kw = dict(num_layers=2, dtype="float32")
+    return (jconfigs.get_smoke("granite-20b").replace(**kw),
+            tconfigs.get_smoke("granite-20b").replace(**kw))
+
+
+@pytest.fixture(scope="module")
+def ref_cells():
+    """(train, prefill) reference executables of the smoke cells."""
+    jcfg, _ = _cfgs()
+    model = jbuild(jcfg)
+    params, _ = jabstract(model)
+    state = JTrainState(params, jopt.abstract_opt_state(params))
+    batch = jbatch(jcfg, JShape(TRAIN.name, "train", TRAIN.seq_len,
+                                TRAIN.global_batch))
+    step = jmake_step(model, jopt.OptConfig(),
+                      JStepConfig(num_microbatches=N_MICRO))
+    train = jax.jit(step, donate_argnums=(0,)).lower(state, batch).compile()
+
+    scfg = jcfg.replace(param_dtype="bfloat16")
+    smodel = jbuild(scfg)
+    sparams, _ = jabstract(smodel)
+    cache = jcache(smodel, PREFILL.global_batch, PREFILL.seq_len)
+    sbatch = jbatch(scfg, JShape(PREFILL.name, "prefill", PREFILL.seq_len,
+                                 PREFILL.global_batch))
+    prefill = jax.jit(lambda p, b, c: smodel.prefill(p, b, c),
+                      donate_argnums=(2,)).lower(sparams, sbatch,
+                                                 cache).compile()
+    return train, prefill
+
+
+def _port_cell(shape):
+    _, tcfg = _cfgs()
+    variant = {"n_micro": N_MICRO} if shape.kind == "train" else None
+    fn, args, cfg, _, info = dryrun.build_cell("granite-20b", shape, ONE,
+                                               variant, tcfg)
+    return fn, args, cfg, info
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_argument_bytes_equal_the_reference_executable(ref_cells, kind):
+    compiled = ref_cells[0 if kind == "train" else 1]
+    _, _, _, info = _port_cell(TRAIN if kind == "train" else PREFILL)
+    assert info["argument_bytes"] == \
+        compiled.memory_analysis().argument_size_in_bytes
+
+
+def test_prefill_flops_within_1pct_of_hlo_cost(ref_cells):
+    fn, args, _, _ = _port_cell(PREFILL)
+    port = dryrun.count_cell(fn, args).flops
+    ref = hlo_cost.analyze_text(ref_cells[1].as_text())["flops"]
+    assert abs(port - ref) <= 0.01 * ref, (port, ref)
+
+
+def test_train_flops_within_5pct_of_hlo_cost(ref_cells):
+    fn, args, cfg, _ = _port_cell(TRAIN)
+    port = dryrun.count_cell(fn, args).flops
+    ref = hlo_cost.analyze_text(ref_cells[0].as_text())["flops"]
+    assert abs(port - ref) <= 0.05 * ref, (port, ref)
+    # the named difference: the flash backward's recompute of QKᵀ and PV
+    b = TRAIN.global_batch // N_MICRO
+    s = TRAIN.seq_len
+    recompute = (cfg.num_layers * N_MICRO
+                 * 4 * b * cfg.q_heads * s * s * cfg.head_dim)
+    assert port - recompute == pytest.approx(ref, rel=1e-6)
+
+
+def test_rank_bytes_from_specs_equal_the_blocks_layout_cuts(tmp_path):
+    """Two gloo ranks (data 2) lay the smoke state out with
+    ``ShardedTrainStep.layout``; the bytes of each rank's blocks equal
+    ``step_analysis.rank_bytes`` from the specs, with no process group."""
+    res = spawn("train", 2, tmp_path, {
+        "arch": "granite-20b", "data": 2, "steps": 0, "micro": 1,
+        "seed": 0, "batch": [4, 16], "opt": {}})
+    cfg = tconfigs.get_smoke("granite-20b").replace(dtype="float32")
+    sizes = {"pod": 1, "data": 2, "model": 1}
+    shapes, axes = abstract_params(build_model(cfg))
+    full = tree_map(lambda s: torch.empty(s, device="meta"), shapes)
+    want = step_analysis.rank_bytes(sizes, param_specs(sizes, shapes, axes),
+                                    full)
+    full_bytes = sum(t.numel() * 4 for t in _leaves(full))
+    assert want < full_bytes
+    for rank in res:
+        got = sum(t.numel() * t.element_size() for t in _leaves(
+            rank["blocks"]))
+        assert got == want
+    # m and v follow their parameter: the state is three such trees and
+    # the step counter
+    state = TrainState(full, abstract_opt_state(full))
+    assert step_analysis.rank_bytes(
+        sizes, state_specs(sizes, shapes, axes), state) == 3 * want + 4
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+# the depth cuts of PERF.md §4, at the card phases' shapes: the train
+# phase (batch 8 x 512, 2 microbatches), the VLM phase's forward (256
+# patches + 256 tokens) and the serve phase (batch 4, 512 positions)
+TRAIN_PHASE = ShapeConfig("train_phase", "train", 512, 8)
+VLM_PHASE = ShapeConfig("vlm_phase", "prefill", 256, 1)
+SERVE_PHASE = ShapeConfig("serve_phase", "prefill", 512, 4)
+
+
+@pytest.mark.parametrize("arch,layers,shape,fits", [
+    ("granite-20b", None, TRAIN_PHASE, False),
+    ("granite-20b", 4, TRAIN_PHASE, True),
+    ("internvl2-76b", None, VLM_PHASE, False),
+    ("internvl2-76b", 32, VLM_PHASE, True),
+    ("deepseek-moe-16b", None, SERVE_PHASE, True),
+])
+def test_the_depth_cuts_of_perf_md(arch, layers, shape, fits):
+    cfg = tconfigs.get(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    variant = {"n_micro": 2} if shape.kind == "train" else None
+    rec, _ = dryrun.analyze_cell(arch, shape, ONE, variant, cfg)
+    assert rec["fits"] is fits
+    n = rec["n_params"]
+    args = rec["analysis"]["memory"]["argument_bytes"]
+    if shape.kind == "train":
+        # f32 parameters, m and v, then full f32 gradients on top
+        assert args >= 12 * n and rec["analysis"]["peak_bytes"] >= 16 * n
+    else:
+        assert args >= 2 * n
+    assert np.isfinite(rec["roofline"]["compute_s"])
+
+
+# the stand-in mesh: a rank's collectives without a process group
+
+@pytest.mark.parametrize("variant,all_to_all", [
+    ({"layout": "ep"}, True), ({"layout": "fsdp"}, False),
+    ({"moe_shard_map": 1}, True), (None, False)])
+def test_layout_variants_run_on_a_stand_in_mesh(variant, all_to_all):
+    """A smoke MoE train cell (2 layers, batch 8 x 32) on a data 2 x model
+    2 stand-in mesh runs under each layout: expert parallelism's
+    all-to-alls and its aux loss's mean over the world go to stand-ins."""
+    cfg = tconfigs.get_smoke("deepseek-moe-16b").replace(num_layers=2)
+    rec, counter = dryrun.analyze_cell("deepseek-moe-16b", TRAIN,
+                                       {"data": 2, "model": 2}, variant, cfg)
+    ops = {op for op, _, _, _ in counter.collectives}
+    assert ("all-to-all" in ops) is all_to_all
+    assert {"all-gather", "all-reduce"} <= ops
+    assert counter.flops > 0 and rec["peak_gb"] > 0
+
+
+def test_stand_in_collectives_take_meta_tensors_above_one_rank():
+    """Above one rank a stand-in moves no data, so real tensors raise; at
+    one rank each collective is the identity, as the real one is."""
+    x = torch.arange(12.0).reshape(4, 3)
+    group = RankMesh({"data": 2, "model": 1}).world
+    for fn in (comm.all_reduce, comm.all_gather, comm.all_to_all,
+               comm.all_reduce_mean):
+        with pytest.raises(RuntimeError, match="meta tensors only"):
+            fn(x.clone(), group)
+        assert fn(x.to("meta"), group).device.type == "meta"
+    one = RankMesh(ONE).world
+    for fn in (comm.all_reduce, comm.all_gather, comm.all_to_all,
+               comm.all_reduce_mean):
+        assert torch.equal(fn(x.clone(), one), x)
+
+
+SIZES = {"pod": 2, "data": 2, "model": 3}
+
+
+@pytest.mark.parametrize("spec", [
+    P("data"), P(None, "model"), P("model", "data"),
+    P(("pod", "data"), None), P(("data", "pod"), "model"),
+    P(None, ("pod", "data", "model"))])
+def test_gather_puts_the_blocks_back_in_rank_order(spec, monkeypatch):
+    """``NamedSharding.gather`` assembles the all-gather's blocks (rank
+    order: row-major over the mesh's coordinates) into the full tensor;
+    ranks that hold the same block are read once."""
+    mesh = RankMesh(SIZES)
+    sh = NamedSharding(mesh, spec)
+    full = torch.arange(12 * 12, dtype=torch.float32).reshape(12, 12)
+    blocks = [sh.block(full, dict(zip(SIZES, c)))
+              for c in np.ndindex(*SIZES.values())]
+    monkeypatch.setattr(comm, "all_gather",
+                        lambda x, group: torch.cat(blocks))
+    assert torch.equal(sh.gather(blocks[0]), full)
+
+
+def test_stand_in_gather_reports_one_all_gather():
+    """On meta a gather over a 2 x 2 x 3 stand-in mesh gives the full
+    shape and reports one all-gather of every rank's block."""
+    sh = NamedSharding(RankMesh(SIZES), P("model", "data"))
+    block = torch.empty(4, 6, device="meta")
+    with op_cost.OpCounter() as counter:
+        assert sh.gather(block).shape == (12, 12)
+    assert dict(counter.collectives) == {
+        ("all-gather", 12 * 4 * 6 * 4, 12, True): 1.0}

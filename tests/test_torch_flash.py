@@ -10,6 +10,7 @@ Tolerances: 1e-5 (rtol and atol) in f32, 2e-2 in bf16 (the output is
 rounded to bf16 once in each framework). The CUDA kernel itself is held
 against the plain version on the card (``cuda`` marker).
 """
+import functools
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,6 +141,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q = torch.zeros(1, 4, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
     kw = {}
+    call = ops.flash_attention
     if bad == "dtype":
         q, k = q.double(), k.double()
     elif bad == "head_dim":
@@ -149,10 +151,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "offset":
         kw = {"q_offset": -1}
     elif bad == "device":
-        # neither the host nor a CUDA card: no plain-version fallback
+        # neither the host nor a CUDA card: no plain-version fallback, the
+        # kernel's launch refuses it (flash_attention on meta tensors is
+        # the custom op's fake: shapes only, nothing launched)
         q, k = q.to("meta"), k.to("meta")
+        call = functools.partial(ops.launch, causal=True, window=None,
+                                 q_offset=0, route="ffma", block_m=64)
     with pytest.raises((TypeError, ValueError)):
-        ops.flash_attention(q, k, k, **kw)
+        call(q, k, k, **kw)
 
 
 # --- the route and tile plan, and the wgmma route's packing, on the CPU ----

@@ -96,7 +96,10 @@ def test_joules_partition_slot_tag_energy(both_runs):
         any_slot = np.zeros(blk.n, bool)
         for tag in slot_tags:
             any_slot |= blk.tag_mask(tag)
-        slot_j += float((blk.watts * blk.dt)[any_slot].sum())
+        # the block's own reduction (``SampleBlock.energy_j``: watts @ dt),
+        # so that a session whose every sample holds a slot tag sums to
+        # the report's total bit for bit, not to one ulp either side
+        slot_j += float(blk.watts[any_slot] @ blk.dt[any_slot])
     parts = sum(r.energy_j for r in treqs)
     assert all(r.energy_j > 0.0 for r in treqs)
     assert parts == pytest.approx(slot_j, abs=1e-6)
