@@ -160,7 +160,16 @@ Phases, each of which must pass (any failure exits non-zero):
               against the grouped path on that mesh (routing equal, y
               within 1e-5 of max|y|); compress_grads_over_pod on a full
               granite-20b layer's gradients twice (error feedback), card
-              against host bitwise, timed by events.
+              against host bitwise, timed by events; tp_layer: the
+              sharded step's tensor-parallel algebra at full width on the
+              one card, granite-20b's and qwen3-32b's layer 0 (model axis
+              16, x [1, 4096, d_model]): each rank's forward on its
+              blocks with the all-reduce left out, the 16 partial
+              outputs summed, against the unsharded layer in f32 (flash
+              on ffma; 1e-4 of max|y|) and bf16 (flash on wgmma at q
+              [1,3,4096,128] over one KV head, and qwen3's [1,4,4096,128]
+              over the KV head its heads read; 4e-2 of max|y|), flash
+              launches by route and shape.
 11c. dryrun — the port's dry-run (launch.dryrun: one rank's step on the
               meta device, counted by perf.op_cost) held against the
               card (the counted step's flash launches are the kernels
@@ -177,7 +186,8 @@ Phases, each of which must pass (any failure exits non-zero):
               against 80 GB (granite-20b trains at 4 layers, not at 52;
               internvl2-76b serves at 32 layers, not at 80; deepseek-moe-16b
               whole); (d) one production cell of each family on the 16 x 16
-              mesh, each completing; (e) (after record_cli) the port's
+              mesh, each completing, granite-20b's train_4k fitting 80 GB
+              a rank with useful >= 0.5; (e) (after record_cli) the port's
               regression gate on the bench phase's rows and the two replay
               reports: rc 0, 1 (a compiles raised), 1 (a row slowed 20 %),
               0.
@@ -188,7 +198,9 @@ Phases, each of which must pass (any failure exits non-zero):
               and the device time of one call under the profiler for each
               route and tile and for sdpa with a mask and, at q_offset 0,
               with is_causal), at gemma3-27b's S 2048 with the window and
-              without, at the train phase's microbatch (B 4, S 512), and
+              without, at the train phase's microbatch (B 4, S 512), at
+              granite-20b's train_4k tensor-parallel rank (q
+              [1,3,4096,128], kv [1,1,4096,128], causal), and
               deepseek-moe-16b's largest serve prefill (q [1,16,256,128]
               over the 512-position cache view) and internvl2-76b's forward
               (q [1,64,512,128], kv [1,8,512,128]), whisper-small's
@@ -2307,6 +2319,135 @@ def parallel_train(mesh, sharded):
     return history, sums, counts, n_syncs, grads
 
 
+# the parallel phase's tp_layer check: the tensor-parallel algebra of the
+# sharded train step at full width on one card (layer 0 of each arch, the
+# production mesh's model axis); tolerances stated before the first run.
+# bf16: the layer's output rounds to bf16, whose ulp at max|y| is up to
+# 2^-7 of it, and the 16 partials are summed in bf16 as the all-reduce sums
+# them, each add rounding again: 4e-2 is about 5 ulps of max|y|
+TP_LAYER = dict(model=16, seq=4096, seed=0,
+                archs=("granite-20b", "qwen3-32b"),
+                tol={"float32": 1e-4, "bfloat16": 4e-2})
+
+
+def tp_layer_sum(cfg, p, x, size):
+    """A layer's output from ``size`` model ranks' forwards on their
+    blocks of ``p`` (one layer's leaves, full), with the all-reduce over
+    the ranks left out: each rank's partial attention output (its query
+    heads, the KV heads they read, its rows of wo), summed in ``x``'s
+    dtype as the all-reduce sums them, then each rank's partial MLP
+    output (its columns of w_gate and w_up, rows of w_down) on the summed
+    residual, summed alike."""
+    import torch
+    from repro_torch.models import common
+    from repro_torch.models.transformer import _dense_layer_axes
+    from repro_torch.parallel.sharding import (NamedSharding,
+                                               TensorParallel, tree_specs)
+    from repro_torch.train.optimizer import tree_map
+
+    class Partial(TensorParallel):
+        def sum(self, y):
+            return y
+
+    sizes = {"model": size}
+    specs = tree_specs(sizes, _dense_layer_axes(cfg, ()), p)
+
+    def block(r, part):
+        return tree_map(lambda t, s: NamedSharding(sizes, s).block(
+            t, {"model": r}), p[part], specs[part])
+
+    positions = torch.arange(x.shape[1], device=x.device)
+    xn = common.rms_norm(x, p["norm1"])
+    h = None
+    for r in range(size):
+        y = common.attention(xn, block(r, "attn"), cfg, positions=positions,
+                             tp=Partial(None, size, r))[0]
+        h = y if h is None else h + y
+    x = x + h
+    xn = common.rms_norm(x, p["norm2"])
+    out = None
+    for r in range(size):
+        y = common.mlp(xn, block(r, "mlp"), Partial(None, size, r),
+                       cfg.d_ff)
+        out = y if out is None else out + y
+    return x + out
+
+
+def tp_layer_check(card):
+    """tp_layer: for each arch of ``TP_LAYER``, layer 0 at its published
+    width (f32 master weights and x from the seed), unsharded
+    (``DecoderLM._layer``) and as the sum of ``model`` ranks' partial
+    outputs (``tp_layer_sum``), in f32 and in bf16 compute: max|diff| over
+    max|y| within the stated tolerance, and the flash launches of each run
+    by route and shape. Returns {arch: {dtype: reading}}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model, common
+    from repro_torch.models.transformer import _dense_layer_shapes
+    from repro_torch.parallel.sharding import TensorParallel
+    c = TP_LAYER
+    out = {}
+    for arch in c["archs"]:
+        cfg = configs.get(arch).adapt_for_mesh(c["model"])
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(c["seed"])
+        p = common.init_tree(_dense_layer_shapes(cfg, (), cfg.d_ff), gen,
+                             "cuda", torch.float32)
+        x = torch.randn(1, c["seq"], cfg.d_model, generator=gen,
+                        device="cuda")
+        positions = torch.arange(c["seq"], device="cuda")
+        out[arch] = {}
+        for dt in ("float32", "bfloat16"):
+            dcfg = cfg.replace(dtype=dt)
+            xd = x.to(getattr(torch, dt))
+            zero_flash_counts()
+            with flash_shapes() as full_shapes:
+                want = build_model(dcfg)._layer(xd, p,
+                                                positions=positions)[0]
+            full = flash_counts()
+            zero_flash_counts()
+            with flash_shapes() as rank_shapes:
+                got = tp_layer_sum(dcfg, p, xd, c["model"])
+            ranks = flash_counts()
+            torch.cuda.synchronize()
+            scale = want.float().abs().max().item()
+            rel = (got.float() - want.float()).abs().max().item() / scale
+            finite = bool(torch.isfinite(got).all())
+            route = "ffma" if dt == "float32" else "wgmma"
+            h = cfg.q_heads // c["model"]
+            kvh = cfg.num_kv_heads // c["model"]
+            if cfg.num_kv_heads % c["model"]:
+                sel = common.rank_kv_heads(cfg, TensorParallel(
+                    None, c["model"], 0), h)
+                kvh = h if isinstance(sel, list) else sel.stop - sel.start
+            want_shape = (1, h, kvh, c["seq"], c["seq"], cfg.head_dim, True,
+                          None, 0)
+            out[arch][dt] = dict(rel=rel, launches=ranks[0],
+                                 routes=ranks[1], shapes=rank_shapes)
+            log(f"[parallel] tp_layer {arch} layer 0, {dt}, model "
+                f"{c['model']}, x [1,{c['seq']},{cfg.d_model}]: summed "
+                f"partials vs unsharded max|diff| {rel:.3e} of max|y| "
+                f"{scale:.4g} (tol {c['tol'][dt]:g}); flash unsharded "
+                f"{full[0]} launch(es) {full[1]} at {sorted(full_shapes)}, "
+                f"ranks {ranks[0]} launches {ranks[1]} at "
+                f"{sorted(rank_shapes)}; card: {card}")
+            check_all("parallel", {
+                f"tp_layer {arch} {dt}: summed partials within "
+                f"{c['tol'][dt]:g} of max|y|": rel <= c["tol"][dt] and finite,
+                f"tp_layer {arch} {dt}: {c['model']} rank launches on "
+                f"{route} at q [1,{h},{c['seq']},{cfg.head_dim}] over "
+                f"{kvh} KV head(s)": (
+                    ranks[0] == c["model"] and ranks[1][route] == ranks[0]
+                    and rank_shapes == {want_shape}),
+                f"tp_layer {arch} {dt}: one unsharded launch on {route}": (
+                    full[0] == 1 and full[1][route] == 1),
+            })
+            del want, got, xd
+        del p, x
+        free_card()
+    return out
+
+
 def phase_parallel(card):
     """The port's parallel layer on the card at one NCCL rank (the
     process group on a file:// store under build/, a mixed cuda:nccl /
@@ -2327,7 +2468,10 @@ def phase_parallel(card):
     (c) compress_grads_over_pod on layer 0's gradients from (a)'s
         sharded state, twice (error feedback), on the card and on the
         host: outputs and error states equal bit for bit; timed with
-        events (GB/s of f32 gradient reduced) beside compression_ratio.
+        events (GB/s of f32 gradient reduced) beside compression_ratio;
+    (d) tp_layer (``tp_layer_check``): the tensor-parallel algebra at full
+        width, summed partial outputs of 16 model ranks against the
+        unsharded layer.
     """
     import torch
     import torch.distributed as dist
@@ -2451,10 +2595,13 @@ def phase_parallel(card):
     del grads, host_grads, sides
     dist.destroy_process_group()
     free_card()
+
+    # (d) the tensor-parallel algebra at full width
+    tp = tp_layer_check(card)
     wall = time.perf_counter() - t_phase
     log(f"[parallel] phase in {wall:.1f} s")
     return dict(compress_ms=err_ms, compress_gbs=gbs, ratio=ratio,
-                moe_ms=ms, walls=walls, seconds=wall)
+                moe_ms=ms, walls=walls, seconds=wall, tp=tp)
 
 
 # the dryrun phase: the port's dry-run (launch.dryrun: one rank's step on
@@ -2482,7 +2629,11 @@ DRYRUN = dict(
     cells=(("granite-20b", "train_4k"), ("granite-20b", "prefill_32k"),
            ("deepseek-moe-16b", "decode_32k"),
            ("internvl2-76b", "prefill_32k"), ("xlstm-1.3b", "long_500k"),
-           ("zamba2-1.2b", "decode_32k"), ("whisper-small", "decode_32k")))
+           ("zamba2-1.2b", "decode_32k"), ("whisper-small", "decode_32k")),
+    # the cells that must fit 80 GB a rank with useful >= min_useful: the
+    # sharded step's per-layer gathers, reduce-scatter and tensor
+    # parallelism
+    fit=(("granite-20b", "train_4k"),), min_useful=0.5)
 
 
 def phase_cells():
@@ -2682,9 +2833,15 @@ def dryrun_sizes(card):
                 f"{rl['dominant']}, roofline fraction "
                 f"{rl['compute_s'] / t:.3f} (compute {rl['compute_s']:.4g} "
                 f"s, memory {rl['memory_s']:.4g} s, collective "
-                f"{rl['collective_s']:.4g} s), {rec['peak_gb']:.2f} GB a "
+                f"{rl['collective_s']:.4g} s), useful "
+                f"{rl['useful_ratio']:.4f}, {rec['peak_gb']:.2f} GB a "
                 f"rank, fits {rec['fits']}, {rec['wall_s']:.1f} s")
         checks[f"(d) single/{arch}/{shape} completes"] = "error" not in rec
+        if (arch, shape) in DRYRUN["fit"]:
+            checks[f"(d) single/{arch}/{shape} fits 80 GB a rank, useful "
+                   f">= {DRYRUN['min_useful']}"] = (
+                "error" not in rec and rec["fits"] and
+                rec["roofline"]["useful_ratio"] >= DRYRUN["min_useful"])
     log(f"[dryrun] (c) in {cuts_s:.1f} s, (d) in "
         f"{time.perf_counter() - t0 - cuts_s:.1f} s; card: {card}")
     check_all("dryrun", checks)
@@ -3500,6 +3657,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401  (fails here, before any output, alone)
+    from repro_torch import configs
     t_start = time.perf_counter()
     card = smi_line()
     idle = subprocess.run(["nvidia-smi", "--query-gpu=power.draw,clocks.sm,"
@@ -3550,12 +3708,19 @@ def main() -> int:
     free_card()
     dry_a = dryrun_train(card, train)
     dry_s = dryrun_sizes(card)
-    phase_parallel(card)
+    par = phase_parallel(card)
     flash_rows = phase_timing(cfg, shapes)
     window_rows = timing_window(wcfg)
     train_row = time_flash(*train["shape"][:3], train["shape"][3],
                            train["shape"][4], None,
                            "granite-20b's train step, one microbatch")
+    # granite-20b's train_4k tensor-parallel rank on the model axis of 16:
+    # its 3 query heads over the one KV head, causal S 4096
+    tp_cfg = configs.get("granite-20b")
+    tp_row = time_flash(1, tp_cfg.q_heads // TP_LAYER["model"],
+                        tp_cfg.num_kv_heads, TP_LAYER["seq"],
+                        tp_cfg.head_dim, None,
+                        "granite-20b's train_4k rank, model axis 16")
     # deepseek-moe-16b's largest serve prefill (the 256 bucket, cold, over
     # the 512-position cache view) and internvl2-76b's forward
     moe_top = max(mshapes, key=lambda sh: (sh[3], -sh[8]))
@@ -3664,6 +3829,21 @@ def main() -> int:
         "dryrun_launches": dry_a["launches"],
         "max_abs_err": max(flash_errs["wgmma"], train_row["max_abs_err"]),
         **flash_keys(train_row),
+    })
+    # the same wgmma route at granite-20b's train_4k tensor-parallel rank
+    # (q [1,3,4096,128] over one KV head): the parallel phase's tp_layer
+    # check in bf16 launched it once a rank
+    kernels.append({
+        "name": "flash_attention/wgmma/granite_tp_rank",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/"
+                    "flash_attention.py:22",
+        "launches": par["tp"]["granite-20b"]["bfloat16"]["launches"],
+        "tp_layer_rel_err": {a: {d: r["rel"] for d, r in v.items()}
+                             for a, v in par["tp"].items()},
+        "max_abs_err": max(flash_errs["wgmma"], tp_row["max_abs_err"]),
+        **flash_keys(tp_row),
     })
     # the same wgmma route on the MoE and VLM paths: deepseek-moe-16b's
     # serve (28 layers x prefills) and internvl2-76b's forward and text

@@ -8,12 +8,14 @@ of the cell on the meta device (shapes and dtypes, no storage), on a
 ``launch.mesh.RankMesh`` whose collectives are shape-only stand-ins,
 under the op counter (``perf.op_cost``). Nothing is allocated on any
 device and no process group is opened. A train cell runs
-``ShardedTrainStep`` (each parameter gathered to full, the rank's rows of
-each microbatch, full f32 gradients all-reduced, AdamW on the rank's
-blocks: what a rank of the port runs); a serve cell runs the model's
-``prefill`` or ``decode_step`` on the rank's batch rows with the
-parameters gathered to full (the port computes every head on a rank, so
-its caches split over the batch only).
+``ShardedTrainStep`` (the rank's rows of each microbatch, each layer's
+leaves gathered where the layer runs, its share of the heads, MLP width
+and vocabulary computed over ``model``, the gradients reduce-scattered
+to the rank's blocks, AdamW on them: what a rank of the port runs); a
+serve cell runs the model's ``prefill`` or ``decode_step`` on the rank's
+batch rows with the parameters gathered to full (sharded serving is not
+ported: the port serves every head on a rank, so its caches split over
+the batch only).
 
 Run:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-20b \\
@@ -101,6 +103,17 @@ EP_RULES = {
 }
 
 
+def layout_rules(layout: str, sizes) -> dict:
+    """The sharding rules of a train layout (``2d``: None, the default
+    rules; ``fsdp``; ``ep``), without the axes absent from a mesh of
+    ``sizes``."""
+    rules = {"2d": None, "fsdp": FSDP_RULES, "ep": EP_RULES}[layout]
+    if rules is None:
+        return None
+    return {k: (tuple(a for a in v if a in sizes)
+                if isinstance(v, tuple) else v) for k, v in rules.items()}
+
+
 def _meta(shapes, dtype):
     """Meta tensors of a shape tree."""
     return tree_map(lambda s: torch.empty(s, dtype=dtype, device="meta"),
@@ -146,17 +159,10 @@ def build_cell(arch: str, shape_name, mesh, variant=None, cfg=None):
 
     if shape.kind == "train":
         layout = variant.get("layout", "2d")
-        rules = None
-        if layout == "fsdp":
-            rules = dict(FSDP_RULES)
-        elif layout == "ep":
-            rules = dict(EP_RULES)
+        rules = layout_rules(layout, sizes)
+        if layout == "ep":
             variant = dict(variant, moe_shard_map=1, n_micro=1)
         if rules is not None:
-            # drop axes absent from this mesh
-            rules = {k: (tuple(a for a in v if a in sizes)
-                         if isinstance(v, tuple) else v)
-                     for k, v in rules.items()}
             if layout == "fsdp" and shape.global_batch % n_chips:
                 raise ValueError("fsdp layout needs batch divisible by chip "
                                  "count")

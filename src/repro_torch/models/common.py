@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.parallel import comm
 
 NEG_INF = -1e30
 
@@ -80,13 +81,39 @@ def _proj(x, w):
                                                    *w.shape[1:])
 
 
-def _qkv(x, p, cfg: ModelConfig, rope_cs):
+def rank_kv_heads(cfg: ModelConfig, tp, h_local: int):
+    """The KV heads the rank's ``h_local`` query heads read when the KV
+    heads are whole (too few to split): a slice of them under which the
+    local heads keep GQA's uniform map, else one KV head a query head (a
+    list)."""
+    g = cfg.q_heads // cfg.num_kv_heads
+    heads = [(tp.rank * h_local + j) // g for j in range(h_local)]
+    lo, n = heads[0], heads[-1] + 1 - heads[0]
+    if h_local % n == 0 and all(h - lo == j // (h_local // n)
+                                for j, h in enumerate(heads)):
+        return slice(lo, lo + n)
+    return heads
+
+
+def _qkv(x, p, cfg: ModelConfig, rope_cs, tp=None):
     """Projected q [B,S,H,Dh] and k, v [B,S,Hkv,Dh]; with ``cfg.qk_norm``
     each head of q and k is RMS-normed before RoPE; ``rope_cs`` None (a
-    layer without RoPE: whisper's) leaves them unrotated."""
+    layer without RoPE: whisper's) leaves them unrotated. Under ``tp``
+    with the query heads split, H is the rank's heads and Hkv the KV
+    heads they read (``rank_kv_heads`` where those are whole)."""
+    wk, wv = p["wk"], p["wv"]
+    h_local = p["wq"].shape[-2]
+    if (tp is not None and tp.splits(h_local, cfg.q_heads)
+            and not tp.splits(wk.shape[-2], cfg.num_kv_heads)):
+        sel = rank_kv_heads(cfg, tp, h_local)
+        if isinstance(sel, list):
+            idx = torch.tensor(sel, device=wk.device)
+            wk, wv = wk.index_select(-2, idx), wv.index_select(-2, idx)
+        else:
+            wk, wv = wk[..., sel, :], wv[..., sel, :]
     q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    k = _proj(x, wk)
+    v = _proj(x, wv)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -195,7 +222,7 @@ def write_cache(cache, new, cache_pos):
 def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
               causal=True, use_rope=True, rope_cs=None, kv_cache=None,
               cache_pos=None, cache_slot=None, k_positions=None,
-              k_valid=None, return_kv=False):
+              k_valid=None, return_kv=False, tp=None):
     """Attention module, causal unless ``causal`` is False. Returns (out,
     kv_cache), or (out, (k, v)) of the fresh keys and values with
     ``return_kv``. ``use_rope`` False leaves q and k unrotated (whisper's
@@ -219,7 +246,7 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
         rope_cs = None
     elif rope_cs is None:
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    q, k, v = _qkv(x, p, cfg, rope_cs)
+    q, k, v = _qkv(x, p, cfg, rope_cs, tp)
     fresh_kv = (k, v)
 
     if kv_cache is None:
@@ -249,8 +276,10 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
                                   q_offset=int(cache_pos), window=window,
                                   causal=causal)
 
-    out = _proj(o.reshape(b, s, cfg.q_heads * cfg.head_dim),
-                p["wo"].reshape(cfg.q_heads * cfg.head_dim, cfg.d_model))
+    wo = p["wo"]
+    out = _proj(o.reshape(b, s, -1), wo.reshape(-1, wo.shape[-1]))
+    if tp is not None and tp.splits(wo.shape[0], cfg.q_heads):
+        out = tp.sum(out)
     if return_kv:
         return out, fresh_kv
     return out, kv_cache
@@ -515,24 +544,56 @@ def log_sigmoid(x):
 # MLP and embeddings
 
 
-def mlp(x, p):
+def mlp(x, p, tp=None, width: int = 0):
+    """The gated MLP; under ``tp`` with its ``width`` split, the rank's
+    columns of ``w_gate`` and ``w_up`` and rows of ``w_down``, summed over
+    the ranks."""
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
-    return (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+    y = (F.silu(g) * u) @ p["w_down"].to(x.dtype)
+    if tp is not None and tp.splits(p["w_down"].shape[0], width):
+        y = tp.sum(y)
+    return y
 
 
-def embed(tokens, p, dtype):
-    """Rows of the embedding table, indexed before any cast."""
-    return p["embedding"][tokens].to(dtype)
+def _vocab_rows(ids, tp, v_local):
+    """(row in the rank's vocabulary block, whether the block holds it)
+    of each id."""
+    local = ids.long() - tp.rank * v_local
+    held = (local >= 0) & (local < v_local)
+    return local.clamp(0, v_local - 1), held
+
+
+def embed(tokens, p, dtype, tp=None, vocab: int = 0):
+    """Rows of the embedding table, indexed before any cast. Under ``tp``
+    with the ``vocab`` rows split: each rank's rows of its block (zero
+    for tokens it does not hold), summed over the ranks."""
+    table = p["embedding"]
+    if tp is None or not tp.splits(table.shape[0], vocab):
+        return table[tokens].to(dtype)
+    rows, held = _vocab_rows(tokens, tp, table.shape[0])
+    x = torch.where(held[..., None], table[rows], 0.0).to(dtype)
+    return tp.sum(x)
 
 
 def unembed(x, p):
+    """Logits (under tensor parallelism, the rank's block of the
+    vocabulary: its columns of ``unembed``)."""
     x = rms_norm(x, p["final_norm"])
     return x @ p["unembed"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # losses
+
+
+def _vocab_sums(m_run, s_run, gold, tp):
+    """The whole vocabulary's max, sum of exponentials and gold logit
+    from each rank's over its block: the max (no gradient: the log-sum is
+    the same at any shift) over the ranks, each sum rescaled to it, and
+    the sums and gold logits summed over the ranks."""
+    m = comm.all_reduce_max(m_run.detach().clone(), tp.group)
+    return (m, tp.sum(s_run * torch.exp(m_run - m)), tp.sum(gold))
 
 
 def _xent_chunk(m_run, s_run, gold, hn, wc, labels, lo):
@@ -549,38 +610,62 @@ def _xent_chunk(m_run, s_run, gold, hn, wc, labels, lo):
     return m_new, s_run, gold + torch.where(in_range, g, 0.0)
 
 
-def chunked_softmax_xent(h, params, labels, mask=None, n_chunks=16):
+def chunked_softmax_xent(h, params, labels, mask=None, n_chunks=16,
+                         tp=None, vocab: int = 0):
     """Cross-entropy without materializing [B,S,V] logits.
 
     Online logsumexp over vocab chunks; each chunk runs under
     ``torch.utils.checkpoint``, so its logits are recomputed in the
     backward pass (the reference's ``jax.checkpoint(nothing_saveable)``)
-    and peak memory is O(B*S*V/n)."""
+    and peak memory is O(B*S*V/n). The whole vocabulary must be a multiple
+    of ``n_chunks``, as the reference asserts. Under ``tp`` with the
+    ``vocab`` columns split, ``params["unembed"]`` is the rank's block,
+    cut into ``n_chunks`` chunks whose widths differ by at most one, and
+    the running terms meet over the ranks at the end (``_vocab_sums``)."""
     hn = rms_norm(h, params["final_norm"])
     w = params["unembed"]
     v = w.shape[1]
-    if v % n_chunks:
-        raise ValueError(f"vocab {v} is not a multiple of {n_chunks} chunks")
-    c = v // n_chunks
+    if tp is not None and not tp.splits(v, vocab):
+        tp = None
+    full = v if tp is None else vocab
+    if full % n_chunks:
+        raise ValueError(f"vocab {full} is not a multiple of {n_chunks} "
+                         "chunks")
+    base = 0 if tp is None else tp.rank * v
     b, s, _ = h.shape
     m_run = torch.full((b, s), NEG_INF, dtype=torch.float32, device=h.device)
     s_run = torch.zeros((b, s), dtype=torch.float32, device=h.device)
     gold = torch.zeros((b, s), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
+        lo, hi = i * v // n_chunks, (i + 1) * v // n_chunks
         m_run, s_run, gold = checkpoint(
-            _xent_chunk, m_run, s_run, gold, hn, w[:, i * c:(i + 1) * c],
-            labels, i * c, use_reentrant=False, preserve_rng_state=False)
+            _xent_chunk, m_run, s_run, gold, hn, w[:, lo:hi], labels,
+            base + lo, use_reentrant=False, preserve_rng_state=False)
+    if tp is not None:
+        m_run, s_run, gold = _vocab_sums(m_run, s_run, gold, tp)
     nll = torch.log(s_run.clamp_min(1e-30)) + m_run - gold
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
 
 
-def softmax_xent(logits, labels, mask=None):
-    """Mean cross-entropy in fp32; labels: int [B,S]."""
+def softmax_xent(logits, labels, mask=None, tp=None, vocab: int = 0):
+    """Mean cross-entropy in fp32; labels: int [B,S]. Under ``tp`` with
+    the ``vocab`` columns split, ``logits`` is the rank's block
+    (``_vocab_sums``)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    if tp is None or not tp.splits(lf.shape[-1], vocab):
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    else:
+        # the max over the whole vocabulary first, so that each
+        # exponential is the one-rank formula's
+        m = comm.all_reduce_max(lf.detach().amax(dim=-1), tp.group)
+        s = tp.sum(torch.exp(lf - m[..., None]).sum(dim=-1))
+        rows, held = _vocab_rows(labels, tp, lf.shape[-1])
+        gold = tp.sum(torch.where(
+            held, lf.gather(-1, rows[..., None])[..., 0], 0.0))
+        lse = torch.log(s) + m
     nll = lse - gold
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)

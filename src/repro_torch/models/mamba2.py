@@ -234,24 +234,34 @@ class Zamba2:
                 st = (None if states is None
                       else tuple(s[li] for s in states["mamba"]))
                 if remat:
-                    x = checkpoint(mamba_block, x, mamba[li], self.cfg, st,
+                    x = checkpoint(self._mamba, x, mamba[li], st,
                                    use_reentrant=False,
                                    preserve_rng_state=False)
                 else:
-                    x = mamba_block(x, mamba[li], self.cfg, st)
+                    x = self._mamba(x, mamba[li], st)
                 li += 1
             if gi < len(self.attn_sites):
                 cache = None if states is None else states[f"attn_{gi}"]
-                x = self._shared_attn(x, params["shared_attn"], positions,
-                                      cache, cache_pos)
+                x = self._shared_attn(
+                    x, self.shd.use(params["shared_attn"], "shared_attn"),
+                    positions, cache, cache_pos)
         return x
+
+    def _mamba(self, x, p, st):
+        """One Mamba2 layer on its slice ``p`` of the stacked leaves (a
+        rank's blocks gathered here, inside the checkpoint)."""
+        return mamba_block(x, self.shd.use(p, "mamba", stacked=True),
+                           self.cfg, st)
 
     def forward(self, params, batch):
         """Training/scoring forward: (logits [B,S,V], aux 0.0)."""
-        x = common.embed(batch["tokens"], params, self.dtype)
+        shd = self.shd
+        x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
+                         self.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         x = self._stack(x, params, None, positions=positions)
-        return common.unembed(x, params), 0.0
+        return common.unembed(x, shd.leaves(params, "final_norm",
+                                            "unembed")), 0.0
 
     def cache_axes(self):
         """The logical axes of ``init_cache``'s leaves."""

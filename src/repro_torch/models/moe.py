@@ -7,7 +7,10 @@ with top-k routing, a fixed capacity and token dropping, as the reference's
 routes on its own, and the expert products are batched matmuls over all
 experts. ``moe_apply_shard_map`` is the reference's expert parallelism:
 each ``model`` rank runs its own experts, and the dispatch buffers move by
-all-to-all.
+all-to-all. On a rank's blocks under tensor parallelism the router runs
+whole on every rank and the shared experts split like a dense MLP; the
+routed experts split only under expert parallelism (the grouped path
+computes every expert, replicated over ``model``).
 
 Three places where the port must take care to give the reference's
 integers, not only its floats:
@@ -48,6 +51,11 @@ from repro_torch.parallel.sharding import mesh_shape
 N_SHARDS = 32
 
 
+def shared_width(cfg: ModelConfig) -> int:
+    """The shared experts' SwiGLU width."""
+    return cfg.num_shared_experts * cfg.moe_d_ff
+
+
 def moe_param_shapes(cfg: ModelConfig, L: int) -> Dict:
     """The ``moe`` subtree of ``L`` stacked layers as (shape, fan_in)
     leaves: the router, the routed experts and, with shared experts, one
@@ -60,7 +68,7 @@ def moe_param_shapes(cfg: ModelConfig, L: int) -> Dict:
         "w_down": ((L, e, f, d), f),
     }
     if cfg.num_shared_experts:
-        fs = cfg.num_shared_experts * f
+        fs = shared_width(cfg)
         tree["shared"] = {"w_gate": ((L, d, fs), d), "w_up": ((L, d, fs), d),
                           "w_down": ((L, fs, d), fs)}
     return tree
@@ -190,6 +198,15 @@ def _n_groups(b: int, shd, groups: int) -> int:
     return total // n_shards
 
 
+def _with_shared(y, x, p, cfg: ModelConfig, shd):
+    """``y`` plus the shared experts' SwiGLU of ``x`` (split over the
+    ``model`` ranks like a dense MLP under tensor parallelism)."""
+    if not cfg.num_shared_experts:
+        return y
+    tp = None if shd is None else shd.tp
+    return y + common.mlp(x, p["shared"], tp, shared_width(cfg))
+
+
 def moe_apply(x, p, cfg: ModelConfig, shd=None, groups: int = 0,
               impl: str = "gspmd"):
     """x [B, S, D] -> (y [B, S, D], mean aux). ``impl="shard_map"`` on a
@@ -210,9 +227,7 @@ def moe_apply(x, p, cfg: ModelConfig, shd=None, groups: int = 0,
     out = _experts(dispatch, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
                    p["w_down"].to(x.dtype))
     y = combine(out, routing, weights, keep, tg, k).reshape(b, s, d)
-    if cfg.num_shared_experts:
-        y = y + common.mlp(x, p["shared"])
-    return y, aux.mean()
+    return _with_shared(y, x, p, cfg, shd), aux.mean()
 
 
 def moe_apply_shard_map(x, p, cfg: ModelConfig, shd):
@@ -268,7 +283,4 @@ def moe_apply_shard_map(x, p, cfg: ModelConfig, shd):
     yr = combine(back, routing, weights, keep, t_rank, k)[0]
     y = yr if cover else comm.all_gather(yr, group)
     aux = comm.all_reduce_mean(aux.mean(), comm.world_group(mesh))
-    y = y.reshape(bl, s, d)
-    if cfg.num_shared_experts:
-        y = y + common.mlp(x, p["shared"])
-    return y, aux
+    return _with_shared(y.reshape(bl, s, d), x, p, cfg, shd), aux

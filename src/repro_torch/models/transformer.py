@@ -25,6 +25,15 @@ compute dtype where they use it, so gradients land on the f32 leaves.
 default as in the reference, whose scan body is
 ``jax.checkpoint(nothing_saveable)``), and return the MoE layers' summed
 aux loss (the dense prefix's is dropped, as in the reference).
+
+On a rank's blocks (``Sharder.rank_blocks``, the sharded train step) each
+layer gathers its own leaves inside its checkpointed function
+(``Sharder.use``), so the backward's recompute gathers them again and a
+rank holds one layer at a time; the layer computes its share of the
+heads and the MLP width (and the embedding and the logits their share of
+the vocabulary) over the ``model`` ranks (``common``'s ``tp``). The MoE
+router runs whole; the routed experts split over ``model`` only under
+expert parallelism.
 """
 from __future__ import annotations
 
@@ -40,6 +49,9 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models import moe as moe_mod
 from repro_torch.parallel.sharding import Sharder
+
+#: the logical axes whose ``model`` split the layers' compute consumes
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
 def _dense_layer_shapes(cfg: ModelConfig, pre: tuple, f: int) -> Dict:
@@ -70,15 +82,19 @@ def param_shapes(cfg: ModelConfig) -> Dict:
             "moe": moe_mod.moe_param_shapes(cfg, n_scan),
         }
     else:
-        tree["layers"] = _dense_layer_shapes(cfg, (n_scan,), cfg.d_ff)
+        tree["layers"] = _dense_layer_shapes(cfg, (n_scan,), mlp_width(cfg))
     if cfg.first_k_dense:
-        # deepseek-moe style: the dense prefix's MLP matches the total
-        # activated width
-        f = (cfg.moe_d_ff * (cfg.num_shared_experts + cfg.experts_per_token)
-             if cfg.is_moe else cfg.d_ff)
-        tree["dense_prefix"] = {f"layer_{i}": _dense_layer_shapes(cfg, (), f)
-                                for i in range(cfg.first_k_dense)}
+        tree["dense_prefix"] = {
+            f"layer_{i}": _dense_layer_shapes(cfg, (), mlp_width(cfg))
+            for i in range(cfg.first_k_dense)}
     return tree
+
+
+def mlp_width(cfg: ModelConfig) -> int:
+    """A dense layer's MLP width: ``d_ff``; in an MoE model (deepseek-moe
+    style: its dense prefix) the total activated width."""
+    return (cfg.moe_d_ff * (cfg.num_shared_experts + cfg.experts_per_token)
+            if cfg.is_moe else cfg.d_ff)
 
 
 def _dense_layer_axes(cfg: ModelConfig, pre: tuple) -> Dict:
@@ -140,7 +156,9 @@ class DecoderLM:
         self.dtype = getattr(torch, cfg.dtype)
         self.remat = remat
         self.n_scan = cfg.num_layers - cfg.first_k_dense
-        self.shd = Sharder(mesh, rules=shd_rules)
+        tp_axes = TP_AXES + (("experts",) if moe_impl == "shard_map" else ())
+        self.shd = Sharder(mesh, rules=shd_rules, tp_axes=tp_axes,
+                           tp_replicated=("router",))
         self.moe_impl = moe_impl
 
     # -- params ------------------------------------------------------------
@@ -190,16 +208,17 @@ class DecoderLM:
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         flags = layer_flags(cfg)
         remat = caches is None and self.remat and torch.is_grad_enabled()
-        layers = [(p, False) for p in params.get("dense_prefix", {}).values()]
-        layers += [(p, cfg.is_moe)
+        layers = [(p, False, ("dense_prefix", k), False)
+                  for k, p in params.get("dense_prefix", {}).items()]
+        layers += [(p, cfg.is_moe, ("layers",), True)
                    for p in common.layers_of(params["layers"], self.n_scan)]
         aux = 0.0
-        for i, (p, is_moe) in enumerate(layers):
+        for i, (p, is_moe, path, stacked) in enumerate(layers):
             c = None if caches is None else (caches[0][i], caches[1][i])
             layer = functools.partial(
                 self._layer, positions=positions, is_global=bool(flags[i]),
                 rope_cs=rope_cs, kv_cache=c, cache_pos=cache_pos,
-                is_moe=is_moe)
+                is_moe=is_moe, use=(path, stacked))
             if remat:
                 x, a = checkpoint(layer, x, p, use_reentrant=False,
                                   preserve_rng_state=False)
@@ -209,22 +228,29 @@ class DecoderLM:
                 aux = aux + a
         return x, caches, aux
 
-    def _layer(self, x, p, is_moe=False, **attn):
+    def _layer(self, x, p, is_moe=False, use=None, **attn):
         """One layer: attention and the MLP (or MoE), each around its
-        residual. Returns (x, the layer's aux: 0.0 without MoE)."""
+        residual. Returns (x, the layer's aux: 0.0 without MoE). ``use``
+        (the parameter path, stacked): where ``p`` sits in the tree, for
+        the per-layer gather of a rank's blocks."""
+        if use is not None:
+            p = self.shd.use(p, *use[0], stacked=use[1])
+        tp = self.shd.tp
         h, _ = common.attention(common.rms_norm(x, p["norm1"]), p["attn"],
-                                self.cfg, **attn)
+                                self.cfg, tp=tp, **attn)
         x = x + h
         if is_moe:
             ff, aux = moe_mod.moe_apply(common.rms_norm(x, p["norm2"]),
                                         p["moe"], self.cfg, self.shd,
                                         impl=self.moe_impl)
             return x + ff, aux
-        return self._mlp_block(x, p), 0.0
+        return self._mlp_block(x, p, tp), 0.0
 
-    def _mlp_block(self, x, p):
-        """The residual MLP half of a dense layer."""
-        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+    def _mlp_block(self, x, p, tp=None):
+        """The residual MLP half of a dense layer (in an MoE model a
+        dense-prefix layer, whose MLP matches the activated width)."""
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"], tp,
+                              mlp_width(self.cfg))
 
     # -- gemma3-style local:global window caches -----------------------------
 
@@ -303,12 +329,19 @@ class DecoderLM:
     def _inputs_to_h(self, batch, params):
         """Token embeddings, with the VLM's projected patch embeddings
         (``batch["patch_embeddings"]`` [B, P, d]) prepended."""
-        x = common.embed(batch["tokens"], params, self.dtype)
+        shd = self.shd
+        x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
+                         self.dtype, shd.tp, self.cfg.vocab_size)
         if self.cfg.family == "vlm" and "patch_embeddings" in batch:
-            pe = batch["patch_embeddings"].to(self.dtype) @ params[
-                "patch_proj"].to(self.dtype)
+            pe = batch["patch_embeddings"].to(self.dtype) @ shd.use(
+                params["patch_proj"], "patch_proj").to(self.dtype)
             x = torch.cat([pe, x], dim=1)
         return x
+
+    def head(self, params):
+        """``final_norm`` and ``unembed`` as the logits use them (under
+        tensor parallelism, the rank's vocabulary block)."""
+        return self.shd.leaves(params, "final_norm", "unembed")
 
     def hidden(self, params, batch):
         """Final hidden states (pre-unembed) and the aux loss (0.0 without
@@ -323,7 +356,7 @@ class DecoderLM:
         """Training/scoring forward: batch = {tokens [B,S],
         (patch_embeddings [B,P,d])} -> (logits [B,P+S,V], aux)."""
         x, aux = self.hidden(params, batch)
-        return common.unembed(x, params), aux
+        return common.unembed(x, self.head(params)), aux
 
     # -- serving -----------------------------------------------------------
 

@@ -13,6 +13,15 @@ Serving caches (``init_cache``): ``self`` (k, v) of [L, B, max_seq, kvh,
 dh] and ``cross`` (k, v) of [L, B, enc_seq, H, dh], both in ``dtype``;
 ``prefill`` fills ``cross`` from the frames of a request's first chunk and
 writes both in place.
+
+Under a gradient each encoder and decoder layer runs inside
+``torch.utils.checkpoint``, as the reference remats them
+(``jax.checkpoint(nothing_saveable)``), and gathers a rank's blocks of its
+leaves there (``Sharder.use``): a rank holds one layer's gathered weights
+at a time. The cross keys' and values' weights are gathered for
+``build_cross_cache``, outside the layers, as the reference projects them
+outside its remat: they stay live until the backward (two [D, H*dh]
+leaves a decoder layer).
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -106,6 +116,15 @@ def param_axes(cfg: ModelConfig) -> Dict:
     return tree
 
 
+def _remat(layer, x, *args):
+    """``layer(x, *args)``; under a gradient inside a checkpoint, so that
+    its backward recomputes it (and gathers its weights again)."""
+    if not torch.is_grad_enabled():
+        return layer(x, *args)
+    return checkpoint(layer, x, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class Whisper:
     """Functional encoder-decoder over an explicit parameter dict."""
 
@@ -136,44 +155,68 @@ class Whisper:
         positions = torch.arange(x.shape[1], device=x.device)
         x = x + sinusoid(positions, cfg.d_model, self.dtype)[None]
         for p in common.layers_of(params["encoder"], cfg.enc_layers):
-            h, _ = common.attention(
-                common.rms_norm(x, p["norm1"]), p["attn"], cfg,
-                positions=positions, causal=False, use_rope=False)
-            x = x + h
-            x = x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
-        return common.rms_norm(x, params["enc_final_norm"])
+            x = _remat(self._enc_layer, x, p, positions)
+        return common.rms_norm(x, self.shd.use(params["enc_final_norm"],
+                                               "enc_final_norm"))
+
+    def _enc_layer(self, x, p, positions):
+        """One encoder layer on its slice ``p`` of the stacked leaves."""
+        p = self.shd.use(p, "encoder", stacked=True)
+        h, _ = common.attention(
+            common.rms_norm(x, p["norm1"]), p["attn"], self.cfg,
+            positions=positions, causal=False, use_rope=False)
+        x = x + h
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
 
     # -- decoder -------------------------------------------------------------
 
     def _decoder_stack(self, x, params, *, positions, cross_cache,
                        caches=None, cache_pos=None):
-        cfg = self.cfg
         xk_all, xv_all = cross_cache
-        layers = common.layers_of(params["decoder"], cfg.num_layers)
+        layers = common.layers_of(params["decoder"], self.cfg.num_layers)
         for i, p in enumerate(layers):
-            c = None if caches is None else (caches[0][i], caches[1][i])
-            h, _ = common.attention(
-                common.rms_norm(x, p["norm1"]), p["self_attn"], cfg,
-                positions=positions, use_rope=False, kv_cache=c,
-                cache_pos=cache_pos)
-            x = x + h
-            x = x + cross_attention(common.rms_norm(x, p["norm_x"]),
-                                    p["cross_attn"], xk_all[i], xv_all[i],
-                                    cfg)
-            x = x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+            # the cross keys and values come from the cross cache: the
+            # layer gathers what it runs
+            p = dict(p, cross_attn={k: p["cross_attn"][k]
+                                    for k in ("wq", "wo")})
+            if caches is None:
+                x = _remat(self._dec_layer, x, p, xk_all[i], xv_all[i],
+                           positions)
+            else:
+                x = self._dec_layer(x, p, xk_all[i], xv_all[i], positions,
+                                    (caches[0][i], caches[1][i]), cache_pos)
         return x
+
+    def _dec_layer(self, x, p, xk, xv, positions, cache=None,
+                   cache_pos=None):
+        """One decoder layer on its slice ``p`` of the stacked leaves, its
+        cross keys and values ``xk``, ``xv`` and its self-attention
+        ``cache`` (written in place)."""
+        cfg = self.cfg
+        p = self.shd.use(p, "decoder", stacked=True)
+        h, _ = common.attention(
+            common.rms_norm(x, p["norm1"]), p["self_attn"], cfg,
+            positions=positions, use_rope=False, kv_cache=cache,
+            cache_pos=cache_pos)
+        x = x + h
+        x = x + cross_attention(common.rms_norm(x, p["norm_x"]),
+                                p["cross_attn"], xk, xv, cfg)
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
 
     def _embed_dec(self, params, tokens, positions):
         """Token embeddings plus sinusoids of ``positions`` ([S] shared by
         the batch, or [B, S] per row)."""
-        x = common.embed(tokens, params, self.dtype)
+        x = common.embed(tokens, self.shd.leaves(params, "embedding"),
+                         self.dtype)
         pe = sinusoid(positions, self.cfg.d_model, self.dtype)
         return x + (pe[None] if positions.dim() == 1 else pe)
 
     def build_cross_cache(self, params, enc_out):
         """Per-layer cross K/V: two [L, B, enc_seq, H, dh] stacks."""
-        kv = [cross_kv(enc_out, p) for p in common.layers_of(
-            params["decoder"]["cross_attn"], self.cfg.num_layers)]
+        kv = [cross_kv(enc_out, self.shd.use(
+            {k: p[k] for k in ("wk", "wv")}, "decoder", "cross_attn",
+            stacked=True)) for p in common.layers_of(
+                params["decoder"]["cross_attn"], self.cfg.num_layers)]
         return (torch.stack([k for k, _ in kv]),
                 torch.stack([v for _, v in kv]))
 
@@ -186,7 +229,8 @@ class Whisper:
         x = self._embed_dec(params, batch["tokens"], positions)
         x = self._decoder_stack(x, params, positions=positions,
                                 cross_cache=cross_cache)
-        return common.unembed(x, params), 0.0
+        return common.unembed(x, self.shd.leaves(params, "final_norm",
+                                                 "unembed")), 0.0
 
     def init_cache(self, batch_size, max_seq, dtype=torch.bfloat16,
                    device: DeviceLike = None):

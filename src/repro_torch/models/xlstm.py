@@ -209,11 +209,14 @@ def mlstm_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
 
 
 def _slstm_step(carry, wx_t, r):
-    """One token of the sLSTM: carry (c, n, m, h) and the token's input
-    projection [B,4,NH,dh] -> (carry, h)."""
+    """One token of the sLSTM: carry (c, n, m, h), the token's input
+    projection [B,4,NH,dh] and the recurrent weights laid out once for a
+    batched product over the heads, ``r`` [NH, dh, 4*dh] -> (carry,
+    h)."""
     c, n, m, h = carry
-    rec = torch.einsum("bhd,ghde->bghe", h, r)            # [B,4,NH,dh]
-    pre = wx_t + rec
+    b, nh, dh = h.shape
+    rec = torch.bmm(h.transpose(0, 1), r)                 # [NH,B,4*dh]
+    pre = wx_t + rec.reshape(nh, b, 4, dh).permute(1, 2, 0, 3)
     zi, ii, fi, oi = pre.unbind(1)
     zi = torch.tanh(zi)
     oi = torch.sigmoid(oi)
@@ -241,7 +244,9 @@ def slstm_block(x, p, cfg: ModelConfig, state):
     y = common.rms_norm(x, p["norm"])
     wx = y @ p["w_in"].to(y.dtype)
     wx = (wx + p["b"].to(wx.dtype)).float().reshape(b, t, 4, nh, dh)
-    r = p["r"].float()                                    # [4,NH,dh,dh]
+    # [4,NH,dh,dh] -> [NH,dh,4*dh], once: a per-token einsum would lay it
+    # out (and, under a gradient, save a copy of it) at every token
+    r = p["r"].float().permute(1, 2, 0, 3).reshape(nh, dh, 4 * dh)
     if state is None:
         zeros = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
         carry = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
@@ -329,8 +334,10 @@ class XLSTM:
     def _stack(self, x, params, states):
         """The layers in order; ``states`` (None in training) written in
         place."""
-        # under a gradient each block is recomputed in the backward (the
-        # reference's jax.checkpoint(nothing_saveable) scan body)
+        # under a gradient each mLSTM block is recomputed in the backward
+        # (the reference's jax.checkpoint(nothing_saveable) scan body). The
+        # sLSTM layers run outside any checkpoint, as in the reference, so
+        # a rank keeps each one's gathered weights until the backward
         remat = states is None and torch.is_grad_enabled()
         mlstm = common.layers_of(params["mlstm"], self.n_mlstm)
         li = 0
@@ -339,22 +346,33 @@ class XLSTM:
                 st = (None if states is None
                       else tuple(s[li] for s in states["mlstm"]))
                 if remat:
-                    x = checkpoint(mlstm_block, x, mlstm[li], self.cfg, st,
+                    x = checkpoint(self._mlstm, x, mlstm[li], st,
                                    use_reentrant=False,
                                    preserve_rng_state=False)
                 else:
-                    x = mlstm_block(x, mlstm[li], self.cfg, st)
+                    x = self._mlstm(x, mlstm[li], st)
                 li += 1
             if gi < len(self.slstm_idx):
-                st = None if states is None else states[f"slstm_{gi}"]
-                x = slstm_block(x, params[f"slstm_{gi}"], self.cfg, st)
+                name = f"slstm_{gi}"
+                st = None if states is None else states[name]
+                x = slstm_block(x, self.shd.use(params[name], name),
+                                self.cfg, st)
         return x
+
+    def _mlstm(self, x, p, st):
+        """One mLSTM layer on its slice ``p`` of the stacked leaves (a
+        rank's blocks gathered here, inside the checkpoint)."""
+        return mlstm_block(x, self.shd.use(p, "mlstm", stacked=True),
+                           self.cfg, st)
 
     def forward(self, params, batch):
         """Training/scoring forward: (logits [B,S,V], aux 0.0)."""
-        x = common.embed(batch["tokens"], params, self.dtype)
+        shd = self.shd
+        x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
+                         self.dtype)
         x = self._stack(x, params, None)
-        return common.unembed(x, params), 0.0
+        return common.unembed(x, shd.leaves(params, "final_norm",
+                                            "unembed")), 0.0
 
     # -- serving: the state is O(1) in sequence length -----------------------
 

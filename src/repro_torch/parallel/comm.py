@@ -4,9 +4,19 @@
 model runs under a gradient is a ``torch.autograd.Function`` whose backward
 is its adjoint, on the convention that the ranks' losses add up to the
 global one: the backward of an all-to-all is the reverse all-to-all, that
-of an all-gather is the rank's slice of a sum over the group, and that of
-a mean over the group is the mean of the gradients. Each rank then holds a
-partial gradient of every weight it used, and the train step sums them.
+of an all-gather is a reduce-scatter (and the reverse), that of a sum over
+the group is another sum, and that of a mean over the group is the mean of
+the gradients. Each rank then holds a partial gradient of every weight it
+used, and the train step sums them.
+
+Megatron's two operators over a tensor-parallel group (``f``: identity
+forward, all-reduce backward; ``g``: all-reduce forward, identity
+backward) assume that each rank's loss is the whole loss. Under the
+convention above a sum over the group is both at once,
+:func:`all_reduce_sum`: its forward and its backward each sum once.
+
+A group is a ``torch.distributed`` process group (None: the default one),
+a DeviceMesh axis's (``mesh.get_group(axis)``) or a stand-in.
 
 A :class:`ShapeGroup` (a ``launch.mesh.RankMesh``'s group: one rank's view
 of a mesh with no process group) stands in for a process group: each
@@ -59,12 +69,30 @@ class ShapeGroup:
             out.copy_(x)
         return out
 
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+        self._report("reduce-scatter", x, out)
+        if self.size == 1:
+            out.copy_(x)
+        return out
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        self._report("all-reduce", t, t)
+        return t
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
         self._report("all-to-all", x, out)
         if self.size == 1:
             out.copy_(x)
         return out
+
+
+# the names torch 2.13 gives the single-tensor collectives, else 2.11's
+_all_gather_single = getattr(dist, "all_gather_single",
+                             dist.all_gather_into_tensor)
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single",
+                                 dist.reduce_scatter_tensor)
 
 
 class _ProcessGroup:
@@ -87,10 +115,18 @@ class _ProcessGroup:
         return t
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=0)
+        out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather_single(out, x.contiguous(), group=self.group)
+        return out
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+        _reduce_scatter_single(out, x.contiguous(), group=self.group)
+        return out
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -112,8 +148,21 @@ def world_group(mesh):
 
 
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over the group in place."""
+    """Sum ``t`` over the group in place (no gradient)."""
     return _on(group).all_reduce(t)
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over the group, in place (no
+    gradient)."""
+    return _on(group).all_reduce_max(t)
+
+
+def _along(fn, x, dim):
+    """``fn`` (a collective along dim 0) along ``dim`` of ``x``."""
+    if dim == 0:
+        return fn(x)
+    return fn(x.movedim(dim, 0).contiguous()).movedim(0, dim).contiguous()
 
 
 class _AllToAll(torch.autograd.Function):
@@ -129,15 +178,24 @@ class _AllToAll(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.ops = _on(group)
-        return ctx.ops.all_gather(x)
+    def forward(ctx, x, group, dim):
+        ctx.ops, ctx.dim = _on(group), dim
+        return _along(ctx.ops.all_gather, x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        ops = ctx.ops
-        g = ops.all_reduce(g.contiguous().clone())
-        return g.chunk(ops.size, dim=0)[ops.rank], None
+        return _along(ctx.ops.reduce_scatter, g, ctx.dim), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.ops = _on(group)
+        return ctx.ops.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ops.all_reduce(g.clone()), None
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -157,9 +215,18 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     return _AllToAll.apply(x, group)
 
 
-def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The group's ``x`` concatenated along dim 0, in rank order."""
-    return _AllGather.apply(x, group)
+def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim``, in rank order; its
+    backward reduce-scatters the gradient back to the rank's block."""
+    return _AllGather.apply(x, group, dim)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the group, whose backward sums the gradient
+    over the group: the adjoint when the ranks' losses add up to the
+    global one (a row-parallel product's partial outputs, a vocab-parallel
+    lookup or softmax sum)."""
+    return _AllReduceSum.apply(x, group)
 
 
 def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:

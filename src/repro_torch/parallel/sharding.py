@@ -15,14 +15,25 @@ A mesh here is anything that names its axes' sizes: a dict of sizes, an
 ``AbstractMesh`` (``repro_torch.launch.mesh``) or a
 ``torch.distributed.DeviceMesh``. Where the reference pins GSPMD's
 propagation, a rank here holds its own block of each tensor, so
-:class:`Sharder` is the identity on tensors; :class:`NamedSharding` says
-which block a rank holds, cuts it from a full tensor and gathers it back.
+:class:`Sharder` is the identity on activations; :class:`NamedSharding`
+says which block a rank holds, cuts it from a full tensor and gathers it
+back, whole or over some of its axes.
+
+What GSPMD derives from the specs, a rank here does by the rule of
+:meth:`Sharder.use`: while the model's parameters are the rank's blocks
+(``Sharder.rank_blocks``), each layer gathers its own leaves where it
+uses them, over every split axis but ``model`` on a dim whose compute
+the model splits (heads, KV heads where they divide, MLP width,
+vocabulary; experts under expert parallelism), and computes its share of
+those products (:class:`TensorParallel`). The gathers' backward is a
+reduce-scatter, so a rank never holds a whole stacked leaf, its
+gradient included.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -216,11 +227,18 @@ class NamedSharding:
             out[i] *= math.prod(self.sizes[a] for a in spec_axes(e))
         return tuple(out)
 
-    def gather(self, block: torch.Tensor) -> torch.Tensor:
+    def gather(self, block: torch.Tensor, axes=None) -> torch.Tensor:
         """The full tensor from every rank's block (an all-gather over the
         mesh's ranks, which are numbered row-major over its coordinates,
         as ``init_device_mesh`` and a ``RankMesh`` number them; the block
-        itself when the spec splits nothing)."""
+        itself when the spec splits nothing). With ``axes`` (mesh axis
+        names) only the splits over those axes are undone, one all-gather
+        an axis on that axis's group (``mesh.get_group``), whose backward
+        reduce-scatters: the tensor stays split over the spec's other
+        axes. Along a dim split over several axes the gathered ones must
+        be its minor ones."""
+        if axes is not None:
+            return self._gather_axes(block, axes)
         if self.shards == 1:
             return block
         names = list(self.sizes)
@@ -237,6 +255,19 @@ class NamedSharding:
             axes = spec_axes(self.spec[i]) if i < len(self.spec) else ()
             order += [kept.index(a) for a in axes] + [len(kept) + i]
         return parts.permute(order).reshape(self.full_shape(block.shape))
+
+    def _gather_axes(self, block, axes):
+        out = block
+        for i, e in enumerate(self.spec):
+            split = spec_axes(e)
+            take = tuple(a for a in split if a in axes)
+            if take != split[len(split) - len(take):]:
+                raise ValueError(f"{self.spec}: dim {i} gathers {take} but "
+                                 f"keeps a minor axis of {split}")
+            for a in reversed(take):
+                if self.sizes[a] > 1:
+                    out = comm.all_gather(out, self.mesh.get_group(a), dim=i)
+        return out
 
     def placements(self) -> list:
         """DTensor placements, one per mesh dim: ``Shard(i)`` where the
@@ -257,21 +288,64 @@ class NamedSharding:
         return out
 
 
+class TensorParallel(NamedTuple):
+    """The ranks that split one layer's compute: the ``model`` axis's
+    ``group`` of ``size`` ranks, this rank ``rank`` of them. A product
+    whose weight is split over it is Megatron's: column-parallel where the
+    weight's output dim is split (the rank's heads, MLP columns, vocabulary
+    rows), row-parallel where its input dim is, followed by
+    ``comm.all_reduce_sum`` over ``group``."""
+
+    group: object
+    size: int
+    rank: int
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partial ``x``."""
+        return comm.all_reduce_sum(x, self.group)
+
+    def splits(self, block: int, full: int) -> bool:
+        """Whether a dim of ``full`` entries is split over the ranks, from
+        the ``block`` entries this rank holds of it: its ``1/size`` (kept
+        split by ``Sharder.use``) or the whole (gathered, or never split).
+        Any other block is a layout the model does not know: it
+        raises."""
+        if block == full:
+            return False
+        if block * self.size == full:
+            return True
+        raise ValueError(f"a block of {block} of {full} entries over "
+                         f"{self.size} ranks")
+
+
 class Sharder:
     """Logical-axis specs for a model on a mesh; no-op without one.
 
     Model code may call ``shd(x, "batch", "seq", "act_heads", None)`` at
     layer boundaries, as the reference pins GSPMD there: on this port a
     rank computes on its own block, so the call returns ``x``. With a
-    DeviceMesh the model's tensors are the rank's blocks (``local``); the
-    mesh axes its batch rows are split over are those of the global
-    batch's spec, which the caller that laid the batch out names with
-    :meth:`rank_batch` (all of the ``batch`` rule's axes otherwise)."""
+    DeviceMesh (or a ``RankMesh``) the model's tensors are the rank's
+    blocks (``local``); the mesh axes its batch rows are split over are
+    those of the global batch's spec, which the caller that laid the
+    batch out names with :meth:`rank_batch` (all of the ``batch`` rule's
+    axes otherwise). Within :meth:`rank_blocks` the parameters are the
+    rank's blocks too: :meth:`use` gathers a layer's leaves where the
+    layer runs, and :attr:`tp` names the ranks that split its compute.
 
-    def __init__(self, mesh=None, rules: Optional[dict] = None):
+    ``tp_axes``: the logical axes whose ``model`` split the model's
+    compute consumes (none: every layer runs replicated over ``model``);
+    ``tp_replicated``: leaf names used whole even so (the MoE router,
+    whose softmax spans every expert)."""
+
+    def __init__(self, mesh=None, rules: Optional[dict] = None,
+                 tp_axes: Sequence[str] = (),
+                 tp_replicated: Sequence[str] = ()):
         self.mesh = mesh
         self.rules = rules
+        self.tp_axes = frozenset(tp_axes)
+        self.tp_replicated = frozenset(tp_replicated)
         self._batch_axes = None
+        self._blocks = None
 
     @property
     def local(self) -> bool:
@@ -312,3 +386,64 @@ class Sharder:
             yield self
         finally:
             self._batch_axes = prev
+
+    @contextlib.contextmanager
+    def rank_blocks(self, specs, axes):
+        """Within the block, the parameters the model is given are the
+        rank's blocks laid out by ``specs`` (a PartitionSpec tree) from the
+        logical ``axes`` tree beside it (``abstract_params``)."""
+        prev, self._blocks = self._blocks, (specs, axes)
+        try:
+            yield self
+        finally:
+            self._blocks = prev
+
+    @property
+    def tp(self) -> Optional[TensorParallel]:
+        """The ranks that split a layer's compute, within
+        :meth:`rank_blocks` on a mesh whose ``model`` axis holds more than
+        one rank and does not split the batch, for a model with
+        ``tp_axes``; else None (every product runs whole)."""
+        if self._blocks is None or not self.tp_axes:
+            return None
+        size = mesh_shape(self.mesh).get("model", 1)
+        if size == 1 or "model" in self.batch_axes(0):
+            return None
+        return TensorParallel(self.mesh.get_group("model"), size,
+                              self.mesh.get_local_rank("model"))
+
+    def use(self, tree, *path, stacked: bool = False):
+        """The leaves of ``tree``, the rank's blocks of the parameter
+        subtree at ``path`` (one layer's slice of ``[L, ...]`` leaves with
+        ``stacked``), as the layer uses them: every split undone but
+        ``model``'s on a dim of ``tp_axes`` (``NamedSharding.gather``
+        over the rest, whose backward reduce-scatters). ``tree`` itself
+        outside :meth:`rank_blocks`."""
+        if self._blocks is None:
+            return tree
+        specs, axes = self._blocks
+        for k in path:
+            specs, axes = specs[k], axes[k]
+        return self._use(tree, specs, axes, stacked, path[-1] if path
+                         else None)
+
+    def leaves(self, params, *names) -> dict:
+        """The top-level leaves ``names`` of ``params`` as used
+        (:meth:`use`)."""
+        return {k: self.use(params[k], k) for k in names}
+
+    def _use(self, t, spec, axes, stacked, name):
+        if isinstance(t, dict):
+            return {k: self._use(t[k], spec[k], axes[k], stacked, k)
+                    for k in t}
+        if stacked:
+            spec, axes = PartitionSpec(*spec[1:]), axes[1:]
+        gather = set()
+        for i, e in enumerate(spec):
+            keep = (e == "model" and axes[i] in self.tp_axes
+                    and name not in self.tp_replicated)
+            if not keep:
+                gather.update(spec_axes(e))
+        if not gather:
+            return t
+        return NamedSharding(self.mesh, spec).gather(t, gather)

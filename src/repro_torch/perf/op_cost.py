@@ -235,9 +235,9 @@ class OpCounter(TorchDispatchMode):
     def collective(self, op: str, result_bytes: int, group_size: int,
                    crosses_pod: bool):
         """One collective of ``op`` (``all-gather``, ``all-reduce``,
-        ``all-to-all``) whose result holds ``result_bytes`` a rank, over
-        ``group_size`` ranks; counted as often as the enclosing loops
-        run."""
+        ``all-to-all``, ``reduce-scatter``) whose result holds
+        ``result_bytes`` a rank, over ``group_size`` ranks; counted as
+        often as the enclosing loops run."""
         if not self.paused:
             self.collectives[(op, int(result_bytes), int(group_size),
                               bool(crosses_pod))] += self.mult
@@ -247,7 +247,10 @@ def ring_bytes(op: str, result_bytes: float, group_size: int) -> float:
     """Bytes one rank moves over its links for one collective whose result
     holds ``result_bytes``, ring accounting (the reference's
     ``collective_bytes_per_device``): (g-1)/g of the result for an
-    all-gather or an all-to-all, twice that for an all-reduce (the
-    collectives the port's stand-ins report)."""
+    all-gather or an all-to-all, twice that for an all-reduce, and (g-1)/g
+    of the input, g results, for a reduce-scatter (the collectives the
+    port's stand-ins report)."""
     g = max(group_size, 1)
+    if op == "reduce-scatter":
+        return result_bytes * (g - 1)
     return result_bytes * (g - 1) / g * (2 if op == "all-reduce" else 1)

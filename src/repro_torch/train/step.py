@@ -9,13 +9,16 @@ to detached views of the parameters (so the state's tensors never carry
 The reference's sharding-spec helpers (``batch_specs``, ``param_specs``,
 ``state_specs``, ``shardings``) are here spec for spec, and
 :class:`ShardedTrainStep` is the step on a DeviceMesh whose result is the
-one-process step's on the same mesh shape: the state at rest is each
-rank's block of every leaf (FSDP's memory layout), each parameter is
-gathered to full before use, the rank runs ``make_grad_fn`` on its rows of
-each microbatch, the gradients are summed over the ranks and AdamW
-updates each rank's own blocks. Compute over ``model`` runs replicated on
-the gathered weights (the reference's function, not split Megatron-style);
-MoE layers may run expert parallelism over it (``moe_impl="shard_map"``).
+one-process step's on the same mesh shape, run as the reference's layout
+runs under GSPMD: the state at rest is each rank's block of every leaf,
+each layer gathers its own leaves where it runs (``Sharder.use``: a rank
+holds one layer at a time) and computes its share of the heads, the MLP
+width and the vocabulary over ``model`` (Megatron-style; the families
+that split nothing over ``model`` run it replicated), the gathers'
+backward reduce-scatters each microbatch's gradients to the rank's
+blocks, the blocks are summed over the ranks that hold them alike, and
+AdamW updates each rank's own blocks. MoE layers may run expert
+parallelism over ``model`` (``moe_impl="shard_map"``).
 """
 from __future__ import annotations
 
@@ -60,11 +63,15 @@ class StepConfig:
 class RankShare:
     """How one rank's loss adds up to the global one: its rows are one of
     ``batch_shards`` blocks of the global batch, each held by ``replicas``
-    ranks. The ranks' losses sum to the global loss, so their gradients
-    sum to its gradient: the cross-entropy, a mean over the valid tokens,
-    is the rank's mean weighted by its share of the global valid count (an
-    all-reduce), and the aux term (a mean over groups) counts 1 /
-    ``batch_shards``; both are divided among the replicas."""
+    ranks (the ``model`` ranks of a row block, whether they split its
+    compute or repeat it). The ranks' losses sum to the global loss, so
+    their gradients sum to its gradient: the cross-entropy, a mean over
+    the valid tokens, is the rank's mean weighted by its share of the
+    global valid count (an all-reduce), and the aux term (a mean over
+    groups) counts 1 / ``batch_shards``; both are divided among the
+    replicas. Every collective's backward is its adjoint under this sum
+    (``parallel.comm``), so a weight's gradient is the sum of the ranks'
+    partial ones, held or not."""
 
     batch_shards: int = 1
     replicas: int = 1
@@ -92,8 +99,9 @@ def make_loss_fn(model, step_cfg: StepConfig, share: RankShare = None):
             labels = mb["labels"]
             h = h[:, -labels.shape[1]:]
             mask = (labels != step_cfg.label_ignore).float()
-            loss = chunked_softmax_xent(h, params, labels.clamp_min(0),
-                                        mask, step_cfg.vocab_chunks)
+            loss = chunked_softmax_xent(
+                h, model.head(params), labels.clamp_min(0), mask,
+                step_cfg.vocab_chunks, model.shd.tp, model.cfg.vocab_size)
             return total(loss, mask, aux)
         return loss_fn
 
@@ -102,7 +110,8 @@ def make_loss_fn(model, step_cfg: StepConfig, share: RankShare = None):
         labels = mb["labels"]
         logits = logits[:, -labels.shape[1]:]
         mask = (labels != step_cfg.label_ignore).float()
-        loss = softmax_xent(logits, labels.clamp_min(0), mask)
+        loss = softmax_xent(logits, labels.clamp_min(0), mask, model.shd.tp,
+                            model.cfg.vocab_size)
         return total(loss, mask, aux)
     return loss_fn
 
@@ -219,16 +228,26 @@ class ShardedTrainStep:
     the global loss and grad norm. The rank's rows of microbatch ``i`` are
     its block of that microbatch, so the microbatches hold the rows they
     hold in the one-process step; the MoE routing groups follow the
-    global microbatch's batch spec (``Sharder.rank_batch``). At one rank
-    every collective is the identity and the step is the one-process step
-    bit for bit."""
+    global microbatch's batch spec (``Sharder.rank_batch``).
+
+    The model runs on the blocks (``Sharder.rank_blocks``): each layer
+    gathers its leaves at use and its backward reduce-scatters their
+    gradients over the same axes, microbatch by microbatch, so the
+    accumulated gradients are blocks too. After the last microbatch each
+    block is summed over the mesh axes its spec does not split (the ranks
+    that hold it alike: the pod axis, and ``model`` for a leaf whose
+    compute runs whole on every ``model`` rank). At one rank every
+    collective is the identity and the step is the one-process step bit
+    for bit."""
 
     def __init__(self, model, opt_cfg: OptConfig, step_cfg: StepConfig,
                  mesh, rules=None):
         self.model, self.opt_cfg, self.step_cfg = model, opt_cfg, step_cfg
         self.mesh, self.rules = mesh, rules
-        self.shardings = shardings(
-            mesh, state_specs(mesh, *abstract_params(model), rules))
+        shapes, self.axes = abstract_params(model)
+        self.shardings = shardings(mesh, state_specs(mesh, shapes,
+                                                     self.axes, rules))
+        self.specs = tree_map(lambda s: s.spec, self.shardings.params)
         self.replicas = tree_map(lambda s: s.replicas,
                                  self.shardings.params)
         self.group = comm.world_group(mesh)
@@ -275,24 +294,37 @@ class ShardedTrainStep:
                                 for i in range(n_micro)])
         return out, spec_axes(spec[0]) if len(spec) else ()
 
-    def __call__(self, state: TrainState, batch):
+    def _sum_replicas(self, g, spec):
+        """Sum a gradient block over the mesh axes ``spec`` does not split,
+        in place, one axis at a time."""
+        split = {a for e in spec for a in spec_axes(e)}
+        for a, n in mesh_shape(self.mesh).items():
+            if n > 1 and a not in split:
+                comm.all_reduce(g, self.mesh.get_group(a))
+        return g
+
+    def grads(self, state: TrainState, batch):
+        """(the global loss, the rank's blocks of the global gradient):
+        the step before the optimizer."""
         rows, axes = self.rank_rows(batch)
         sizes = mesh_shape(self.mesh)
         self.share.batch_shards = math.prod(sizes[a] for a in axes)
         self.share.replicas = math.prod(sizes.values()) \
             // self.share.batch_shards
-        lay = self.shardings.params
-        full = tree_map(lambda b, sh: sh.gather(b), state.params, lay)
-        with self.model.shd.rank_batch(axes):
-            loss, grads = self.grad_fn(full, rows)
-        del full
+        shd = self.model.shd
+        with shd.rank_batch(axes), shd.rank_blocks(self.specs, self.axes):
+            loss, grads = self.grad_fn(state.params, rows)
         comm.all_reduce(loss, self.group)
+        return loss, tree_map(self._sum_replicas, grads, self.specs)
 
-        def reduce(g, sh):
-            return sh.block(comm.all_reduce(g, self.group))
-        grads = tree_map(reduce, grads, lay)
+    def apply(self, state: TrainState, loss, grads):
+        """AdamW on the rank's blocks with the gradient blocks ``grads``
+        (spent); (state, metrics)."""
         new_params, new_opt, metrics = opt_mod.adamw_update(
             self.opt_cfg, state.params, grads, state.opt,
             replicas=self.replicas, group=self.group)
         metrics = dict(metrics, loss=loss)
         return TrainState(new_params, new_opt), metrics
+
+    def __call__(self, state: TrainState, batch):
+        return self.apply(state, *self.grads(state, batch))

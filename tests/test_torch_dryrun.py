@@ -19,8 +19,23 @@ counted on the meta device.
   the backward; the port's kernel keeps none, so ``attention_grads``
   recomputes QKᵀ and PV (``4·B·H·S·T·D`` a layer a microbatch) before
   the 8·B·H·S·T·D of the backward proper. The test counts that term and
-  holds the rest equal to 1e-6.
+  holds the rest equal to 1e-6;
+- per device: the same train cell lowered under ``state_specs`` on a data
+  2 x model 2 mesh of host devices (a subprocess with
+  ``--xla_force_host_platform_device_count=4``: the reference's own tests
+  cannot set it in-process), its per-device FLOPs against one rank's count
+  on a data 2 x model 2 ``RankMesh``: within 5 %. Named differences: the
+  flash backward's recompute (the rank's heads and rows), and the KV
+  projections of MQA's one KV head, which every ``model`` rank computes
+  for its query heads (XLA partitions part of that work): the rest of the
+  port's count exceeds the reference's by less than that term.
 """
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -40,7 +55,7 @@ from repro.train.step import make_train_step as jmake_step
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import RankMesh
+from repro_torch.launch.mesh import RankMesh, make_production_mesh
 from repro_torch.models import abstract_params, build_model
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import NamedSharding, P
@@ -122,6 +137,55 @@ def test_train_flops_within_5pct_of_hlo_cost(ref_cells):
     assert port - recompute == pytest.approx(ref, rel=1e-6)
 
 
+_REF_PER_DEVICE = """
+import json
+import jax
+from repro import configs
+from repro.configs import base
+from repro.launch import dryrun
+from repro.launch.mesh import make_host_mesh
+from repro.perf import hlo_cost
+smoke = configs.get_smoke
+configs.get = lambda name: smoke(name).replace(num_layers=2,
+                                               dtype="float32")
+dryrun.SHAPES["train_smoke"] = base.ShapeConfig("train_smoke", "train",
+                                                {seq}, {batch})
+fn, args, _, _, _ = dryrun.build_cell(
+    "granite-20b", "train_smoke", make_host_mesh(data=2, model=2),
+    {{"n_micro": {micro}}})
+text = fn.lower(*args).compile().as_text()
+print(json.dumps([jax.device_count(), hlo_cost.analyze_text(text)["flops"]]))
+"""
+
+
+def test_train_flops_per_device_within_5pct_of_hlo_cost():
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(pathlib.Path(__file__).parents[1] / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _REF_PER_DEVICE.format(
+            seq=TRAIN.seq_len, batch=TRAIN.global_batch, micro=N_MICRO)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    devices, ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert devices == 4
+    _, tcfg = _cfgs()
+    sizes = {"data": 2, "model": 2}
+    fn, args, cfg, _, _ = dryrun.build_cell("granite-20b", TRAIN, sizes,
+                                            {"n_micro": N_MICRO}, tcfg)
+    port = dryrun.count_cell(fn, args).flops
+    assert abs(port - ref) <= 0.05 * ref, (port, ref)
+    # the rank's rows of a microbatch and its query heads
+    b = TRAIN.global_batch // N_MICRO // sizes["data"]
+    s, h = TRAIN.seq_len, cfg.q_heads // sizes["model"]
+    recompute = cfg.num_layers * N_MICRO * 4 * b * h * s * s * cfg.head_dim
+    # k and v of the rank's rows on each model rank: forward, recompute
+    # and the backward's two products, less the rank's 1 / model share
+    kv = (cfg.num_layers * N_MICRO * 4 * 2 * 2 * b * s * cfg.d_model
+          * cfg.num_kv_heads * cfg.head_dim) * (1 - 1 / sizes["model"])
+    assert 0 <= port - recompute - ref <= kv, (port - recompute - ref, kv)
+
+
 def test_rank_bytes_from_specs_equal_the_blocks_layout_cuts(tmp_path):
     """Two gloo ranks (data 2) lay the smoke state out with
     ``ShardedTrainStep.layout``; the bytes of each rank's blocks equal
@@ -188,6 +252,27 @@ def test_the_depth_cuts_of_perf_md(arch, layers, shape, fits):
 
 # the stand-in mesh: a rank's collectives without a process group
 
+def test_vocab_chunks_on_a_tensor_parallel_rank():
+    """qwen3-32b's train_4k cell with ``vocab_chunks=16`` on the single
+    production mesh (data 16 x model 16), cut to one layer: its vocabulary
+    (151936) is a multiple of 16 chunks, but a rank's block (9496) is not,
+    so the rank cuts its block into 16 chunks of 593 or 594 columns. The
+    chunked loss costs the plain one's FLOPs plus one recompute of the
+    rank's logits (each chunk's, in the backward): the chunks cover the
+    block's columns once."""
+    cfg = tconfigs.get("qwen3-32b").replace(num_layers=1)
+    mesh = make_production_mesh()
+    (_, plain), (chunked, counter) = (
+        dryrun.analyze_cell("qwen3-32b", "train_4k", mesh, v, cfg)
+        for v in (None, {"vocab_chunks": 16}))
+    assert chunked["fits"]
+    shape = tconfigs.SHAPES["train_4k"]
+    tokens = shape.global_batch * shape.seq_len // mesh.shape["data"]
+    v_rank = cfg.vocab_size // mesh.shape["model"]
+    assert v_rank % 16
+    assert counter.flops - plain.flops == 2 * tokens * cfg.d_model * v_rank
+
+
 @pytest.mark.parametrize("variant,all_to_all", [
     ({"layout": "ep"}, True), ({"layout": "fsdp"}, False),
     ({"moe_shard_map": 1}, True), (None, False)])
@@ -209,15 +294,22 @@ def test_stand_in_collectives_take_meta_tensors_above_one_rank():
     one rank each collective is the identity, as the real one is."""
     x = torch.arange(12.0).reshape(4, 3)
     group = RankMesh({"data": 2, "model": 1}).world
-    for fn in (comm.all_reduce, comm.all_gather, comm.all_to_all,
-               comm.all_reduce_mean):
+    fns = (comm.all_reduce, comm.all_gather, comm.all_to_all,
+           comm.all_reduce_mean, comm.all_reduce_max, comm.all_reduce_sum)
+    for fn in fns:
         with pytest.raises(RuntimeError, match="meta tensors only"):
             fn(x.clone(), group)
         assert fn(x.to("meta"), group).device.type == "meta"
     one = RankMesh(ONE).world
-    for fn in (comm.all_reduce, comm.all_gather, comm.all_to_all,
-               comm.all_reduce_mean):
+    for fn in fns:
         assert torch.equal(fn(x.clone(), one), x)
+    # an all-gather's backward is the stand-in's reduce-scatter
+    xm = x.to("meta").requires_grad_()
+    (g,) = torch.autograd.grad(comm.all_gather(xm, group).sum(), [xm])
+    assert g.shape == x.shape and g.device.type == "meta"
+    xo = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad((comm.all_gather(xo, one) * x).sum(), [xo])
+    assert torch.equal(g, x)
 
 
 SIZES = {"pod": 2, "data": 2, "model": 3}
@@ -239,6 +331,17 @@ def test_gather_puts_the_blocks_back_in_rank_order(spec, monkeypatch):
     monkeypatch.setattr(comm, "all_gather",
                         lambda x, group: torch.cat(blocks))
     assert torch.equal(sh.gather(blocks[0]), full)
+
+
+def test_ring_bytes_of_each_collective():
+    """A rank's link bytes for a result of 1200 bytes over 4 ranks: 3/4 of
+    it for an all-gather or an all-to-all, twice that for an all-reduce,
+    and 3/4 of the input (4 results) for a reduce-scatter."""
+    assert op_cost.ring_bytes("all-gather", 1200, 4) == 900
+    assert op_cost.ring_bytes("all-to-all", 1200, 4) == 900
+    assert op_cost.ring_bytes("all-reduce", 1200, 4) == 1800
+    assert op_cost.ring_bytes("reduce-scatter", 1200, 4) == 3600
+    assert op_cost.ring_bytes("reduce-scatter", 1200, 1) == 0
 
 
 def test_stand_in_gather_reports_one_all_gather():

@@ -15,9 +15,11 @@ side. Everything is f32. Tolerances:
   the same mesh shape: y within 1e-5, gradients within 1e-4 of max;
 - the sharded train step on 4 ranks against the one-process step on the
   same mesh shape (its MoE groups follow the same batch spec): loss and
-  grad norm within 1e-5 relative, the gathered parameters within 1e-5 of
-  the largest |parameter| (the gradient sums run in another order), each
-  rank's blocks exactly the spec's slices of them;
+  grad norm within 1e-5 relative, each step's gathered gradients within
+  1e-5 of the largest |gradient| (the sums run in another order), the
+  gathered parameters within 1e-5 of the largest |parameter| where no
+  product is split over ``model``, each rank's blocks exactly the spec's
+  slices of them;
 - the sharded step at one rank against the reference's jitted step with
   ``shardings(mesh, state_specs(...))`` on ``make_host_mesh()``: the rule
   of ``tests/test_torch_train.py`` (losses and grad norms 1e-4 relative;
@@ -49,6 +51,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.cluster import topology
 from repro_torch.core import hw
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as ttrain
 from repro_torch.models import abstract_params
@@ -207,38 +210,90 @@ def _batch(cfg, shape, seed=0):
     return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
 
 
-@pytest.mark.parametrize("arch", ["granite-20b", "deepseek-moe-16b",
-                                  "zamba2-1.2b"])
-def test_sharded_step_on_four_ranks_matches_one_process(tmp_path, arch):
+@pytest.mark.parametrize("arch,layout", [
+    ("granite-20b", "2d"), ("qwen3-32b", "2d"), ("gemma3-27b", "2d"),
+    ("deepseek-moe-16b", "2d"), ("zamba2-1.2b", "2d"),
+    ("granite-20b", "fsdp"), ("deepseek-moe-16b", "ep")])
+def test_sharded_step_on_four_ranks_matches_one_process(tmp_path, arch,
+                                                        layout):
     """data 2 x model 2, batch 8 x 16 from numpy seed 0 in 2 microbatches,
-    2 steps (the reference's ``tests/test_distributed.py`` set)."""
+    2 steps (the reference's ``tests/test_distributed.py`` set), in the
+    ``2d`` layout (tensor parallelism over ``model`` for the transformer
+    families: MQA granite and qwen3's KV heads, gemma3's window layers,
+    the MoE model's attention and shared experts; zamba2 runs replicated
+    over it) and in ``fsdp`` and ``ep`` (``model`` splits the batch)."""
     args = {"arch": arch, "data": 2, "model": 2, "steps": 2, "micro": 2,
-            "seed": 0, "batch": [8, 16], "opt": OPT}
+            "seed": 0, "batch": [8, 16], "opt": OPT, "layout": layout}
     res = spawn("train", 4, tmp_path, args)
     cfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     amesh = HOST4
-    model = tbuild(cfg, amesh)
+    rules = dryrun.layout_rules(layout, amesh.shape)
+    model = tbuild(cfg, amesh, shd_rules=rules,
+                   **({"moe_impl": "shard_map"} if layout == "ep" else {}))
     params = model.init(torch.Generator().manual_seed(0), "cpu",
                         dtype=torch.float32)
     state = tstep.TrainState(params, topt.init_opt_state(params))
-    step = tstep.make_train_step(model, topt.OptConfig(**OPT),
-                                 tstep.StepConfig(num_microbatches=2))
+    grad_fn = tstep.make_grad_fn(model, tstep.StepConfig(num_microbatches=2))
     batch = _batch(cfg, (8, 16))
-    want = []
+    init = topt.tree_map(torch.Tensor.clone, state.params)
+    want, want_grads = [], []
     for _ in range(2):
-        state, m = step(state, batch)
-        want.append((float(m["loss"]), float(m["grad_norm"])))
+        loss, g = grad_fn(state.params, batch)
+        want_grads.append(topt.tree_map(torch.Tensor.clone, g))
+        params, opt, m = topt.adamw_update(topt.OptConfig(**OPT),
+                                           state.params, g, state.opt)
+        state = tstep.TrainState(params, opt)
+        want.append((float(loss), float(m["grad_norm"])))
     pmax = max(float(p.abs().max()) for p in topt.tree_leaves(state.params))
     specs = dict(_leaves(tstep.state_specs(
-        amesh, *abstract_params(model)).params))
+        amesh, *abstract_params(model), rules).params))
+    # with a product split over model its partial sums round otherwise
+    # than the one-process product, and AdamW's first steps turn rounding
+    # in a near-zero gradient element (|g| ~ eps) into lr-sized
+    # differences. So each step's update is held on its own as well: the
+    # one-process AdamW applied to the rank's gathered parameters before
+    # the step and its gathered gradients (the moments carried) against
+    # the rank's gathered parameters after it, within 1e-5 of the step's
+    # largest change plus 2 f32 ulps of the parameter (a sum of squares
+    # in another order may move the clip's scale by one ulp). It holds
+    # the clip's norm and each leaf's replica count in the block-aware
+    # update.
+    split = layout == "2d" and bool(model.shd.tp_axes)
     n_split = 0
     for rank in res:
         got = list(zip(rank["loss"], rank["grad_norm"]))
         np.testing.assert_allclose(got, want, rtol=1e-5)
-        full = dict(_leaves(rank["full"]))
-        for name, w in _leaves(state.params):
-            np.testing.assert_allclose(_np(full[name]), _np(w), rtol=0,
-                                       atol=1e-5 * pmax, err_msg=name)
+        for got_g, want_g in zip(rank["grads"], want_grads):
+            gmax = max(float(g.abs().max())
+                       for g in topt.tree_leaves(want_g))
+            got_g = dict(_leaves(got_g))
+            for name, w in _leaves(want_g):
+                np.testing.assert_allclose(_np(got_g[name]), _np(w), rtol=0,
+                                           atol=1e-5 * gmax, err_msg=name)
+        before, opt = init, topt.init_opt_state(init)
+        for i, (g, after) in enumerate(zip(rank["grads"], rank["fulls"])):
+            p, opt, m = topt.adamw_update(
+                topt.OptConfig(**OPT), topt.tree_map(torch.Tensor.clone,
+                                                     before),
+                topt.tree_map(torch.Tensor.clone, g), opt)
+            assert float(m["grad_norm"]) == pytest.approx(
+                rank["grad_norm"][i], rel=1e-5)
+            b = {k: _np(v).astype(np.float64) for k, v in _leaves(before)}
+            want_d = {k: _np(v) - b[k] for k, v in _leaves(p)}
+            dmax = max(float(np.abs(d).max()) for d in want_d.values())
+            for name, a in _leaves(after):
+                err = np.abs(_np(a) - b[name] - want_d[name])
+                tol = 1e-5 * dmax + 2 * np.spacing(
+                    np.abs(b[name]).astype(np.float32))
+                assert (err <= tol).all(), (
+                    f"step {i} update {name}: {float((err - tol).max())} "
+                    "over")
+            before = after
+        full = dict(_leaves(rank["fulls"][-1]))
+        if not split:
+            for name, w in _leaves(state.params):
+                np.testing.assert_allclose(_np(full[name]), _np(w), rtol=0,
+                                           atol=1e-5 * pmax, err_msg=name)
         for name, blk in _leaves(rank["blocks"]):
             sh = NamedSharding(amesh, specs[name])
             assert torch.equal(blk, sh.block(full[name], rank["coords"]))

@@ -7,7 +7,8 @@ every greedy choice).
 
 - The blocks on identical inputs: ``_causal_conv`` (with and without a
   carried state), ``mlstm_chunkwise`` and ``mlstm_step`` (T steps equal to
-  the chunkwise form over T), ``slstm_block``, ``ssd_chunkwise`` and
+  the chunkwise form over T), ``slstm_block`` (and its gradients),
+  ``ssd_chunkwise`` and
   ``ssd_step``, ``mamba_block``; whisper's ``encode``, ``cross_attention``
   and ``build_cross_cache``.
 - Each model's ``forward``, ``prefill`` in chunks at ``start_pos`` (1-token
@@ -270,6 +271,31 @@ def test_slstm_block(with_state):
     if with_state:
         for i, (a, b) in enumerate(zip(tst, jst)):
             _close(a, b, what=f"state {i}")
+
+
+def test_slstm_block_gradients():
+    """The sLSTM block under a gradient, its recurrent weights laid out
+    once before the token loop: the gradients of ``sum(x_out * c)``
+    with respect to x and every leaf of the block against
+    ``jax.grad`` of the reference's block."""
+    jcfg, _, jp, tcfg, _, tp = _models("xlstm-1.3b")
+    rng = np.random.default_rng(6)
+    x = _randn(rng, 2, 9, jcfg.d_model)
+    c = _randn(rng, 2, 9, jcfg.d_model)
+
+    def jloss(x, p):
+        out, _ = jxlstm.slstm_block(x, p, jcfg, SHD, None)
+        return (out * c).sum()
+
+    jgx, jgp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jp["slstm_0"])
+    leaves = tc.tree_map(lambda t: t.clone().requires_grad_(), tp["slstm_0"])
+    tx = _t(x).requires_grad_()
+    out = txlstm.slstm_block(tx, leaves, tcfg, None)
+    flat = jax.tree.leaves(leaves)
+    grads = torch.autograd.grad((out * _t(c)).sum(), [tx] + flat)
+    _close(grads[0], jgx, what="d x")
+    for i, (g, w) in enumerate(zip(grads[1:], jax.tree.leaves(jgp))):
+        _close(g, w, what=f"d leaf {i}")
 
 
 @pytest.mark.parametrize("with_state", [False, True])

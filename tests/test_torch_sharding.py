@@ -247,3 +247,59 @@ def test_sharder_is_the_identity_and_reads_the_batch_split():
     assert shd.batch_axes(3) == ()
     assert tuple(shd.spec(("embed", "heads"), (8, 8))) == ("data", "model")
     assert tshard.Sharder().batch_axes(8) == ()
+
+
+def test_gather_over_some_axes_keeps_the_others():
+    """On a pod 2 x data 2 x model 3 stand-in mesh: a dim split over
+    ("pod", "data") gathers its minor axis alone (one all-gather over
+    data's 2 ranks) and keeps the major one; gathering the major axis
+    while keeping the minor one is refused (the blocks would not be
+    contiguous)."""
+    from repro_torch.perf import op_cost
+    mesh = tmesh.RankMesh({"pod": 2, "data": 2, "model": 3})
+    sh = tshard.NamedSharding(mesh, tshard.P(("pod", "data"), "model"))
+    block = torch.empty(3, 4, device="meta")
+    with op_cost.OpCounter() as counter:
+        assert sh.gather(block, {"data"}).shape == (6, 4)
+        assert sh.gather(block, {"data", "pod", "model"}).shape == (12, 12)
+    # data (twice: both calls), then pod (crossing the pods), then model
+    assert dict(counter.collectives) == {
+        ("all-gather", 6 * 4 * 4, 2, False): 2.0,
+        ("all-gather", 12 * 4 * 4, 2, True): 1.0,
+        ("all-gather", 12 * 12 * 4, 3, False): 1.0}
+    with pytest.raises(ValueError, match="keeps a minor axis"):
+        sh.gather(block, {"pod"})
+
+
+def test_sharder_uses_a_layers_blocks_and_splits_over_model():
+    """Within ``rank_blocks`` a layer's leaves are gathered over every
+    split axis but ``model`` on a tensor-parallel axis (the router whole);
+    ``tp`` names the model ranks only where they do not split the batch;
+    outside it, and at one rank, nothing changes."""
+    mesh = tmesh.RankMesh({"data": 2, "model": 2})
+    shd = tshard.Sharder(mesh, tp_axes=("heads", "mlp"),
+                         tp_replicated=("router",))
+    axes = {"wq": ("layers", "embed", "heads", "head_dim"),
+            "router": ("layers", "embed", "experts")}
+    shapes = {"wq": (3, 8, 4, 2), "router": (3, 8, 4)}
+    specs = tshard.tree_specs(mesh, axes, shapes)
+    blocks = {"wq": torch.empty(4, 2, 2, device="meta"),
+              "router": torch.empty(4, 2, device="meta")}
+    assert shd.use(blocks, "layers", stacked=True) is blocks
+    assert shd.tp is None
+    with shd.rank_blocks({"layers": specs}, {"layers": axes}):
+        used = shd.use(blocks, "layers", stacked=True)
+        assert used["wq"].shape == (8, 2, 2)         # model kept on heads
+        assert used["router"].shape == (8, 4)        # gathered whole
+        with shd.rank_batch(("data",)):
+            tp = shd.tp
+            assert (tp.size, tp.rank, tp.group.size) == (2, 0, 2)
+            assert tp.group.axes == ("model",)
+        with shd.rank_batch(("data", "model")):
+            assert shd.tp is None
+    one = tshard.Sharder(tmesh.RankMesh({"data": 1, "model": 1}),
+                         tp_axes=("heads",))
+    with one.rank_blocks({"layers": specs}, {"layers": axes}):
+        assert one.tp is None
+        wq = torch.empty(8, 4, 2)
+        assert one.use({"wq": wq}, "layers", stacked=True)["wq"] is wq

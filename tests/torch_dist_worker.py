@@ -75,35 +75,47 @@ def _mesh(args):
 
 def train(args):
     """``args["steps"]`` sharded train steps from the seeded state on a
-    global batch from a numpy seed; the losses, grad norms, the rank's
-    blocks and the gathered parameters."""
+    global batch from a numpy seed, in ``args["layout"]`` (``2d`` by
+    default; ``fsdp``, ``ep``: ``launch.dryrun.layout_rules``); the
+    losses, grad norms, each step's gathered gradients and gathered
+    parameters after it, and the rank's blocks."""
     from repro_torch import configs
+    from repro_torch.launch.dryrun import layout_rules
     from repro_torch.models import build_model
-    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.parallel.sharding import mesh_shape
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             tree_map)
     from repro_torch.train.step import (ShardedTrainStep, StepConfig,
                                         TrainState)
     mesh = _mesh(args)
+    layout = args.get("layout", "2d")
+    rules = layout_rules(layout, mesh_shape(mesh))
     cfg = configs.get_smoke(args["arch"]).replace(dtype="float32")
-    model = build_model(cfg, mesh, **args.get("model_kw", {}))
+    kw = {"moe_impl": "shard_map"} if layout == "ep" else {}
+    model = build_model(cfg, mesh, shd_rules=rules, **kw)
     params = model.init(torch.Generator().manual_seed(0), "cpu",
                         dtype=torch.float32)
     state = TrainState(params, init_opt_state(params))
     step = ShardedTrainStep(model, OptConfig(**args["opt"]),
-                            StepConfig(num_microbatches=args["micro"]), mesh)
+                            StepConfig(num_microbatches=args["micro"]),
+                            mesh, rules)
     state = step.layout(state)
     rng = np.random.default_rng(args["seed"])
     tokens = rng.integers(0, cfg.vocab_size, tuple(args["batch"]))
     batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
     batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
-    losses, norms = [], []
+    losses, norms, grads, fulls = [], [], [], []
+    lay = step.shardings.params
     for _ in range(args["steps"]):
-        state, metrics = step(state, batch)
+        loss, g = step.grads(state, batch)
+        grads.append(tree_map(lambda b, sh: sh.gather(b).clone(), g, lay))
+        state, metrics = step.apply(state, loss, g)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-    full = step.gather(state)
-    return {"loss": losses, "grad_norm": norms, "blocks": state.params,
-            "full": full.params, "coords": step.shardings.params[
-                "final_norm"].coords()}
+        fulls.append(tree_map(torch.Tensor.clone, step.gather(state).params))
+    return {"loss": losses, "grad_norm": norms, "grads": grads,
+            "fulls": fulls, "blocks": state.params,
+            "coords": lay["final_norm"].coords()}
 
 
 def moe_ep(args):
@@ -136,6 +148,32 @@ def moe_ep(args):
             "grads": dict(zip(leaves, grads))}
 
 
+def collectives(args):
+    """Each collective that carries a gradient, over the world group, on
+    the rank's slice of inputs from a numpy seed: its output and the
+    gradient of ``sum(out * cotangent)`` (the rank's cotangent slice;
+    an all-gather's is its reduce-scatter, along dim 1 and dim 0)."""
+    from repro_torch.parallel import comm
+    import torch.distributed as dist
+    rank, n = dist.get_rank(), dist.get_world_size()
+    rng = np.random.default_rng(args["seed"])
+    shapes = {"all_gather": ((3, 2), (3, 2 * n)),
+              "all_gather_0": ((2, 3), (2 * n, 3)),
+              "all_reduce_sum": ((2, 3), (2, 3))}
+    ops = {"all_gather": lambda x: comm.all_gather(x, None, dim=1),
+           "all_gather_0": lambda x: comm.all_gather(x, None, dim=0),
+           "all_reduce_sum": comm.all_reduce_sum}
+    out = {}
+    for name, (xs, ys) in shapes.items():
+        x_all = torch.from_numpy(rng.normal(size=(n,) + xs))
+        c_all = torch.from_numpy(rng.normal(size=(n,) + ys))
+        x = x_all[rank].clone().requires_grad_()
+        y = ops[name](x)
+        (g,) = torch.autograd.grad((y * c_all[rank]).sum(), [x])
+        out[name] = (x_all, c_all, y.detach(), g)
+    return out
+
+
 def compress(args):
     """``compressed_psum_pod`` and two steps of ``compress_grads_over_pod``
     (error feedback carried) on the rank's gradients from a numpy seed."""
@@ -162,8 +200,8 @@ def main(argv):
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=int(rank), world_size=int(world))
     try:
-        result = {"train": train, "moe_ep": moe_ep,
-                  "compress": compress}[task](json.loads(args))
+        result = {"train": train, "moe_ep": moe_ep, "compress": compress,
+                  "collectives": collectives}[task](json.loads(args))
         torch.save(result, pathlib.Path(out) / f"{rank}.pt")
     finally:
         dist.destroy_process_group()
