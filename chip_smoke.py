@@ -72,7 +72,12 @@ Phases, each of which must pass (any failure exits non-zero):
               equal itself, and replay with the replay CLI's three
               admission policies (baseline, strict-1slot, a 400 W cap on
               the H100_SXM power model), run twice, must give equal
-              reports, each policy at or below the trace's joules.
+              reports, each policy at or below the trace's joules. Then
+              the sharded serve step (serve.step.ShardedServeStep) on a
+              one-rank NCCL mesh: a prefill of 4 rows x 256 tokens and 8
+              decode steps at per-row positions equal to the model's own
+              bit for bit (logits and tokens), one flash launch a layer on
+              wgmma.
 6. profile  — where the time goes in one full-width decode step and one
               256-token prefill: host time, device-busy time, kernel count.
 7. serve_window — granite freed, gemma3-27b at its published width (62
@@ -169,7 +174,21 @@ Phases, each of which must pass (any failure exits non-zero):
               on ffma; 1e-4 of max|y|) and bf16 (flash on wgmma at q
               [1,3,4096,128] over one KV head, and qwen3's [1,4,4096,128]
               over the KV head its heads read; 4e-2 of max|y|), flash
-              launches by route and shape.
+              launches by route and shape; tp_serve: the serve cells'
+              layout at full width, layer 0 as 16 model ranks against the
+              unsharded layer (f32 1e-4, bf16 4e-2 of max|y|): (a)
+              granite-20b decode on a 32768-position cache split over
+              sequence, 8 rows (three with no valid key past the first
+              rank's block), the ranks as threads whose collectives meet
+              (query heads gathered, the blocks' partial softmaxes
+              combined, wo and the MLP summed), every rank's cache block
+              bitwise the unsharded cache's slice; (b) qwen3-32b prefill,
+              2 rows, 4 query heads a rank over one KV head on flash
+              (bf16 at S 32768 on wgmma, f32 at S 4096 on ffma; 16 rank
+              launches and one unsharded), the cache blocks bitwise; (c)
+              deepseek-moe-16b's first MoE layer in f32, 4 experts a rank
+              summed against the grouped path, routed alike, 1e-5 of
+              max|y|.
 11c. dryrun — the port's dry-run (launch.dryrun: one rank's step on the
               meta device, counted by perf.op_cost) held against the
               card (the counted step's flash launches are the kernels
@@ -187,7 +206,9 @@ Phases, each of which must pass (any failure exits non-zero):
               internvl2-76b serves at 32 layers, not at 80; deepseek-moe-16b
               whole); (d) one production cell of each family on the 16 x 16
               mesh, each completing, granite-20b's train_4k fitting 80 GB
-              a rank with useful >= 0.5; (e) (after record_cli) the port's
+              a rank with useful >= 0.5, granite-20b's prefill_32k and
+              decode_32k and deepseek-moe-16b's decode_32k (the sharded
+              serve step) fitting 80 GB a rank; (e) (after record_cli) the port's
               regression gate on the bench phase's rows and the two replay
               reports: rc 0, 1 (a compiles raised), 1 (a row slowed 20 %),
               0.
@@ -200,7 +221,9 @@ Phases, each of which must pass (any failure exits non-zero):
               with is_causal), at gemma3-27b's S 2048 with the window and
               without, at the train phase's microbatch (B 4, S 512), at
               granite-20b's train_4k tensor-parallel rank (q
-              [1,3,4096,128], kv [1,1,4096,128], causal), and
+              [1,3,4096,128], kv [1,1,4096,128], causal), at qwen3-32b's
+              prefill_32k rank (q [2,4,32768,128], kv [2,1,32768,128],
+              causal; the plain version 4096 query rows at a time), and
               deepseek-moe-16b's largest serve prefill (q [1,16,256,128]
               over the 512-position cache view) and internvl2-76b's forward
               (q [1,64,512,128], kv [1,8,512,128]), whisper-small's
@@ -1387,6 +1410,92 @@ def phase_serve(card):
     return cfg, eng, launches, shapes
 
 
+# the serve phase's one-rank check of the sharded serve step: a prefill of
+# 4 rows of 256 tokens from the seed into a contiguous cache of 512
+# positions, then 8 greedy decode steps at per-row positions
+SERVE_SHARDED = dict(rows=4, prompt=256, steps=8, seed=0,
+                     pos=(256, 200, 256, 100))
+
+
+def serve_sharded_one_rank(eng, card):
+    """granite-20b at full width on the serve phase's weights: a prefill
+    and ``SERVE_SHARDED["steps"]`` decode steps through the model, then
+    the same through ``ShardedServeStep`` on a one-rank NCCL mesh (the
+    serve cell's rules for the batch): logits and greedy tokens equal
+    bit for bit (one rank: every split is a no-op), the sharded run's
+    flash launches (zeroed before, read after) one a layer on wgmma."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import ShardedServeStep, cell_rules
+    from repro_torch.train.optimizer import tree_map
+    c = SERVE_SHARDED
+    cfg, params = eng.model.cfg, eng.params
+    g = torch.Generator(device="cuda")
+    g.manual_seed(c["seed"])
+    tokens = torch.randint(0, cfg.vocab_size, (c["rows"], c["prompt"]),
+                           generator=g, device="cuda")
+    pos = torch.tensor(c["pos"], device="cuda")
+    max_seq = SERVE["max_seq"]
+
+    def serve(prefill, decode, caches):
+        with torch.no_grad():
+            lg, caches = prefill({"tokens": tokens}, caches)
+            logits, toks = [lg], [lg.argmax(-1)]
+            for i in range(c["steps"]):
+                lg, caches = decode(toks[-1], pos + i, caches)
+                logits.append(lg)
+                toks.append(lg.argmax(-1))
+        torch.cuda.synchronize()
+        return logits, toks
+
+    model = eng.model
+    want, want_tok = serve(
+        lambda b, cc: model.prefill(params, b, cc),
+        lambda t, q, cc: model.decode_step(params, t, q, cc),
+        model.init_cache(c["rows"], max_seq, device="cuda"))
+    store = ROOT / "build" / "serve_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, 1, "cuda")
+        smodel = build_model(cfg, mesh, shd_rules=cell_rules(
+            cfg, c["rows"], mesh))
+        step = ShardedServeStep(smodel, mesh, c["rows"], max_seq)
+        blocks = step.layout(tree_map(lambda t: t, params))
+        caches = step.layout_cache(smodel.init_cache(c["rows"], max_seq,
+                                                     device="cuda"))
+        zero_flash_counts()
+        got, got_tok = serve(
+            lambda b, cc: step.prefill(blocks, b, cc),
+            lambda t, q, cc: step.decode(blocks, t, q, cc), caches)
+        n_flash, routes, windowed = flash_counts()
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    same_tok = all(torch.equal(a, b) for a, b in zip(got_tok, want_tok))
+    log(f"[serve] sharded serve step on a one-rank NCCL mesh: "
+        f"{cfg.name}, {c['rows']} rows x {c['prompt']} tokens, "
+        f"{c['steps']} decode steps at positions {list(c['pos'])} + i: "
+        f"logits equal bitwise {same}, tokens equal {same_tok} (step 1 "
+        f"{want_tok[1][:, 0].tolist()}); flash {n_flash} launches by route "
+        f"{routes}, windowed {windowed}; card: {card}")
+    check_all("serve", {
+        "sharded serve step at one rank: logits equal bitwise": same,
+        "sharded serve step at one rank: tokens equal": same_tok,
+        "sharded serve step: flash launches == layers, all wgmma": (
+            n_flash == cfg.num_layers and routes == {
+                "wgmma": n_flash, "ffma": 0} and windowed == 0),
+    })
+    return n_flash
+
+
 # gemma3-27b at its published width on the window rings: the reference's
 # default serve path. Two prompts longer than the 1024 window, two whose
 # decode crosses position 1024 (the ring wraps), four short ones
@@ -2448,6 +2557,371 @@ def tp_layer_check(card):
     return out
 
 
+# the parallel phase's tp_serve check: the serve cells' layout (the
+# reference dry-run's serve_rules) at full width on one card, layer 0 as
+# 16 model ranks; tolerances stated before the first run: f32 1e-4 and
+# bf16 4e-2 of max|y| as tp_layer's, the MoE layer routed equal and
+# within 1e-5 of max|y| in f32. (a) granite-20b decode (MQA: the cache
+# split over sequence, 2048 positions a rank): decode_32k's 8 rank rows
+# at positions whose keys lie, for the first three rows, wholly in rank
+# 0's block, so that the other 15 blocks hold no valid key for them; the
+# ranks run as threads whose collectives meet (ThreadRanks). (b)
+# qwen3-32b prefill_32k's rank: 2 rows, 4 query heads a rank over the one
+# KV head they read, the cache split over sequence; bf16 at S 32768 (the
+# flash shape of the timing row), f32 at S 4096; the ranks one after the
+# other, their partial outputs summed as tp_layer sums them. (c)
+# deepseek-moe-16b's first MoE layer, 4 experts a rank, summed.
+TP_SERVE = dict(model=16, seed=0, tol={"float32": 1e-4, "bfloat16": 4e-2},
+                decode_arch="granite-20b", decode_seq=32768,
+                decode_pos=(100, 1500, 2046, 5000, 12000, 20000, 30000,
+                            32767),
+                prefill_arch="qwen3-32b", prefill_rows=2,
+                prefill_seq={"bfloat16": 32768, "float32": 4096},
+                moe_x=(8, 256), moe_tol=1e-5)
+
+
+class ThreadRanks:
+    """``size`` ranks as threads of this process, for one card: a
+    collective waits for every rank's tensor, and each rank computes the
+    result from all of them in rank order (every rank holds the same
+    bits) before any rank goes on. The ranks' kernels share the default
+    stream, so what one rank enqueued before a barrier is done before
+    what another enqueues after it. A rank that raises breaks the
+    barrier: the others raise too, and none waits past ``timeout`` s."""
+
+    def __init__(self, size, timeout=300.0):
+        import threading
+        self.size = size
+        self.barrier = threading.Barrier(size, timeout=timeout)
+        self.slots = [None] * size
+
+    def group(self, rank):
+        """Rank ``rank``'s group (a ``comm`` stand-in whose collectives
+        are these)."""
+        import torch
+        from repro_torch.parallel import comm
+        ranks = self
+
+        class Rank(comm.ShapeGroup):
+            def __init__(self):
+                self.rank, self.size = rank, ranks.size
+                self.axes, self.crosses_pod = ("model",), False
+
+            def _meet(self, t, combine):
+                ranks.slots[rank] = t
+                ranks.barrier.wait()
+                out = combine(list(ranks.slots))
+                ranks.barrier.wait()
+                return out
+
+            def _fold(self, t, op):
+                def fold(parts):
+                    acc = parts[0].clone()
+                    for x in parts[1:]:
+                        acc = op(acc, x)
+                    return acc
+                return t.copy_(self._meet(t, fold))
+
+            def all_reduce(self, t):
+                return self._fold(t, torch.add)
+
+            def all_reduce_max(self, t):
+                return self._fold(t, torch.maximum)
+
+            def all_gather(self, x):
+                return self._meet(x, lambda parts: torch.cat(parts))
+
+        return Rank()
+
+    def run(self, fn):
+        """``fn(rank)`` on every rank's thread; the results in rank
+        order."""
+        import threading
+        out, errs = [None] * self.size, []
+
+        def body(r):
+            try:
+                out[r] = fn(r)
+            except BaseException as e:          # noqa: BLE001 (re-raised)
+                errs.append((r, e))
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            first = [e for e in errs if not isinstance(
+                e[1], threading.BrokenBarrierError)] or errs
+            raise RuntimeError(f"rank {first[0][0]} failed") from first[0][1]
+        return out
+
+
+def _layer_blocks(cfg, p, size, r):
+    """Rank ``r`` of ``size`` model ranks' blocks of one dense layer's
+    leaves ``p`` (full)."""
+    from repro_torch.models.transformer import _dense_layer_axes
+    from repro_torch.parallel.sharding import NamedSharding, tree_specs
+    from repro_torch.train.optimizer import tree_map
+    sizes = {"model": size}
+    specs = tree_specs(sizes, _dense_layer_axes(cfg, ()), p)
+    return tree_map(lambda t, s: NamedSharding(sizes, s).block(
+        t, {"model": r}), p, specs)
+
+
+def tp_serve_decode(card, dt):
+    """tp_serve (a): granite-20b's layer 0 decode step on a cache split
+    over sequence, 16 ranks as threads: each rank writes the new token's
+    K/V where its block holds the row's position, gathers the query
+    heads, attends over its block, the blocks' partial softmaxes combine,
+    and wo and the MLP sum over the ranks. Against the unsharded layer:
+    y, and every rank's cache block against the unsharded cache's
+    slice (bitwise)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model, common
+    from repro_torch.models.transformer import _dense_layer_shapes
+    from repro_torch.parallel.sharding import TensorParallel
+    c = TP_SERVE
+    n = c["model"]
+    cfg = configs.get(c["decode_arch"]).adapt_for_mesh(n).replace(dtype=dt)
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(c["seed"])
+    p = common.init_tree(_dense_layer_shapes(cfg, (), cfg.d_ff), gen,
+                         "cuda", torch.float32)
+    rows, t = len(c["decode_pos"]), c["decode_seq"]
+    x = torch.randn(rows, 1, cfg.d_model, generator=gen,
+                    device="cuda").to(dtype)
+    ck, cv = (torch.randn(rows, t, cfg.num_kv_heads, cfg.head_dim,
+                          generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    pos = torch.tensor(c["decode_pos"], device="cuda")
+    blk = t // n
+    blocks = [(_layer_blocks(cfg, p, n, r),
+               ck[:, r * blk:(r + 1) * blk].clone(),
+               cv[:, r * blk:(r + 1) * blk].clone()) for r in range(n)]
+    want = build_model(cfg)._layer(x, p, positions=pos[:, None],
+                                   kv_cache=(ck, cv), cache_pos=pos)[0]
+    ranks = ThreadRanks(n)
+
+    def rank(r):
+        tp = TensorParallel(ranks.group(r), n, r)
+        b, bk, bv = blocks[r]
+        h, _ = common.attention(common.rms_norm(x, b["norm1"]), b["attn"],
+                                cfg, positions=pos[:, None],
+                                kv_cache=(bk, bv), cache_pos=pos, tp=tp,
+                                kv_split=tp)
+        x1 = x + h
+        return x1 + common.mlp(common.rms_norm(x1, b["norm2"]), b["mlp"], tp,
+                               cfg.d_ff)
+
+    t0 = time.perf_counter()
+    ys = ranks.run(rank)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scale = want.float().abs().max().item()
+    rel = (ys[0].float() - want.float()).abs().max().item() / scale
+    same = all(torch.equal(y, ys[0]) for y in ys)
+    caches = all(torch.equal(bk, ck[:, r * blk:(r + 1) * blk])
+                 and torch.equal(bv, cv[:, r * blk:(r + 1) * blk])
+                 for r, (_, bk, bv) in enumerate(blocks))
+    empty = sum(1 for q in c["decode_pos"] if q < blk)
+    tol = c["tol"][dt]
+    log(f"[parallel] tp_serve (a) {cfg.name} layer 0 decode, {dt}, model "
+        f"{n} as threads: {rows} rows at positions {list(c['decode_pos'])} "
+        f"on a {t}-position cache split over sequence ({blk} a rank; "
+        f"{empty} rows with no valid key in {n - 1} of the {n} blocks): "
+        f"max|diff| {rel:.3e} of max|y| {scale:.4g} (tol {tol:g}); every "
+        f"rank's y equal {same}; every rank's cache block equal to the "
+        f"unsharded cache's slice {caches}; ranks' wall {wall:.2f} s; "
+        f"card: {card}")
+    check_all("parallel", {
+        f"tp_serve (a) decode {dt}: combined ranks within {tol:g} of "
+        f"max|y|": rel <= tol and bool(torch.isfinite(ys[0]).all()),
+        f"tp_serve (a) decode {dt}: every rank's y equal": same,
+        f"tp_serve (a) decode {dt}: each rank's cache block holds the "
+        f"unsharded cache's positions bitwise": caches,
+    })
+    return rel
+
+
+def tp_serve_prefill(card, dt):
+    """tp_serve (b): qwen3-32b's layer 0 prefill from position 0 into a
+    cache split over sequence: each of 16 ranks runs its 4 query heads
+    over the one KV head they read on the flash kernel and writes its
+    block of the cache; the partial outputs summed (the all-reduce left
+    out, as tp_layer). Against the unsharded layer: y, the cache blocks
+    (bitwise), the flash launches by route and shape."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model, common
+    from repro_torch.models.transformer import _dense_layer_shapes
+    from repro_torch.parallel.sharding import TensorParallel
+
+    class Partial(TensorParallel):
+        def sum(self, y):
+            return y
+
+    c = TP_SERVE
+    n, b, s = c["model"], c["prefill_rows"], c["prefill_seq"][dt]
+    cfg = configs.get(c["prefill_arch"]).adapt_for_mesh(n).replace(dtype=dt)
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(c["seed"])
+    p = common.init_tree(_dense_layer_shapes(cfg, (), cfg.d_ff), gen,
+                         "cuda", torch.float32)
+    x = torch.randn(b, s, cfg.d_model, generator=gen,
+                    device="cuda").to(dtype)
+    positions = torch.arange(s, device="cuda")
+    kv = (b, s, cfg.num_kv_heads, cfg.head_dim)
+    ck, cv = (torch.zeros(kv, dtype=dtype, device="cuda") for _ in range(2))
+    zero_flash_counts()
+    with flash_shapes() as full_shapes:
+        want = build_model(cfg)._layer(x, p, positions=positions,
+                                       kv_cache=(ck, cv), cache_pos=0)[0]
+    full = flash_counts()
+    blk = s // n
+    zero_flash_counts()
+    with flash_shapes() as rank_shapes:
+        h = None
+        blocks = []
+        for r in range(n):
+            lb = _layer_blocks(cfg, p, n, r)
+            bk, bv = (torch.zeros((b, blk) + kv[2:], dtype=dtype,
+                                  device="cuda") for _ in range(2))
+            tp = Partial(None, n, r)
+            y = common.attention(common.rms_norm(x, lb["norm1"]), lb["attn"],
+                                 cfg, positions=positions, kv_cache=(bk, bv),
+                                 cache_pos=0, tp=tp, kv_split=tp)[0]
+            h = y if h is None else h + y
+            blocks.append((lb["mlp"], bk, bv))
+        x1 = x + h
+        xn = common.rms_norm(x1, p["norm2"])
+        out = None
+        for r, (mlp, _, _) in enumerate(blocks):
+            y = common.mlp(xn, mlp, Partial(None, n, r), cfg.d_ff)
+            out = y if out is None else out + y
+        got = x1 + out
+    ranks = flash_counts()
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    rel = (got.float() - want.float()).abs().max().item() / scale
+    caches = all(torch.equal(bk, ck[:, r * blk:(r + 1) * blk])
+                 and torch.equal(bv, cv[:, r * blk:(r + 1) * blk])
+                 for r, (_, bk, bv) in enumerate(blocks))
+    route = "ffma" if dt == "float32" else "wgmma"
+    h_rank = cfg.q_heads // n
+    want_shape = (b, h_rank, 1, s, s, cfg.head_dim, True, None, 0)
+    tol = c["tol"][dt]
+    log(f"[parallel] tp_serve (b) {cfg.name} layer 0 prefill, {dt}, model "
+        f"{n}: x [{b},{s},{cfg.d_model}], the cache split over sequence "
+        f"({blk} positions a rank): summed partials vs unsharded max|diff| "
+        f"{rel:.3e} of max|y| {scale:.4g} (tol {tol:g}); cache blocks equal "
+        f"to the unsharded slices {caches}; flash unsharded {full[0]} "
+        f"launch(es) {full[1]} at {sorted(full_shapes)}, ranks {ranks[0]} "
+        f"launches {ranks[1]} at {sorted(rank_shapes)}; card: {card}")
+    check_all("parallel", {
+        f"tp_serve (b) prefill {dt}: summed partials within {tol:g} of "
+        f"max|y|": rel <= tol and bool(torch.isfinite(got).all()),
+        f"tp_serve (b) prefill {dt}: each rank's cache block holds the "
+        f"unsharded cache's positions bitwise": caches,
+        f"tp_serve (b) prefill {dt}: {n} rank launches on {route} at q "
+        f"[{b},{h_rank},{s},{cfg.head_dim}] over 1 KV head": (
+            ranks[0] == n and ranks[1][route] == n
+            and rank_shapes == {want_shape}),
+        f"tp_serve (b) prefill {dt}: one unsharded launch on {route}": (
+            full[0] == 1 and full[1][route] == 1),
+    })
+    return dict(rel=rel, launches=ranks[0], routes=ranks[1])
+
+
+def tp_serve_moe(card):
+    """tp_serve (c): deepseek-moe-16b's first MoE layer in f32, x from the
+    seed, as 16 model ranks of 4 experts each (the router whole, the
+    shared experts' columns split), their partial outputs summed, against
+    the grouped path over all 64 experts: every call routes alike (ids,
+    slots, source tokens, keep equal) and y within the stated tolerance."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import common, moe
+    from repro_torch.parallel.sharding import (NamedSharding, TensorParallel,
+                                               tree_specs)
+    from repro_torch.train.optimizer import tree_map
+
+    class Partial(TensorParallel):
+        def sum(self, y):
+            return y
+
+    c = TP_SERVE
+    n = c["model"]
+    cfg = configs.get("deepseek-moe-16b").adapt_for_mesh(n)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(c["seed"])
+    p = common.layer_of(common.init_tree(moe.moe_param_shapes(cfg, 1), gen,
+                                         "cuda", torch.float32), 0)
+    b, s = c["moe_x"]
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device="cuda")
+    sizes = {"model": n}
+    axes = tree_map(lambda a: a[1:], moe.moe_param_axes(cfg))
+    specs = tree_specs(sizes, axes, p)
+    routed = []
+    route = moe.route
+
+    def spy(xg, logits, mcfg, capacity):
+        out = route(xg, logits, mcfg, capacity)
+        _, ids = moe.top_k(torch.softmax(logits.float(), dim=-1),
+                           mcfg.experts_per_token)
+        routed.append((ids, out[1][0], out[1][1], out[3]))
+        return out
+
+    moe.route = spy
+    try:
+        want, _ = moe.moe_apply(x, p, cfg)
+        got = None
+        for r in range(n):
+            blocks = tree_map(lambda t, sp: NamedSharding(sizes, sp).block(
+                t, {"model": r}), p, specs)
+            blocks["router"] = p["router"]          # used whole
+            shd = types.SimpleNamespace(mesh=None, local=False,
+                                        tp=Partial(None, n, r))
+            y, _ = moe.moe_apply(x, blocks, cfg, shd)
+            got = y if got is None else got + y
+    finally:
+        moe.route = route
+    torch.cuda.synchronize()
+    same = len(routed) == n + 1 and all(
+        all(torch.equal(u, v) for u, v in zip(routed[0], rt))
+        for rt in routed[1:])
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[parallel] tp_serve (c) {cfg.name} MoE layer f32, x [{b},{s},"
+        f"{cfg.d_model}], {cfg.num_experts // n} experts a rank of {n}: "
+        f"routing (ids, slots, tokens, keep) equal on all {len(routed)} "
+        f"calls {same}; summed partials vs the grouped path max|diff| "
+        f"{rel:.3e} of max|y| (tol {c['moe_tol']:g}); card: {card}")
+    check_all("parallel", {
+        "tp_serve (c) MoE: every rank routes as the grouped path": same,
+        f"tp_serve (c) MoE: summed partials within {c['moe_tol']:g} of "
+        f"max|y|": rel <= c["moe_tol"] and bool(torch.isfinite(got).all()),
+    })
+    return rel
+
+
+def tp_serve_check(card):
+    """tp_serve (a)-(c); returns their readings."""
+    out = {"decode": {}, "prefill": {}}
+    for dt in ("float32", "bfloat16"):
+        out["decode"][dt] = tp_serve_decode(card, dt)
+        free_card()
+        out["prefill"][dt] = tp_serve_prefill(card, dt)
+        free_card()
+    out["moe"] = tp_serve_moe(card)
+    free_card()
+    return out
+
+
 def phase_parallel(card):
     """The port's parallel layer on the card at one NCCL rank (the
     process group on a file:// store under build/, a mixed cuda:nccl /
@@ -2471,7 +2945,10 @@ def phase_parallel(card):
         events (GB/s of f32 gradient reduced) beside compression_ratio;
     (d) tp_layer (``tp_layer_check``): the tensor-parallel algebra at full
         width, summed partial outputs of 16 model ranks against the
-        unsharded layer.
+        unsharded layer;
+    (e) tp_serve (``tp_serve_check``): the serve cells' layout at full
+        width, 16 model ranks of layer 0 combined or summed against the
+        unsharded layer (``TP_SERVE``).
     """
     import torch
     import torch.distributed as dist
@@ -2598,10 +3075,15 @@ def phase_parallel(card):
 
     # (d) the tensor-parallel algebra at full width
     tp = tp_layer_check(card)
+    # (e) the serve cells' layout at full width
+    t_serve = time.perf_counter()
+    tp_serve = tp_serve_check(card)
     wall = time.perf_counter() - t_phase
-    log(f"[parallel] phase in {wall:.1f} s")
+    log(f"[parallel] tp_serve in {time.perf_counter() - t_serve:.1f} s; "
+        f"phase in {wall:.1f} s")
     return dict(compress_ms=err_ms, compress_gbs=gbs, ratio=ratio,
-                moe_ms=ms, walls=walls, seconds=wall, tp=tp)
+                moe_ms=ms, walls=walls, seconds=wall, tp=tp,
+                tp_serve=tp_serve)
 
 
 # the dryrun phase: the port's dry-run (launch.dryrun: one rank's step on
@@ -2627,13 +3109,18 @@ DRYRUN = dict(
           ("deepseek-moe-16b", None, "serve_phase", True)),
     # one production cell of each family (the dense one also trains)
     cells=(("granite-20b", "train_4k"), ("granite-20b", "prefill_32k"),
-           ("deepseek-moe-16b", "decode_32k"),
+           ("granite-20b", "decode_32k"), ("deepseek-moe-16b", "decode_32k"),
            ("internvl2-76b", "prefill_32k"), ("xlstm-1.3b", "long_500k"),
            ("zamba2-1.2b", "decode_32k"), ("whisper-small", "decode_32k")),
     # the cells that must fit 80 GB a rank with useful >= min_useful: the
     # sharded step's per-layer gathers, reduce-scatter and tensor
     # parallelism
-    fit=(("granite-20b", "train_4k"),), min_useful=0.5)
+    fit=(("granite-20b", "train_4k"),), min_useful=0.5,
+    # the serve cells that must fit 80 GB a rank: the sharded serve step
+    # (per-layer gathers, compute over model, caches split over sequence
+    # for granite's MQA, over KV heads for deepseek-moe's 16)
+    serve_fit=(("granite-20b", "prefill_32k"), ("granite-20b", "decode_32k"),
+               ("deepseek-moe-16b", "decode_32k")))
 
 
 def phase_cells():
@@ -2842,6 +3329,9 @@ def dryrun_sizes(card):
                    f">= {DRYRUN['min_useful']}"] = (
                 "error" not in rec and rec["fits"] and
                 rec["roofline"]["useful_ratio"] >= DRYRUN["min_useful"])
+        if (arch, shape) in DRYRUN["serve_fit"]:
+            checks[f"(d) single/{arch}/{shape} fits 80 GB a rank"] = (
+                "error" not in rec and rec["fits"])
     log(f"[dryrun] (c) in {cuts_s:.1f} s, (d) in "
         f"{time.perf_counter() - t0 - cuts_s:.1f} s; card: {card}")
     check_all("dryrun", checks)
@@ -3232,7 +3722,8 @@ def timing_window(cfg):
             for s, win in WINDOW_TIMING}
 
 
-def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
+def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
+               plain_rows=None):
     """The planned flash call (wgmma) on bf16 q [b,h,s,d], kv [b,hkv,t,d]
     (causal from ``q_offset`` ``off``, with ``win`` a window; ``t`` None:
     s; ``causal`` False: every query sees every key) beside the plain
@@ -3241,7 +3732,9 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     aligned at the top left: query i sees keys up to i, which is q_offset
     0 at any t), by CUDA events over back-to-back calls and by one call's
     device time under the profiler; the bound. The kernel and sdpa are
-    held against the plain version at the bf16 tolerance."""
+    held against the plain version at the bf16 tolerance. ``plain_rows``:
+    the plain version runs ``plain_rows`` query rows at a time (the same
+    function; its whole f32 score matrix would not fit the card)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -3259,6 +3752,13 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
         mask = mask & (qp - kp < win)
     call = lambda: ops.flash_attention(q, k, v, window=win,  # noqa: E731
                                        q_offset=off, causal=causal)
+
+    def plain():
+        rows = plain_rows or s
+        return torch.cat([ref.attention(
+            q[:, :, i:i + rows], k, v, window=win, q_offset=off + i,
+            causal=causal) for i in range(0, s, rows)], dim=2)
+
     before = dict(ops.route_launches)
     ms = cuda_timed(call)
     taken = {r: c - before[r] for r, c in ops.route_launches.items()
@@ -3267,8 +3767,7 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
         raise AssertionError(f"the timed calls took routes {taken}")
     op_ms, direct_ms = flash_dispatch(q, k, v, causal, win, off)
     device = _device_ms(call)
-    plain_ms = cuda_timed(lambda: ref.attention(
-        q, k, v, window=win, q_offset=off, causal=causal), iters=5)
+    plain_ms = cuda_timed(plain, iters=5)
     if causal:
         lib = {"mask": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)}
@@ -3278,8 +3777,7 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     else:
         lib = {"no mask": lambda: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True)}
-    want = ref.attention(q, k, v, window=win, q_offset=off,
-                         causal=causal).float()
+    want = plain().float()
     err = (call().float() - want).abs().max().item()
     lib_err = {n: (fn().float() - want).abs().max().item()
                for n, fn in lib.items()}
@@ -3677,6 +4175,7 @@ def main() -> int:
     cfg, eng, launches, shapes = phase_serve(card)
     launches.update(bench_launches)
     dry_b = dryrun_decode(eng, phase_profile(eng), card)
+    serve_sharded_one_rank(eng, card)
     del eng                                    # frees the 56 GB of weights
     free_card()
     wcfg, wmodel, wparams, weng, wlaunches, wshapes = phase_serve_window(
@@ -3721,6 +4220,14 @@ def main() -> int:
                         tp_cfg.num_kv_heads, TP_LAYER["seq"],
                         tp_cfg.head_dim, None,
                         "granite-20b's train_4k rank, model axis 16")
+    # qwen3-32b's prefill_32k tensor-parallel rank on the model axis of 16
+    # (2 rows, its 4 query heads over the one KV head they read, causal S
+    # 32768): the parallel phase's tp_serve (b) launched it once a rank
+    ts_cfg = configs.get(TP_SERVE["prefill_arch"])
+    tp_serve_row = time_flash(
+        TP_SERVE["prefill_rows"], ts_cfg.q_heads // TP_SERVE["model"], 1,
+        TP_SERVE["prefill_seq"]["bfloat16"], ts_cfg.head_dim, None,
+        "qwen3-32b's prefill_32k rank, model axis 16", plain_rows=4096)
     # deepseek-moe-16b's largest serve prefill (the 256 bucket, cold, over
     # the 512-position cache view) and internvl2-76b's forward
     moe_top = max(mshapes, key=lambda sh: (sh[3], -sh[8]))
@@ -3844,6 +4351,25 @@ def main() -> int:
                              for a, v in par["tp"].items()},
         "max_abs_err": max(flash_errs["wgmma"], tp_row["max_abs_err"]),
         **flash_keys(tp_row),
+    })
+    # the same wgmma route at qwen3-32b's prefill_32k tensor-parallel rank
+    # (q [2,4,32768,128] over one KV head, the cache split over sequence):
+    # the parallel phase's tp_serve (b) in bf16 launched it once a rank
+    kernels.append({
+        "name": "flash_attention/wgmma/qwen3_tp_serve_rank",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/"
+                    "flash_attention.py:22",
+        "launches": par["tp_serve"]["prefill"]["bfloat16"]["launches"],
+        "tp_serve_rel_err": {
+            "decode": par["tp_serve"]["decode"],
+            "prefill": {d: r["rel"] for d, r in
+                        par["tp_serve"]["prefill"].items()},
+            "moe": par["tp_serve"]["moe"]},
+        "max_abs_err": max(flash_errs["wgmma"],
+                           tp_serve_row["max_abs_err"]),
+        **flash_keys(tp_serve_row),
     })
     # the same wgmma route on the MoE and VLM paths: deepseek-moe-16b's
     # serve (28 layers x prefills) and internvl2-76b's forward and text

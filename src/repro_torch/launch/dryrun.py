@@ -12,10 +12,16 @@ device and no process group is opened. A train cell runs
 leaves gathered where the layer runs, its share of the heads, MLP width
 and vocabulary computed over ``model``, the gradients reduce-scattered
 to the rank's blocks, AdamW on them: what a rank of the port runs); a
-serve cell runs the model's ``prefill`` or ``decode_step`` on the rank's
-batch rows with the parameters gathered to full (sharded serving is not
-ported: the port serves every head on a rank, so its caches split over
-the batch only).
+serve cell runs ``serve.step.ShardedServeStep`` under the reference's
+``serve_rules``: the model's ``prefill`` or ``decode_step`` on the rank's
+batch rows and its blocks of the bf16 parameters and of the caches, each
+layer's leaves gathered where the layer runs, heads, MLP width,
+vocabulary and experts computed over ``model``, the caches split over KV
+heads or, where those do not divide ``model``, over sequence (decode
+combines the blocks' partial softmaxes). The recurrent families (xlstm,
+zamba2, whisper) gather per layer too, but their compute stays
+replicated over ``model``, as in training, so their caches split over
+the batch only.
 
 Run:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-20b \\
@@ -43,14 +49,14 @@ from repro_torch.core.hw import H100_SXM
 from repro_torch.core.tracing import TraceStats, counting_call
 from repro_torch.launch.mesh import RankMesh, make_production_mesh
 from repro_torch.models import abstract_params, build_model, token_batch_specs
-from repro_torch.parallel.sharding import (LOGICAL_RULES, NamedSharding,
-                                           mesh_shape)
+from repro_torch.parallel.sharding import NamedSharding, mesh_shape
 from repro_torch.perf import op_cost, roofline, step_analysis
-from repro_torch.serve.step import abstract_cache, cache_specs
+from repro_torch.serve.step import (ShardedServeStep, abstract_cache,
+                                    cell_rules)
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import OptConfig, tree_map
 from repro_torch.train.step import (ShardedTrainStep, StepConfig, TrainState,
-                                    batch_specs, param_specs, state_specs)
+                                    batch_specs, state_specs)
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -63,19 +69,9 @@ XLA_ONLY = ("barrier", "carry_barrier", "scores_bf16")
 
 
 def serve_rules(cfg, shape, mesh):
-    """Cell-specific sharding-rule overrides for serving."""
-    rules = {}
-    sizes = mesh_shape(mesh)
-    model_size = sizes.get("model", 1)
-    if shape.global_batch == 1:
-        # long-context decode, batch unshardable: sequence-shard the caches
-        rules["batch"] = None
-        rules["kv_seq"] = ("pod", "data") if "pod" in sizes else ("data",)
-    elif cfg.num_kv_heads % model_size != 0:
-        # GQA/MQA: too few KV heads for TP -> shard cache sequence instead
-        # (flash-decoding-style parallel KV)
-        rules["kv_seq"] = "model"
-    return rules
+    """Cell-specific sharding-rule overrides for serving
+    (``serve.step.cell_rules``)."""
+    return cell_rules(cfg, shape.global_batch, mesh)
 
 
 FSDP_RULES = {
@@ -192,59 +188,51 @@ def build_cell(arch: str, shape_name, mesh, variant=None, cfg=None):
                 "variant": variant, "argument_bytes": arg_bytes}
         return step, (state, batch), cfg, shape, info
 
-    # serving cells: bf16 params, the rank's batch rows
+    # serving cells: bf16 params; the model runs on the rank's blocks of
+    # the parameters, caches and batch rows, as the reference lays the
+    # cell out (``serve.step.ShardedServeStep``)
     scfg = cfg.replace(param_dtype="bfloat16")
-    model = build_model(scfg, rank)
-    shapes, axes = abstract_params(model)
     rules = serve_rules(scfg, shape, rank)
-    pspecs = param_specs(sizes, shapes, axes, rules)
-    lay = tree_map(lambda s: NamedSharding(rank, s), pspecs)
-    full_params = _meta(shapes, getattr(torch, scfg.param_dtype))
-    # the port's model computes every head on a rank: its caches and
-    # batch split over the batch axes only
-    row_rules = {k: None for k in LOGICAL_RULES}
-    row_rules["batch"] = rules.get("batch", LOGICAL_RULES["batch"])
+    model = build_model(scfg, rank, shd_rules=rules)
     max_seq = shape.seq_len + (
         scfg.stub_prefix_len if scfg.family == "vlm" else 0)
+    serve = ShardedServeStep(model, rank, shape.global_batch, max_seq)
+    shapes, _ = abstract_params(model)
+    params = _meta(shapes, getattr(torch, scfg.param_dtype))
     cache = abstract_cache(model, shape.global_batch, max_seq)
-    cspecs = cache_specs(sizes, model, cache, row_rules)
-    arg_bytes = (step_analysis.rank_bytes(sizes, pspecs, full_params)
-                 + step_analysis.rank_bytes(sizes, cspecs, cache))
-    params = _cut(full_params, pspecs, rank)
-    del full_params
-    cache = _cut(cache, cspecs, rank)
-
-    def gathered(p):
-        return tree_map(lambda b, sh: sh.gather(b), p, lay)
+    arg_bytes = (step_analysis.rank_bytes(sizes, serve.param_specs, params)
+                 + step_analysis.rank_bytes(sizes, serve.cache_specs, cache))
+    params = serve.layout(params)
+    cache = serve.layout_cache(cache)
+    info = {"kind": shape.kind, "rules": str(rules)}
 
     if shape.kind == "prefill":
         batch = token_batch_specs(scfg, shape)
-        bspecs = batch_specs(sizes, batch, row_rules)
+        bspecs = batch_specs(sizes, batch, rules)
         arg_bytes += step_analysis.rank_bytes(sizes, bspecs, batch)
         batch = _cut(batch, bspecs, rank)
 
         def fn(p, b, c):
             with torch.no_grad():
-                return model.prefill(gathered(p), b, c)
+                return serve.prefill(p, b, c)
 
-        return fn, (params, batch, cache), scfg, shape, {
-            "kind": "prefill", "rules": str(rules),
-            "argument_bytes": arg_bytes}
+        return fn, (params, batch, cache), scfg, shape, dict(
+            info, argument_bytes=arg_bytes)
 
     # decode: one new token against a cache of seq_len
     tok = torch.empty((shape.global_batch, 1), dtype=torch.int32,
                       device="meta")
-    tspec = batch_specs(sizes, {"t": tok}, row_rules)["t"]
+    tspec = batch_specs(sizes, {"t": tok}, rules)["t"]
     arg_bytes += step_analysis.rank_bytes(sizes, tspec, tok)
     tok = NamedSharding(rank, tspec).block(tok)
     pos = shape.seq_len - 1
 
     def fn(p, t, c):
         with torch.no_grad():
-            return model.decode_step(gathered(p), t, pos, c)
+            return serve.decode(p, t, pos, c)
 
-    return fn, (params, tok, cache), scfg, shape, {
-        "kind": "decode", "rules": str(rules), "argument_bytes": arg_bytes}
+    return fn, (params, tok, cache), scfg, shape, dict(
+        info, argument_bytes=arg_bytes)
 
 
 def count_cell(fn, args):

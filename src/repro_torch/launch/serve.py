@@ -9,10 +9,23 @@ KV with radix prefix sharing or window rings, energy-aware admission) —
 with per-request energy attribution from the ``repro_torch.telemetry`` tag
 bus and a typed ``EnergyReport`` summary. Runs on the CUDA card unless
 ``--device cpu`` asks for the host.
+
+The engines serve on one device, as the reference's do. ``--mesh-data``
+and ``--mesh-model`` above 1 run the prompts instead as one batch through
+the sharded serve step (``serve.step.ShardedServeStep``, the reference
+dry-run's layout of a serve cell) on a mesh of one rank a process,
+launched by torchrun: a prefill, then ``--max-new`` - 1 greedy decode
+steps; rank 0 prints its rows' tokens:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 4 -m repro_torch.launch.serve --arch granite-20b \
+        --smoke --device cpu --mesh-model 4 --requests 2
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
 
 import numpy as np
 import torch
@@ -65,6 +78,8 @@ def main(argv=None):
     ap.add_argument("--metrics-json", default=None,
                     help="write the engine metrics-registry snapshot "
                          "(deterministic JSON)")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
     args = ap.parse_args(argv)
     buckets = (args.prefill_buckets
                if args.prefill_buckets in ("auto", "off")
@@ -94,6 +109,12 @@ def main(argv=None):
                  f"corrupt (use --engine continuous)")
     use_prefix = (caps.prefix_cache if args.prefix_cache == "auto"
                   else args.prefix_cache == "on")
+    if args.mesh_data * args.mesh_model > 1:
+        if caps.needs_frames:
+            ap.error(f"--mesh-model/--mesh-data: the {cfg.family!r} family "
+                     "needs encoder frames, which the sharded step is not "
+                     "given")
+        return serve_sharded(args, cfg, device)
 
     model = build_model(cfg)
     gen = torch.Generator(device=device)
@@ -172,6 +193,63 @@ def main(argv=None):
               f"[{r.finish_reason or 'ok'}] {r.energy_j:.2f} J "
               f"({j_tok:.3f} J/token)")
     return stats
+
+
+def serve_sharded(args, cfg, device):
+    """``--requests`` prompts from numpy seed 0 as one batch through the
+    sharded serve step on a (data, model) mesh of WORLD_SIZE ranks: a
+    prefill and ``--max-new`` - 1 greedy decode steps. Returns rank 0's
+    rows' tokens (None on the other ranks)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.step import ShardedServeStep, cell_rules
+    n = args.mesh_data * args.mesh_model
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n != world:
+        raise ValueError(f"mesh data {args.mesh_data} x model "
+                         f"{args.mesh_model} needs {n} ranks; WORLD_SIZE is "
+                         f"{world} (launch with torchrun --nproc_per_node "
+                         f"{n})")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        mesh = make_host_mesh(data=args.mesh_data, model=args.mesh_model)
+        b = args.requests
+        model = build_model(cfg, mesh, shd_rules=cell_rules(cfg, b, mesh))
+        step = ShardedServeStep(model, mesh, b, args.max_seq)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = step.layout(model.init(gen, device))
+        caches = step.layout_cache(model.init_cache(b, args.max_seq,
+                                                    device=device))
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, args.prompt_len)).astype(np.int64))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, caches = step.prefill(
+                params, {"tokens": step.rows(prompts).to(device)}, caches)
+            out = [step.whole_logits(lg).argmax(-1)]
+            for i in range(args.max_new - 1):
+                lg, caches = step.decode(params, out[-1],
+                                         args.prompt_len + i, caches)
+                out.append(step.whole_logits(lg).argmax(-1))
+        tokens = torch.cat(out, dim=1).cpu()
+        wall = time.perf_counter() - t0
+        rows = step.rows(torch.arange(b)).tolist()
+        rank0 = dist.get_rank() == 0
+    finally:
+        dist.destroy_process_group()
+    if not rank0:
+        return None
+    print(f"arch={cfg.name} sharded serve step on mesh data "
+          f"{args.mesh_data} x model {args.mesh_model} device={device} "
+          f"reqs={b} rules={cell_rules(cfg, b, mesh)} {wall * 1e3:.0f}ms")
+    for r, t in zip(rows, tokens.tolist()):
+        print(f"  req {r}: {t}")
+    return tokens
 
 
 if __name__ == "__main__":

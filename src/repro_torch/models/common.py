@@ -13,7 +13,9 @@ the sliding window on gemma3's local ones; single-token decode attention
 (over a flat cache or a window ring) stays plain tensor ops over the
 gathered cache view, as in the reference. Under a gradient the flash call
 runs through its autograd Function (``ops.FlashAttention``), so the
-training forward reaches the same kernel.
+training forward reaches the same kernel. A cache whose sequence is split
+over ranks (``kv_split``) is decoded block by block, each block's partial
+softmax joined by ``parallel.comm.softmax_combine``.
 """
 from __future__ import annotations
 
@@ -95,6 +97,13 @@ def rank_kv_heads(cfg: ModelConfig, tp, h_local: int):
     return heads
 
 
+def _kv_heads(t, sel):
+    """The KV heads ``sel`` (``rank_kv_heads``) of ``t`` [..., Hkv, Dh]."""
+    if isinstance(sel, list):
+        return t.index_select(-2, torch.tensor(sel, device=t.device))
+    return t[..., sel, :]
+
+
 def _qkv(x, p, cfg: ModelConfig, rope_cs, tp=None):
     """Projected q [B,S,H,Dh] and k, v [B,S,Hkv,Dh]; with ``cfg.qk_norm``
     each head of q and k is RMS-normed before RoPE; ``rope_cs`` None (a
@@ -106,11 +115,7 @@ def _qkv(x, p, cfg: ModelConfig, rope_cs, tp=None):
     if (tp is not None and tp.splits(h_local, cfg.q_heads)
             and not tp.splits(wk.shape[-2], cfg.num_kv_heads)):
         sel = rank_kv_heads(cfg, tp, h_local)
-        if isinstance(sel, list):
-            idx = torch.tensor(sel, device=wk.device)
-            wk, wv = wk.index_select(-2, idx), wv.index_select(-2, idx)
-        else:
-            wk, wv = wk[..., sel, :], wv[..., sel, :]
+        wk, wv = _kv_heads(wk, sel), _kv_heads(wv, sel)
     q = _proj(x, p["wq"])
     k = _proj(x, wk)
     v = _proj(x, wv)
@@ -182,6 +187,29 @@ def attention_scores(q, k, v, mask, scores_f32=True):
     return (o / denom.to(o.dtype)).reshape(b, s, h, dh)
 
 
+def partial_attention(q, k, v, mask):
+    """One block of keys' share of attention (``comm.softmax_combine``
+    joins the blocks). q [B,S,H,Dh]; k, v [B,T,Hkv,Dh] (GQA by head
+    index); mask [S,T] or [B,S,T]. Returns, each [B,S,H] or [B,S,H,Dh] in
+    f32: the block's max score, the sum of ``exp(score - max)`` and that
+    of ``exp(score - max) v``, with masked scores at ``NEG_INF`` as
+    ``attention_scores`` has them (a row with no valid key in the block
+    has max ``NEG_INF``)."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh)
+    mb = (mask[None, None, None] if mask.dim() == 2
+          else mask[:, None, None])                     # [B|1,1,1,S,T]
+    sc = torch.einsum("bsngd,btnd->bngst", qg, k).float() / math.sqrt(dh)
+    sc = torch.where(mb, sc, torch.full((), NEG_INF, device=q.device))
+    m = sc.amax(dim=-1, keepdim=True)
+    e = torch.exp(sc - m)
+    o = torch.einsum("bngst,btnd->bsngd", e.to(q.dtype), v).float()
+    return (m[..., 0].permute(0, 3, 1, 2).reshape(b, s, h),
+            e.sum(dim=-1).permute(0, 3, 1, 2).reshape(b, s, h),
+            o.reshape(b, s, h, dh))
+
+
 def blocked_attention(q, k, v, *, q_offset=0, window=None, causal=True):
     """Prefill attention on the flash kernel.
 
@@ -219,10 +247,77 @@ def write_cache(cache, new, cache_pos):
     return cache
 
 
+def write_cache_block(cache, new, cache_pos, split):
+    """``write_cache`` on the rank's block of a cache whose sequence is
+    split over ``split``'s ranks (block ``split.rank`` of ``split.size``):
+    only the positions the block holds are written, a [B] ``cache_pos``
+    row by row (the other rows keep what they hold)."""
+    new = new.to(cache.dtype)
+    tl = cache.shape[1]
+    base = split.rank * tl
+    if isinstance(cache_pos, torch.Tensor):
+        local = cache_pos.long() - base
+        held = ((local >= 0) & (local < tl))[:, None, None]
+        idx = local.clamp(0, tl - 1)
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, idx] = torch.where(held, new[:, 0], cache[bidx, idx])
+        return cache
+    s = new.shape[1]
+    start = min(max(int(cache_pos), 0), tl * split.size - s)
+    lo, hi = max(start, base), min(start + s, base + tl)
+    if lo < hi:
+        cache[:, lo - base:hi - base] = new[:, lo - start:hi - start]
+    return cache
+
+
+def _split_cache_attention(q, k, v, cfg: ModelConfig, kv_cache, cache_pos,
+                           positions, window, is_global, causal, tp, split):
+    """Attention with a cache whose sequence is split over ``split``'s
+    ranks (the KV heads too few to split over ``model``: the reference's
+    "flash-decoding-style parallel KV"). The rank's cache block holds
+    every KV head of its positions, and ``k``, ``v`` are the call's every
+    KV head; the rank writes the positions its block holds.
+
+    Decode: the rank's query heads are gathered over ``tp`` (B x 1 x H x
+    Dh), every head attends over the rank's block, the blocks combine
+    (``comm.softmax_combine``) and the rank keeps its own heads. Prefill
+    from position 0 attends with the rank's heads over the prompt's own
+    keys on the flash kernel; a tail prefill (``cache_pos`` > 0) gathers
+    the cache's blocks first (the whole prefix: correct, not fast)."""
+    ck, cv = kv_cache
+    b, s, h_local, _ = q.shape
+    write_cache_block(ck, k, cache_pos, split)
+    write_cache_block(cv, v, cache_pos, split)
+    heads = tp is not None and tp.splits(h_local, cfg.q_heads)
+    if s == 1:
+        qa = comm.all_gather(q, tp.group, dim=2) if heads else q
+        tl = ck.shape[1]
+        k_pos = torch.arange(tl, device=q.device) + split.rank * tl
+        if isinstance(cache_pos, torch.Tensor):
+            valid = (k_pos[None, :] < cache_pos[:, None] + 1)[:, None, :]
+        else:
+            valid = k_pos < cache_pos + 1
+        m = _mask(positions, k_pos, causal=causal, window=window,
+                  is_global=is_global) & valid
+        o = comm.softmax_combine(*partial_attention(
+            qa, ck.to(q.dtype), cv.to(q.dtype), m), split.group).to(q.dtype)
+        return o[:, :, tp.rank * h_local:(tp.rank + 1) * h_local] if heads \
+            else o
+    offset = int(cache_pos)
+    if offset:
+        k = comm.all_gather(ck, split.group, dim=1)
+        v = comm.all_gather(cv, split.group, dim=1)
+    if heads:
+        sel = rank_kv_heads(cfg, tp, h_local)
+        k, v = _kv_heads(k, sel), _kv_heads(v, sel)
+    return blocked_attention(q, k.to(q.dtype), v.to(q.dtype),
+                             q_offset=offset, window=window, causal=causal)
+
+
 def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
               causal=True, use_rope=True, rope_cs=None, kv_cache=None,
               cache_pos=None, cache_slot=None, k_positions=None,
-              k_valid=None, return_kv=False, tp=None):
+              k_valid=None, return_kv=False, tp=None, kv_split=None):
     """Attention module, causal unless ``causal`` is False. Returns (out,
     kv_cache), or (out, (k, v)) of the fresh keys and values with
     ``return_kv``. ``use_rope`` False leaves q and k unrotated (whisper's
@@ -238,7 +333,9 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
     holds as ``k_positions`` ([W] or [B, W]) and which slots hold one as
     ``k_valid``. Without a cache the call attends over its own keys at
     ``positions`` (the training/scoring forward and a local layer's
-    prefill)."""
+    prefill). ``kv_split``: the ranks a flat cache's sequence is split
+    over (``_split_cache_attention``); the cache is then the rank's block
+    of positions, with every KV head."""
     b, s, _ = x.shape
     window = (cfg.sliding_window
               if cfg.sliding_window > 0 and not is_global else None)
@@ -246,10 +343,16 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
         rope_cs = None
     elif rope_cs is None:
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    q, k, v = _qkv(x, p, cfg, rope_cs, tp)
+    split = kv_split is not None and kv_cache is not None
+    q, k, v = _qkv(x, p, cfg, rope_cs, None if split else tp)
     fresh_kv = (k, v)
 
-    if kv_cache is None:
+    if split:
+        assert cache_slot is None, "a window ring is never sequence-split"
+        o = _split_cache_attention(q, k, v, cfg, kv_cache, cache_pos,
+                                   positions, window, is_global, causal, tp,
+                                   kv_split)
+    elif kv_cache is None:
         # the masks depend on position differences only, so the call's own
         # keys sit at offset 0 whatever ``positions`` start at
         o = blocked_attention(q, k, v, window=window, causal=causal)

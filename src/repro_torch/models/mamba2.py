@@ -298,21 +298,26 @@ class Zamba2:
         ``start_pos`` offsets the shared attention's KV writes, RoPE and
         causal mask, so a prompt can be fed in pow2 chunks. Returns (logits
         of the last token [B,1,V], states), written in place."""
-        x = common.embed(batch["tokens"], params, self.dtype)
+        shd = self.shd
+        x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
+                         self.dtype)
         offset = 0 if start_pos is None else int(start_pos)
         positions = torch.arange(x.shape[1], device=x.device) + offset
         x = self._stack(x, params, states, positions=positions,
                         cache_pos=offset)
-        return common.unembed(x[:, -1:], params), states
+        return common.unembed(x[:, -1:], shd.leaves(
+            params, "final_norm", "unembed")), states
 
     def decode_step(self, params, token, pos, states):
         """One decode step. pos: a Python int or a [B] int tensor (each row
         decodes at its own attention position)."""
-        x = common.embed(token, params, self.dtype)
+        shd = self.shd
+        x = common.embed(token, shd.leaves(params, "embedding"), self.dtype)
         if isinstance(pos, torch.Tensor):
             positions = pos.long()[:, None]                # [B, 1]
         else:
             positions = torch.full((1,), int(pos), device=x.device)
         x = self._stack(x, params, states, positions=positions,
                         cache_pos=pos)
-        return common.unembed(x, params), states
+        return common.unembed(x, shd.leaves(params, "final_norm",
+                                            "unembed")), states

@@ -8,9 +8,10 @@ routes on its own, and the expert products are batched matmuls over all
 experts. ``moe_apply_shard_map`` is the reference's expert parallelism:
 each ``model`` rank runs its own experts, and the dispatch buffers move by
 all-to-all. On a rank's blocks under tensor parallelism the router runs
-whole on every rank and the shared experts split like a dense MLP; the
-routed experts split only under expert parallelism (the grouped path
-computes every expert, replicated over ``model``).
+whole on every rank and the shared experts split like a dense MLP; on the
+grouped path every rank routes every token alike and runs only its own
+experts (``experts`` over ``model``, as GSPMD splits the reference's
+einsums), and the ranks' partial combines are summed.
 
 Three places where the port must take care to give the reference's
 integers, not only its floats:
@@ -148,17 +149,24 @@ def route(xg, logits, cfg: ModelConfig, capacity: int):
     return dispatch, (slot, tok, order), weights, keep, aux
 
 
-def combine(expert_out, routing, weights, keep, t: int, k: int):
+def combine(expert_out, routing, weights, keep, t: int, k: int,
+            first: int = 0):
     """expert_out [G, E, C, D] -> y [G, T, D]: each token's ``k`` expert
     outputs, weighted (a dropped one by 0), summed in ascending expert
     order in a fixed reduction (``_combine_group``'s sum, without its
-    scatter-add)."""
+    scatter-add). With ``first``, ``expert_out`` holds the ``E`` experts
+    from ``first`` on (a rank's): the others' choices add zero, and the
+    result is the rank's partial sum."""
     g, e, c, d = expert_out.shape
     slot, tok, order = routing
     flat = torch.cat([expert_out.reshape(g, e * c, d),
                       expert_out.new_zeros((g, 1, d))], dim=1)
     w_flat = weights.reshape(g, t * k).gather(1, order)
-    w = torch.where(keep, w_flat, torch.zeros((), device=w_flat.device))
+    if first:
+        slot = slot - first * c
+    held = keep & (slot >= 0) & (slot < e * c)
+    slot = torch.where(held, slot, torch.full_like(slot, e * c))
+    w = torch.where(held, w_flat, torch.zeros((), device=w_flat.device))
     contrib = flat.gather(1, slot[..., None].expand(g, t * k, d))
     contrib = contrib * w.to(contrib.dtype)[..., None]          # sorted order
     # position of each (token, choice) in the sorted order; a token's
@@ -212,7 +220,9 @@ def moe_apply(x, p, cfg: ModelConfig, shd=None, groups: int = 0,
     """x [B, S, D] -> (y [B, S, D], mean aux). ``impl="shard_map"`` on a
     DeviceMesh runs expert parallelism (:func:`moe_apply_shard_map`);
     otherwise the tokens route in groups (:func:`_n_groups`) and the
-    expert products run over all experts."""
+    expert products run over all experts, or over the rank's block of
+    them under tensor parallelism, whose partial outputs are summed over
+    the ``model`` ranks."""
     if impl == "shard_map" and shd is not None and shd.local:
         return moe_apply_shard_map(x, p, cfg, shd)
     b, s, d = x.shape
@@ -224,9 +234,17 @@ def moe_apply(x, p, cfg: ModelConfig, shd=None, groups: int = 0,
     xf = x.reshape(groups, tg, d)
     logits = xf @ p["router"].to(x.dtype)                       # [G, T, E]
     dispatch, routing, weights, keep, aux = route(xf, logits, cfg, capacity)
+    e_local = p["w_gate"].shape[0]
+    tp = None if shd is None else shd.tp
+    split = tp is not None and tp.splits(e_local, cfg.num_experts)
+    first = tp.rank * e_local if split else 0
+    if split:
+        dispatch = dispatch[:, first:first + e_local]
     out = _experts(dispatch, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
                    p["w_down"].to(x.dtype))
-    y = combine(out, routing, weights, keep, tg, k).reshape(b, s, d)
+    y = combine(out, routing, weights, keep, tg, k, first).reshape(b, s, d)
+    if split:
+        y = tp.sum(y)
     return _with_shared(y, x, p, cfg, shd), aux.mean()
 
 

@@ -32,8 +32,14 @@ layer gathers its own leaves inside its checkpointed function
 rank holds one layer at a time; the layer computes its share of the
 heads and the MLP width (and the embedding and the logits their share of
 the vocabulary) over the ``model`` ranks (``common``'s ``tp``). The MoE
-router runs whole; the routed experts split over ``model`` only under
-expert parallelism.
+router runs whole; the routed experts split over ``model`` (their
+partial combines summed, or, under expert parallelism, all-to-all).
+Serving runs the same way (``serve.step.ShardedServeStep``): each layer
+gathers its leaves where it runs, outside any checkpoint, the logits are
+the rank's block of the vocabulary, and the caches are the rank's blocks,
+split over KV heads or, where the cache specs put ``kv_seq`` on a mesh
+axis, over sequence (``_kv_split``; ``common.attention``'s
+``kv_split``).
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.parallel.sharding import Sharder
 
 #: the logical axes whose ``model`` split the layers' compute consumes
-TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab", "experts")
 
 
 def _dense_layer_shapes(cfg: ModelConfig, pre: tuple, f: int) -> Dict:
@@ -156,8 +162,7 @@ class DecoderLM:
         self.dtype = getattr(torch, cfg.dtype)
         self.remat = remat
         self.n_scan = cfg.num_layers - cfg.first_k_dense
-        tp_axes = TP_AXES + (("experts",) if moe_impl == "shard_map" else ())
-        self.shd = Sharder(mesh, rules=shd_rules, tp_axes=tp_axes,
+        self.shd = Sharder(mesh, rules=shd_rules, tp_axes=TP_AXES,
                            tp_replicated=("router",))
         self.moe_impl = moe_impl
 
@@ -208,6 +213,7 @@ class DecoderLM:
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         flags = layer_flags(cfg)
         remat = caches is None and self.remat and torch.is_grad_enabled()
+        split = None if caches is None else self._kv_split()
         layers = [(p, False, ("dense_prefix", k), False)
                   for k, p in params.get("dense_prefix", {}).items()]
         layers += [(p, cfg.is_moe, ("layers",), True)
@@ -218,7 +224,7 @@ class DecoderLM:
             layer = functools.partial(
                 self._layer, positions=positions, is_global=bool(flags[i]),
                 rope_cs=rope_cs, kv_cache=c, cache_pos=cache_pos,
-                is_moe=is_moe, use=(path, stacked))
+                kv_split=split, is_moe=is_moe, use=(path, stacked))
             if remat:
                 x, a = checkpoint(layer, x, p, use_reentrant=False,
                                   preserve_rng_state=False)
@@ -227,6 +233,16 @@ class DecoderLM:
             if is_moe:
                 aux = aux + a
         return x, caches, aux
+
+    def _kv_split(self, key=None):
+        """The ranks the caches' sequence is split over, within
+        ``Sharder.rank_blocks`` (``Sharder.kv_split`` of the caches' spec:
+        the flat pair's, or gemma3's global stacks'); None where it is
+        whole."""
+        specs = self.shd.cache_specs
+        if specs is None:
+            return None
+        return self.shd.kv_split((specs if key is None else specs[key])[0])
 
     def _layer(self, x, p, is_moe=False, use=None, **attn):
         """One layer: attention and the MLP (or MoE), each around its
@@ -285,6 +301,7 @@ class DecoderLM:
         s = x.shape[1]
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         lp = params["layers"]
+        tp, split = self.shd.tp, self._kv_split("global")
         if s == 1:
             # each slot j of the ring holds position cp - ((cp - j) % w);
             # negative where the row has not reached it yet
@@ -298,32 +315,32 @@ class DecoderLM:
                 slot = int(cache_pos) % w
         lig = lil = 0
         for i, is_global in enumerate(layer_flags(cfg)):
-            p = common.layer_of(lp, i)
+            p = self.shd.use(common.layer_of(lp, i), "layers", stacked=True)
             y = common.rms_norm(x, p["norm1"])
             if is_global:
                 h, _ = common.attention(
                     y, p["attn"], cfg, positions=positions, is_global=True,
                     rope_cs=rope_cs, kv_cache=(gk[lig], gv[lig]),
-                    cache_pos=cache_pos)
+                    cache_pos=cache_pos, tp=tp, kv_split=split)
                 lig += 1
             elif s == 1:
                 h, _ = common.attention(
                     y, p["attn"], cfg, positions=positions, is_global=False,
                     rope_cs=rope_cs, kv_cache=(lk[lil], lv[lil]),
                     cache_pos=cache_pos, cache_slot=slot, k_positions=k_pos,
-                    k_valid=k_pos >= 0)
+                    k_valid=k_pos >= 0, tp=tp)
                 lil += 1
             else:
                 h, (fk, fv) = common.attention(
                     y, p["attn"], cfg, positions=positions, is_global=False,
-                    rope_cs=rope_cs, return_kv=True)
+                    rope_cs=rope_cs, return_kv=True, tp=tp)
                 rk, rv = self._ring_gather(
                     fk.to(lk.dtype), fv.to(lv.dtype),
                     s if true_len is None else int(true_len), w)
                 lk[lil] = rk
                 lv[lil] = rv
                 lil += 1
-            x = self._mlp_block(x + h, p)
+            x = self._mlp_block(x + h, p, tp)
         return x, caches
 
     def _inputs_to_h(self, batch, params):
@@ -422,17 +439,19 @@ class DecoderLM:
         else:
             t = min(max(int(true_len), 1), x.shape[1])
             last = x[:, t - 1:t]
-        return common.unembed(last, params), caches
+        return common.unembed(last, self.head(params)), caches
 
     def decode_step(self, params, token, pos, caches):
         """One decode step. token: [B,1] int; pos: a Python int or a [B]
         int tensor (each row decodes at its own position)."""
-        x = common.embed(token, params, self.dtype)
+        shd = self.shd
+        x = common.embed(token, shd.leaves(params, "embedding"), self.dtype,
+                         shd.tp, self.cfg.vocab_size)
         if isinstance(pos, torch.Tensor):
             positions = pos.long()[:, None]                    # [B, 1]
         else:
             positions = torch.full((1,), int(pos), device=x.device)
         x, caches, _ = self._run_stack(x, params, positions=positions,
                                        caches=caches, cache_pos=pos)
-        return common.unembed(x, params), caches
+        return common.unembed(x, self.head(params)), caches
 

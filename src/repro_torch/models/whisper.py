@@ -273,7 +273,8 @@ class Whisper:
         x = self._decoder_stack(x, params, positions=positions,
                                 cross_cache=self._cross(caches),
                                 caches=caches["self"], cache_pos=offset)
-        return common.unembed(x[:, -1:], params), caches
+        return common.unembed(x[:, -1:], self.shd.leaves(
+            params, "final_norm", "unembed")), caches
 
     def decode_step(self, params, token, pos, caches):
         """One decode step. pos: a Python int or a [B] int tensor (each row
@@ -286,4 +287,5 @@ class Whisper:
         x = self._decoder_stack(x, params, positions=positions,
                                 cross_cache=self._cross(caches),
                                 caches=caches["self"], cache_pos=pos)
-        return common.unembed(x, params), caches
+        return common.unembed(x, self.shd.leaves(params, "final_norm",
+                                                 "unembed")), caches

@@ -418,12 +418,17 @@ class XLSTM:
         taken for the uniform chunked-prefill signature and ignored.
         Returns (logits of the last token [B,1,V], states)."""
         del start_pos
-        x = common.embed(batch["tokens"], params, self.dtype)
+        shd = self.shd
+        x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
+                         self.dtype)
         x = self._stack(x, params, states)
-        return common.unembed(x[:, -1:], params), states
+        return common.unembed(x[:, -1:], shd.leaves(
+            params, "final_norm", "unembed")), states
 
     def decode_step(self, params, token, pos, states):
         del pos  # position-free
-        x = common.embed(token, params, self.dtype)
+        shd = self.shd
+        x = common.embed(token, shd.leaves(params, "embedding"), self.dtype)
         x = self._stack(x, params, states)
-        return common.unembed(x, params), states
+        return common.unembed(x, shd.leaves(params, "final_norm",
+                                            "unembed")), states

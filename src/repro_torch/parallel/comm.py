@@ -233,3 +233,25 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     """The mean of ``x`` over the group."""
     return _AllReduceMean.apply(x, group)
 
+
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                    group=None) -> torch.Tensor:
+    """Attention over keys split among the group's ranks (flash-decoding's
+    combine), from each rank's partial over its block of keys
+    (``models.common.partial_attention``): per query row and head the
+    block's max score ``m``, ``l`` the sum of ``exp(s - m)`` and ``o``
+    [..., D] the sum of ``exp(s - m) v``, masked scores at ``NEG_INF``.
+    The max over the ranks (no gradient: any shift gives the same
+    quotient) rescales each rank's ``l`` and ``o``, one all-reduce sums
+    both, and their quotient is the unsplit attention. A block with no
+    valid key for a row has ``m`` = ``NEG_INF``: where another rank holds
+    one, its scale ``exp(NEG_INF - max)`` is exactly 0 (never ``-inf -
+    -inf``, never NaN) and it adds nothing; where no rank does, every
+    scale is 1 and the row is the mean of the values over all keys, as the
+    unsplit softmax over ``NEG_INF`` scores has it. The rank holding the
+    max has ``l`` >= 1, so the quotient is finite."""
+    mx = all_reduce_max(m.detach().clone(), group)
+    a = torch.exp(m - mx)
+    lo = all_reduce_sum(torch.cat([o * a[..., None], (l * a)[..., None]],
+                                  dim=-1), group)
+    return lo[..., :-1] / lo[..., -1:]

@@ -24,10 +24,12 @@ What GSPMD derives from the specs, a rank here does by the rule of
 (``Sharder.rank_blocks``), each layer gathers its own leaves where it
 uses them, over every split axis but ``model`` on a dim whose compute
 the model splits (heads, KV heads where they divide, MLP width,
-vocabulary; experts under expert parallelism), and computes its share of
-those products (:class:`TensorParallel`). The gathers' backward is a
-reduce-scatter, so a rank never holds a whole stacked leaf, its
-gradient included.
+vocabulary, experts), and computes its share of those products
+(:class:`TensorParallel`). The gathers' backward is a reduce-scatter, so
+a rank never holds a whole stacked leaf, its gradient included. Caches
+given as blocks name their layout too (``rank_blocks``'s
+``cache_specs``): a cache whose sequence is split is attended block by
+block (:meth:`Sharder.kv_split`).
 """
 from __future__ import annotations
 
@@ -213,12 +215,17 @@ class NamedSharding:
     def block(self, t: torch.Tensor, coords: Optional[dict] = None):
         """The block of the full tensor ``t`` at ``coords`` (the caller's
         rank for None): ``t`` itself when the spec splits nothing, else a
-        contiguous copy."""
+        contiguous copy that owns exactly its own bytes. A slice along the
+        leading dim is contiguous already, but as a view it would keep the
+        whole tensor's storage alive: it is cloned."""
         if self.shards == 1:
             return t
         if coords is None:
             coords = self.coords()
-        return t[self.block_slices(t.shape, coords)].contiguous()
+        b = t[self.block_slices(t.shape, coords)]
+        if b.is_contiguous() and b.untyped_storage().nbytes() > b.nbytes:
+            return b.clone()
+        return b.contiguous()
 
     def full_shape(self, block_shape) -> tuple:
         """The full tensor's shape from one block's."""
@@ -346,6 +353,7 @@ class Sharder:
         self.tp_replicated = frozenset(tp_replicated)
         self._batch_axes = None
         self._blocks = None
+        self.cache_specs = None
 
     @property
     def local(self) -> bool:
@@ -388,15 +396,18 @@ class Sharder:
             self._batch_axes = prev
 
     @contextlib.contextmanager
-    def rank_blocks(self, specs, axes):
+    def rank_blocks(self, specs, axes, cache_specs=None):
         """Within the block, the parameters the model is given are the
         rank's blocks laid out by ``specs`` (a PartitionSpec tree) from the
-        logical ``axes`` tree beside it (``abstract_params``)."""
-        prev, self._blocks = self._blocks, (specs, axes)
+        logical ``axes`` tree beside it (``abstract_params``), and so are
+        its caches, laid out by ``cache_specs`` (``serve.step.cache_specs``;
+        None: no caches, or caches split over the batch only)."""
+        prev = self._blocks, self.cache_specs
+        self._blocks, self.cache_specs = (specs, axes), cache_specs
         try:
             yield self
         finally:
-            self._blocks = prev
+            self._blocks, self.cache_specs = prev
 
     @property
     def tp(self) -> Optional[TensorParallel]:
@@ -411,6 +422,28 @@ class Sharder:
             return None
         return TensorParallel(self.mesh.get_group("model"), size,
                               self.mesh.get_local_rank("model"))
+
+    def kv_split(self, spec, dim: int = 2) -> Optional[TensorParallel]:
+        """The ranks that split a cache leaf's sequence (dim ``dim`` of its
+        ``spec``, the ``kv_seq`` axis), within :meth:`rank_blocks`: the
+        rank's block of positions is the ``rank``-th of ``size``. None
+        where the sequence is whole."""
+        if self._blocks is None:
+            return None
+        sizes = mesh_shape(self.mesh)
+        axes = tuple(a for a in (spec_axes(spec[dim]) if len(spec) > dim
+                                 else ()) if sizes[a] > 1)
+        if not axes:
+            return None
+        if len(axes) > 1 and comm.world_group(self.mesh) is None:
+            raise NotImplementedError(
+                f"a cache sequence split over {axes} on a DeviceMesh")
+        rank = 0
+        for a in axes:
+            rank = rank * sizes[a] + self.mesh.get_local_rank(a)
+        group = self.mesh.get_group(axes[0] if len(axes) == 1 else axes)
+        return TensorParallel(group, math.prod(sizes[a] for a in axes),
+                              rank)
 
     def use(self, tree, *path, stacked: bool = False):
         """The leaves of ``tree``, the rank's blocks of the parameter

@@ -22,8 +22,13 @@ for the reference's signatures only (the decode step factories,
 the reference samples only when it is given a key, which its engines never
 pass, so it decodes greedily under either setting, and so does the port.
 
-``serve_rules`` and ``cache_specs`` give the caches' sharding specs (the
-next slice's dry-run sizes the serving cells with them).
+``serve_rules`` and ``cache_specs`` give the caches' sharding specs, and
+:class:`ShardedServeStep` runs a model's prefill and decode on a mesh as
+the reference's dry-run lays its serve cells out (``cell_rules``): the
+parameters and caches at rest are each rank's blocks, each layer gathers
+its own leaves where it runs, heads, MLP width, vocabulary and experts
+split over ``model``, and the caches over KV heads or, where those are
+too few, over sequence (``common.attention``'s ``kv_split``).
 """
 from __future__ import annotations
 
@@ -37,7 +42,11 @@ from repro_torch.models.common import (cache_slot_view, copy_cache_block,
                                        mask_cache_tail, paged_gather,
                                        paged_scatter_block, paged_scatter_slot,
                                        reset_cache_blocks)
-from repro_torch.parallel.sharding import tree_specs
+from repro_torch.models.registry import abstract_params
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import (LOGICAL_RULES, NamedSharding,
+                                           mesh_shape, spec_axes, spec_for,
+                                           tree_specs)
 
 # ---------------------------------------------------------------------------
 # prompt-length bucketing
@@ -252,8 +261,8 @@ def make_block_ops(stats: Optional[TraceStats] = None, on_compile=None):
 
 
 # ---------------------------------------------------------------------------
-# sharding specs for the caches (specs only: the engines serve on one
-# device, as the reference's do)
+# sharding specs for the caches, and the steps on a mesh (the engines
+# serve on one device, as the reference's do)
 
 
 def serve_rules(shape):
@@ -278,3 +287,111 @@ def abstract_cache(model, batch: int, max_seq: int):
     """The cache tree of ``batch`` rows of ``max_seq`` positions on the
     meta device (``init_cache``'s shapes and dtypes; nothing allocated)."""
     return model.init_cache(batch, max_seq, device="meta")
+
+
+def cell_rules(cfg, batch: int, mesh) -> dict:
+    """The rule overrides of a serve cell of ``batch`` rows on ``mesh``
+    (the reference dry-run's ``serve_rules``): a batch of one splits the
+    caches' sequence over the data axes; KV heads too few for ``model``
+    (GQA, MQA) split it over ``model`` instead (flash-decoding-style
+    parallel KV)."""
+    rules = {}
+    sizes = mesh_shape(mesh)
+    if batch == 1:
+        rules["batch"] = None
+        rules["kv_seq"] = ("pod", "data") if "pod" in sizes else ("data",)
+    elif cfg.num_kv_heads % sizes.get("model", 1) != 0:
+        rules["kv_seq"] = "model"
+    return rules
+
+
+def _row_rules(rules=None) -> dict:
+    """``rules`` with every axis replicated but the batch's: the caches of
+    a model whose compute runs whole on every ``model`` rank."""
+    out = {k: None for k in LOGICAL_RULES}
+    out["batch"] = (rules or {}).get("batch", LOGICAL_RULES["batch"])
+    return out
+
+
+class ShardedServeStep:
+    """A model's prefill and decode on a DeviceMesh over the whole process
+    group, or on a ``launch.mesh.RankMesh`` (the dry-run's rank, on meta
+    tensors), for caches of ``batch`` rows of ``max_seq`` positions.
+
+    The model is built on ``mesh`` with its cell's rules
+    (``build_model(cfg, mesh, shd_rules=cell_rules(cfg, batch, mesh))``).
+    ``layout`` and ``layout_cache`` cut full trees into the rank's blocks
+    (``param_specs``; ``cache_specs`` under the same rules, or split over
+    the batch only for a model that splits no compute over ``model``:
+    the recurrent families), ``rows`` cuts the rank's rows of a global
+    batch tensor, and ``prefill``/``decode`` run the model on blocks
+    (``Sharder.rank_blocks``) and return the logits of the rank's rows as
+    its block of the vocabulary, as the reference's ``act_vocab`` spec
+    leaves them (``whole_logits`` gathers them). At one rank every split
+    is a no-op and the steps are the model's own."""
+
+    def __init__(self, model, mesh, batch: int, max_seq: int):
+        self.model, self.mesh = model, mesh
+        rules = model.shd.rules
+        shapes, self.axes = abstract_params(model)
+        self.param_specs = tree_specs(mesh, self.axes, shapes, rules)
+        self.cache_specs = cache_specs(
+            mesh, model, abstract_cache(model, batch, max_seq),
+            rules if model.shd.tp_axes else _row_rules(rules))
+        spec = spec_for(mesh, ("batch",), (batch,), rules)
+        self.row_split = NamedSharding(mesh, spec)
+        self.batch_axes = spec_axes(spec[0]) if len(spec) else ()
+
+    def layout(self, params):
+        """The rank's blocks of a full parameter tree, in place (each full
+        leaf is dropped as its block is cut)."""
+        def cut(tree, specs):
+            for k in list(tree):
+                if isinstance(tree[k], dict):
+                    cut(tree[k], specs[k])
+                else:
+                    tree[k] = NamedSharding(self.mesh, specs[k]).block(
+                        tree[k])
+        cut(params, self.param_specs)
+        return params
+
+    def layout_cache(self, caches):
+        """The rank's blocks of a full cache tree."""
+        def cut(tree, specs):
+            if isinstance(tree, dict):
+                return {k: cut(tree[k], specs[k]) for k in tree}
+            if isinstance(tree, (tuple, list)):
+                return type(tree)(cut(t, s) for t, s in zip(tree, specs))
+            return NamedSharding(self.mesh, specs).block(tree)
+        return cut(caches, self.cache_specs)
+
+    def rows(self, x):
+        """The rank's rows of a global batch tensor (dim 0)."""
+        return self.row_split.block(torch.as_tensor(x))
+
+    def _run(self, fn, *args, **kw):
+        shd = self.model.shd
+        with shd.rank_batch(self.batch_axes), shd.rank_blocks(
+                self.param_specs, self.axes, self.cache_specs):
+            return fn(*args, **kw)
+
+    def prefill(self, params, batch, caches, true_len=None, start_pos=None):
+        """``model.prefill`` of the rank's rows ``batch`` on its blocks:
+        (the vocabulary block of the last true token's logits, caches)."""
+        kw = {k: v for k, v in (("true_len", true_len),
+                                ("start_pos", start_pos)) if v is not None}
+        return self._run(self.model.prefill, params, batch, caches, **kw)
+
+    def decode(self, params, tokens, pos, caches):
+        """``model.decode_step`` of the rank's rows ``tokens`` [B_l, 1] at
+        ``pos`` (an int, or the rank's rows of a [B] tensor)."""
+        return self._run(self.model.decode_step, params, tokens, pos, caches)
+
+    def whole_logits(self, logits):
+        """The whole vocabulary's logits from each ``model`` rank's block
+        (an all-gather; the logits themselves where they are whole)."""
+        vocab = self.model.cfg.vocab_size
+        if logits.shape[-1] == vocab:
+            return logits
+        return comm.all_gather(logits, self.mesh.get_group("model"), dim=-1)
+

@@ -29,6 +29,17 @@ counted on the meta device.
   projections of MQA's one KV head, which every ``model`` rank computes
   for its query heads (XLA partitions part of that work): the rest of the
   port's count exceeds the reference's by less than that term.
+
+The serve cells run the sharded serve step (``ShardedServeStep``):
+granite-20b's prefill_32k and decode_32k fit a rank of the single mesh
+with peaks in a stated band, and their per-rank FLOPs are 1/16 of the
+same cell computed replicated over ``model`` (a data 16 x model 1 mesh:
+the rank's rows with every head), to within the MQA key and value
+projections and the lookups every rank repeats. A block cut from a
+tensor owns exactly its bytes (a leading-dim slice was a view of the
+whole storage), so zamba2-1.2b's decode_32k peaks within a few GB of its
+argument bytes. deepseek-moe-16b's train_4k cell in the ``2d`` layout
+computes only the rank's experts.
 """
 import json
 import os
@@ -353,3 +364,69 @@ def test_stand_in_gather_reports_one_all_gather():
         assert sh.gather(block).shape == (12, 12)
     assert dict(counter.collectives) == {
         ("all-gather", 12 * 4 * 6 * 4, 12, True): 1.0}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("spec", [P("data"), P(None, "data"),
+                                  P("data", "model")],
+                         ids=["dim0", "dim1", "both"])
+def test_a_block_owns_exactly_its_bytes(device, spec):
+    """A [128, 64, 32] f32 tensor on a data 16 x model 4 mesh, split on
+    dim 0, dim 1 or both: the block holds the spec's slice and its
+    storage is its own bytes (a dim-0 slice is contiguous, but as a view
+    its storage was the whole tensor's 1,048,576 bytes)."""
+    sizes = {"data": 16, "model": 4}
+    t = torch.arange(128 * 64 * 32, dtype=torch.float32).reshape(128, 64, 32)
+    sh = NamedSharding(sizes, spec)
+    coords = {"data": 3, "model": 1}
+    blk = sh.block(t.to(device), coords)
+    assert blk.untyped_storage().nbytes() == blk.nbytes
+    assert blk.nbytes < t.nbytes
+    if device == "cpu":
+        assert torch.equal(blk, t[sh.block_slices(t.shape, coords)])
+
+
+def test_zamba2_decode_peaks_near_its_argument_bytes():
+    """zamba2-1.2b decode_32k on the single mesh: its 12 shared-attention
+    KV leaves are split on dim 0 (the batch), and each rank's block no
+    longer keeps the whole leaf's storage: the peak lies within 3 GB of
+    the argument bytes (209.6 GB against 13.17 GB when it did)."""
+    rec, _ = dryrun.analyze_cell("zamba2-1.2b", "decode_32k",
+                                 make_production_mesh())
+    args = rec["analysis"]["memory"]["argument_bytes"]
+    assert 0 <= rec["analysis"]["peak_bytes"] - args <= 3e9, (
+        rec["analysis"]["peak_bytes"], args)
+
+
+# granite-20b's serve cells on the single mesh: the peak band (decimal GB)
+# around the host count (decode 0.755, prefill 9.285)
+SERVE_BANDS = {"decode_32k": (0.5, 1.5), "prefill_32k": (7.5, 11.0)}
+
+
+@pytest.mark.parametrize("shape", list(SERVE_BANDS))
+def test_granite_serve_cells_fit_and_split_their_compute(shape):
+    """granite-20b's serve cell on the single mesh fits a rank with its
+    peak in the band, and its rank's FLOPs are 1/16 of the same cell
+    computed replicated over ``model`` (data 16 x model 1: the rank's
+    rows, every head), up to 5 % more: the MQA key and value projections,
+    which every rank computes whole, and the norms and lookups."""
+    rec, counter = dryrun.analyze_cell("granite-20b", shape,
+                                       make_production_mesh())
+    lo, hi = SERVE_BANDS[shape]
+    assert rec["fits"] and lo <= rec["peak_gb"] <= hi, rec["peak_gb"]
+    _, whole = dryrun.analyze_cell("granite-20b", shape,
+                                   {"data": 16, "model": 1})
+    assert 1 / 16 <= counter.flops / whole.flops <= 1.05 / 16, (
+        counter.flops / whole.flops)
+
+
+def test_moe_2d_train_cell_computes_the_ranks_experts():
+    """deepseek-moe-16b train_4k in the ``2d`` layout on the single mesh:
+    each rank computes its 4 of 64 experts (``experts`` over ``model``),
+    so ``useful`` rises from the 0.072 of every expert computed on every
+    rank to above 0.5 (0.632 on the host)."""
+    rec, _ = dryrun.analyze_cell("deepseek-moe-16b", "train_4k",
+                                 make_production_mesh())
+    assert rec["fits"] and rec["roofline"]["useful_ratio"] > 0.5, rec[
+        "roofline"]["useful_ratio"]
+

@@ -303,3 +303,20 @@ def test_sharder_uses_a_layers_blocks_and_splits_over_model():
         assert one.tp is None
         wq = torch.empty(8, 4, 2)
         assert one.use({"wq": wq}, "layers", stacked=True)["wq"] is wq
+
+
+def test_sharder_kv_split_names_the_ranks_of_a_cache_sequence():
+    """Within ``rank_blocks`` a cache leaf's ``kv_seq`` entry names the
+    ranks that split its sequence (major to minor over several axes,
+    size-1 axes dropped); None outside it and where the sequence is
+    whole."""
+    mesh = tmesh.RankMesh({"pod": 2, "data": 4, "model": 1})
+    shd = tshard.Sharder(mesh)
+    long = tshard.P("layers", None, ("pod", "data", "model"), None)
+    assert shd.kv_split(long) is None
+    with shd.rank_blocks({}, {}):
+        split = shd.kv_split(long)
+        assert (split.size, split.rank) == (8, 0)
+        assert split.group.axes == ("pod", "data")
+        assert shd.kv_split(tshard.P(None, "data", None, "model")) is None
+        assert shd.kv_split(tshard.P()) is None

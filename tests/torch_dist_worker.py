@@ -174,6 +174,56 @@ def collectives(args):
     return out
 
 
+def serve_tp(args):
+    """The sharded serve step (``serve.step.ShardedServeStep``, the
+    reference dry-run's ``serve_rules`` for the case's batch on the mesh)
+    for each case file of ``args["cases"]``: a prefill of the global
+    batch (with ``tail``, of its first ``tail`` tokens and then of the
+    rest at ``start_pos``), then ``steps`` greedy decode steps at the
+    per-row positions ``pos`` + i. Returns per case the rank's rows, the
+    whole-vocabulary logits of those rows from each call and the greedy
+    tokens."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serve.step import ShardedServeStep, cell_rules
+    mesh = _mesh(args)
+    out = {}
+    for name, path in args["cases"].items():
+        c = torch.load(path)
+        cfg = configs.get_smoke(c["arch"]).replace(dtype="float32")
+        b = c["batch"]["tokens"].shape[0]
+        model = build_model(cfg, mesh, shd_rules=cell_rules(cfg, b, mesh))
+        step = ShardedServeStep(model, mesh, b, c["max_seq"])
+        params = step.layout(c["params"])
+        caches = step.layout_cache(model.init_cache(
+            b, c["max_seq"], torch.float32, "cpu"))
+        batch = {k: step.rows(v) for k, v in c["batch"].items()}
+        logits = []
+        with torch.no_grad():
+            if c.get("tail"):
+                a = c["tail"]
+                lg, caches = step.prefill(
+                    params, {"tokens": batch["tokens"][:, :a]}, caches)
+                logits.append(step.whole_logits(lg))
+                lg, caches = step.prefill(
+                    params, {"tokens": batch["tokens"][:, a:]}, caches,
+                    start_pos=a)
+            else:
+                lg, caches = step.prefill(params, batch, caches)
+            logits.append(step.whole_logits(lg))
+            tok = logits[-1].argmax(-1)
+            tokens = [tok]
+            pos = step.rows(c["pos"])
+            for i in range(c["steps"]):
+                lg, caches = step.decode(params, tok, pos + i, caches)
+                logits.append(step.whole_logits(lg))
+                tok = logits[-1].argmax(-1)
+                tokens.append(tok)
+        out[name] = {"rows": step.rows(torch.arange(b)), "logits": logits,
+                     "tokens": tokens}
+    return out
+
+
 def compress(args):
     """``compressed_psum_pod`` and two steps of ``compress_grads_over_pod``
     (error feedback carried) on the rank's gradients from a numpy seed."""
@@ -201,7 +251,8 @@ def main(argv):
                             rank=int(rank), world_size=int(world))
     try:
         result = {"train": train, "moe_ep": moe_ep, "compress": compress,
-                  "collectives": collectives}[task](json.loads(args))
+                  "collectives": collectives,
+                  "serve_tp": serve_tp}[task](json.loads(args))
         torch.save(result, pathlib.Path(out) / f"{rank}.pt")
     finally:
         dist.destroy_process_group()
