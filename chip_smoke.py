@@ -136,9 +136,11 @@ Phases, each of which must pass (any failure exits non-zero):
               cast to f32 (logits within 1e-3 of max|logit|, no greedy
               choice differing above that margin), and each
               family's profile (a decode step, a cold 256-token first
-              chunk; xlstm's sLSTM layer over 256 tokens alone). With the
-              last model freed, flash is held as in 2 at every shape the
-              three serves gave it.
+              chunk; xlstm's sLSTM layer over 256 tokens alone); zamba2-1.2b
+              also through the sharded serve step on a one-rank NCCL mesh
+              (a prefill and 8 decode steps bitwise the model's own, 6
+              flash launches on wgmma). With the last model freed, flash is
+              held as in 2 at every shape the three serves gave it.
 10. vlm     — internvl2-76b at its published width (d_model 8192, 64 q /
               8 kv heads, d_ff 28672), the depth cut to 32 of 80 layers:
               forward over 256 patch embeddings and 256 tokens (logits
@@ -188,7 +190,19 @@ Phases, each of which must pass (any failure exits non-zero):
               launches and one unsharded), the cache blocks bitwise; (c)
               deepseek-moe-16b's first MoE layer in f32, 4 experts a rank
               summed against the grouped path, routed alike, 1e-5 of
-              max|y|.
+              max|y|; tp_recurrent: the recurrent families' layout at full
+              width as 16 model ranks against the unsharded layer (f32
+              1e-4, bf16 4e-2 of max|y|): (a) zamba2-1.2b's Mamba2 layer
+              0, a decode step of 8 rows and a 256-token chunk, (b)
+              xlstm-1.3b's mLSTM layer 0 decode and its first sLSTM layer
+              over 64 tokens, (c) whisper-small's decoder layer 0 decode on
+              a 4096-position self cache split over sequence (its blocks
+              bitwise), each with the ranks as threads, (d) zamba2's shared
+              attention decode at long_500k on [1,524288,32,64] bf16 caches
+              split over 16 sequence ranks (blocks bitwise), (e) its shared
+              attention and MLP prefill as 16 ranks of 2 heads at [1,4096]
+              (f32 on ffma, bf16 on wgmma) and [2,32768] (bf16), 16 rank
+              launches at q [B,2,S,64] each.
 11c. dryrun — the port's dry-run (launch.dryrun: one rank's step on the
               meta device, counted by perf.op_cost) held against the
               card (the counted step's flash launches are the kernels
@@ -224,6 +238,8 @@ Phases, each of which must pass (any failure exits non-zero):
               [1,3,4096,128], kv [1,1,4096,128], causal), at qwen3-32b's
               prefill_32k rank (q [2,4,32768,128], kv [2,1,32768,128],
               causal; the plain version 4096 query rows at a time), and
+              zamba2-1.2b's train_4k and prefill_32k tensor-parallel ranks
+              (q and kv [1,2,4096,64] and [2,2,32768,64], causal),
               deepseek-moe-16b's largest serve prefill (q [1,16,256,128]
               over the 512-position cache view) and internvl2-76b's forward
               (q [1,64,512,128], kv [1,8,512,128]), whisper-small's
@@ -1417,13 +1433,16 @@ SERVE_SHARDED = dict(rows=4, prompt=256, steps=8, seed=0,
                      pos=(256, 200, 256, 100))
 
 
-def serve_sharded_one_rank(eng, card):
-    """granite-20b at full width on the serve phase's weights: a prefill
-    and ``SERVE_SHARDED["steps"]`` decode steps through the model, then
-    the same through ``ShardedServeStep`` on a one-rank NCCL mesh (the
-    serve cell's rules for the batch): logits and greedy tokens equal
-    bit for bit (one rank: every split is a no-op), the sharded run's
-    flash launches (zeroed before, read after) one a layer on wgmma."""
+def serve_sharded_one_rank(model, params, card, label="serve",
+                           max_seq=SERVE["max_seq"], flash=None):
+    """``model`` at full width on its served weights ``params``
+    (granite-20b's in the serve phase, zamba2-1.2b's in serve_recurrent):
+    a prefill and ``SERVE_SHARDED["steps"]`` decode steps through the
+    model, then the same through ``ShardedServeStep`` on a one-rank NCCL
+    mesh (the serve cell's rules for the batch): logits and greedy tokens
+    equal bit for bit (one rank: every split is a no-op), the sharded
+    run's flash launches (zeroed before, read after) ``flash`` (default:
+    one a layer) on wgmma, those of the prefill."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -1431,13 +1450,13 @@ def serve_sharded_one_rank(eng, card):
     from repro_torch.serve.step import ShardedServeStep, cell_rules
     from repro_torch.train.optimizer import tree_map
     c = SERVE_SHARDED
-    cfg, params = eng.model.cfg, eng.params
+    cfg = model.cfg
+    flash = cfg.num_layers if flash is None else flash
     g = torch.Generator(device="cuda")
     g.manual_seed(c["seed"])
     tokens = torch.randint(0, cfg.vocab_size, (c["rows"], c["prompt"]),
                            generator=g, device="cuda")
     pos = torch.tensor(c["pos"], device="cuda")
-    max_seq = SERVE["max_seq"]
 
     def serve(prefill, decode, caches):
         with torch.no_grad():
@@ -1450,7 +1469,6 @@ def serve_sharded_one_rank(eng, card):
         torch.cuda.synchronize()
         return logits, toks
 
-    model = eng.model
     want, want_tok = serve(
         lambda b, cc: model.prefill(params, b, cc),
         lambda t, q, cc: model.decode_step(params, t, q, cc),
@@ -1480,17 +1498,17 @@ def serve_sharded_one_rank(eng, card):
         dist.destroy_process_group()
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     same_tok = all(torch.equal(a, b) for a, b in zip(got_tok, want_tok))
-    log(f"[serve] sharded serve step on a one-rank NCCL mesh: "
+    log(f"[{label}] sharded serve step on a one-rank NCCL mesh: "
         f"{cfg.name}, {c['rows']} rows x {c['prompt']} tokens, "
         f"{c['steps']} decode steps at positions {list(c['pos'])} + i: "
         f"logits equal bitwise {same}, tokens equal {same_tok} (step 1 "
         f"{want_tok[1][:, 0].tolist()}); flash {n_flash} launches by route "
         f"{routes}, windowed {windowed}; card: {card}")
-    check_all("serve", {
+    check_all(label, {
         "sharded serve step at one rank: logits equal bitwise": same,
         "sharded serve step at one rank: tokens equal": same_tok,
-        "sharded serve step: flash launches == layers, all wgmma": (
-            n_flash == cfg.num_layers and routes == {
+        f"sharded serve step: flash launches == {flash}, all wgmma": (
+            n_flash == flash and routes == {
                 "wgmma": n_flash, "ffma": 0} and windowed == 0),
     })
     return n_flash
@@ -2108,6 +2126,11 @@ def phase_serve_recurrent(card):
                                    for r in reqs for t in r.output),
             "two serves emit the same tokens": all(same),
         })
+        if cfg.family == "hybrid":
+            # the sharded serve step (its compute split over model) at one
+            # NCCL rank: the model's own steps bit for bit
+            serve_sharded_one_rank(model, params, card, label,
+                                   c["max_seq"], len(model.attn_sites))
         # batched against sequential: the served bf16 weights (a reading),
         # then the same weights in f32 (the gate)
         b3 = {"bf16": teacher_forced_check(f"{label}_b3_bf16", model, params,
@@ -2922,6 +2945,397 @@ def tp_serve_check(card):
     return out
 
 
+# the parallel phase's tp_recurrent check: the recurrent families' layout
+# (their compute split over model) at full width on one card, layer by
+# layer as 16 model ranks against the unsharded layer; tolerances stated
+# before the first run: f32 1e-4 and bf16 4e-2 of max|y|, as tp_layer's,
+# and the states each rank writes within the same share of their largest
+# entry. (a) zamba2-1.2b's Mamba2 layer 0: a decode step of 8 rows and a
+# 256-token chunk of one row, each from a random state (4 of 64 heads a
+# rank, the w_in product's blocks all-gathered, the conv state gathered,
+# out_norm's sums of squares all-reduced, w_out summed); (b) xlstm-1.3b's
+# mLSTM layer 0 decode of 8 rows (its 4 heads whole on every rank; the
+# row-parallel q, k, v and gates summed) and its first sLSTM layer over a
+# 64-token chunk of one row (w_in's (gate, head) blocks all-gathered, the
+# FFN split); (c) whisper-small's decoder layer 0 decode of 8 rows on a
+# 4096-position self cache split over sequence (12 KV heads do not divide
+# 16: every rank runs the 12 heads over its block, the partial softmaxes
+# combined; cross attention over 1500 frames whole; the MLP summed), the
+# cache blocks bitwise the unsharded cache's slices; (d) zamba2-1.2b's
+# shared attention decode at long_500k: bf16 [1, 524288, 32, 64] caches
+# (2.1 GB each) split over 16 sequence ranks and combined, against the
+# unsplit decode; the ranks of (a)-(d) run as threads whose collectives
+# meet (ThreadRanks). (e) zamba2-1.2b's shared attention and MLP prefill
+# from position 0 as 16 ranks of 2 heads each, one after the other, their
+# partial outputs summed (as tp_layer): at train_4k's rank shape [1, 4096]
+# in f32 and bf16 and at prefill_32k's [2, 32768] in bf16, flash launched
+# once a rank at q [B,2,S,64] over its 2 KV heads
+TP_RECURRENT = dict(model=16, seed=0, tol={"float32": 1e-4, "bfloat16": 4e-2},
+                    rows=8, chunk=256, slstm_chunk=64,
+                    whisper_seq=4096,
+                    whisper_pos=(100, 255, 256, 1000, 2000, 3000, 4000,
+                                 4095),
+                    long_seq=524288, long_pos=400000,
+                    prefill=((1, 4096, ("float32", "bfloat16")),
+                             (2, 32768, ("bfloat16",))))
+
+
+def _rank_leaves(p, axes, size, r, whole=()):
+    """Rank ``r`` of ``size`` model ranks' blocks of one layer's leaves
+    ``p`` (full), laid out by their logical ``axes`` (no ``layers``
+    entry); the leaves named in ``whole`` used whole, as the model's
+    ``tp_replicated`` leaves are."""
+    from repro_torch.parallel.sharding import NamedSharding, spec_for
+    if isinstance(p, dict):
+        return {k: p[k] if k in whole else _rank_leaves(p[k], axes[k], size,
+                                                        r, whole)
+                for k in p}
+    sizes = {"model": size}
+    spec = spec_for(sizes, axes, tuple(p.shape))
+    return NamedSharding(sizes, spec).block(p, {"model": r})
+
+
+def _unstacked(axes):
+    """Logical axes of a stacked layer's leaves without ``layers``."""
+    if isinstance(axes, dict):
+        return {k: _unstacked(v) for k, v in axes.items()}
+    return axes[1:]
+
+
+def _random_norms(p, gen, names):
+    """Fill the zero-initialised leaves ``names`` of ``p`` with N(0, 0.1)
+    from ``gen``, so that a wrong block of them shows."""
+    for k in names:
+        p[k].normal_(0.0, 0.1, generator=gen)
+
+
+def _on_threads(n, fn):
+    """``fn(r, tp)`` for every rank ``r`` of ``n`` as threads
+    (``ThreadRanks``), ``tp`` the rank's ``TensorParallel``; (results in
+    rank order, wall seconds)."""
+    import torch
+    from repro_torch.parallel.sharding import TensorParallel
+    ranks = ThreadRanks(n)
+    t0 = time.perf_counter()
+    out = ranks.run(lambda r: fn(r, TensorParallel(ranks.group(r), n, r)))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rel(got, want) -> float:
+    """max|got - want| over max|want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def tp_recurrent_layers(card, dt):
+    """tp_recurrent (a)-(c) in ``dt``: each layer's y and states against
+    the unsharded layer's. Returns {name: rel of y}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import common, mamba2, whisper, xlstm
+    c = TP_RECURRENT
+    n, rows, tol = c["model"], c["rows"], c["tol"][dt]
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(c["seed"])
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out, checks = {}, {}
+
+    def hold(name, want, ys, states=()):
+        """y against the unsharded one, every rank's y equal, and each
+        (got, want) state pair within the tolerance of max|want|."""
+        rel = _rel(ys[0], want)
+        same = all(torch.equal(y, ys[0]) for y in ys)
+        srel = max([_rel(g, w) for g, w in states] or [0.0])
+        out[name] = rel
+        log(f"[parallel] tp_recurrent {name}, {dt}, model {n}: max|diff| "
+            f"{rel:.3e} of max|y| {want.float().abs().max().item():.4g} "
+            f"(tol {tol:g}); every rank's y equal {same}; the ranks' "
+            f"states against the unsharded ones {srel:.3e} of max; card: "
+            f"{card}")
+        checks.update({
+            f"tp_recurrent {name} {dt}: within {tol:g} of max|y|": (
+                rel <= tol and bool(torch.isfinite(ys[0]).all())),
+            f"tp_recurrent {name} {dt}: every rank's y equal": same,
+            f"tp_recurrent {name} {dt}: states within {tol:g}": srel <= tol,
+        })
+
+    # (a) zamba2's Mamba2 layer 0
+    cfg = configs.get("zamba2-1.2b").replace(dtype=dt)
+    di, ns = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    nh, hd = di // cfg.head_dim, cfg.head_dim
+    p = common.layer_of(common.init_tree(mamba2.mamba_shapes(cfg, 1), gen,
+                                         "cuda", torch.float32), 0)
+    _random_norms(p, gen, ("norm", "out_norm", "a_log", "dt_bias"))
+    axes = _unstacked(mamba2.param_axes(cfg)["mamba"])
+    hl, cl = nh // n, (di + 2 * ns) // n
+    for name, b, t in (("(a) zamba2 mamba decode", rows, 1),
+                       ("(a) zamba2 mamba chunk", 1, c["chunk"])):
+        x = randn(b, t, cfg.d_model, dtype=dtype)
+        S, conv = randn(b, nh, ns, hd), randn(b, 3, di + 2 * ns)
+        ws, wc = S.clone(), conv.clone()
+        with torch.no_grad():
+            want = mamba2.mamba_block(x, p, cfg, (ws, wc))
+
+            def rank(r, tp):
+                st = (S[:, r * hl:(r + 1) * hl].clone(),
+                      conv[..., r * cl:(r + 1) * cl].clone())
+                y = mamba2.mamba_block(
+                    x, _rank_leaves(p, axes, n, r, ("conv",)), cfg, st,
+                    tp=tp)
+                return y, st
+
+            res, _ = _on_threads(n, rank)
+        hold(name, want, [y for y, _ in res], [
+            (st[i], w[sl]) for r, (_, st) in enumerate(res)
+            for i, (w, sl) in enumerate((
+                (ws, (slice(None), slice(r * hl, (r + 1) * hl))),
+                (wc, (..., slice(r * cl, (r + 1) * cl)))))])
+        del S, conv, ws, wc, res
+    del p
+
+    # (b) xlstm's mLSTM layer 0 decode and its first sLSTM layer
+    cfg = configs.get("xlstm-1.3b").replace(dtype=dt)
+    d, nh = cfg.d_model, cfg.num_heads
+    di = 2 * d
+    p = common.layer_of(common.init_tree(xlstm.mlstm_shapes(cfg, 1), gen,
+                                         "cuda", torch.float32), 0)
+    _random_norms(p, gen, ("norm", "out_norm", "b_gates"))
+    axes = _unstacked(xlstm.param_axes(cfg)["mlstm"])
+    cl = di // n
+    x = randn(rows, 1, d, dtype=dtype)
+    C = randn(rows, nh, di // nh, di // nh)
+    nn_, conv = randn(rows, nh, di // nh), randn(rows, 3, di)
+    wst = (C.clone(), nn_.clone(), conv.clone())
+    with torch.no_grad():
+        want = xlstm.mlstm_block(x, p, cfg, wst)
+
+        def rank(r, tp):
+            st = (C.clone(), nn_.clone(),
+                  conv[..., r * cl:(r + 1) * cl].clone())
+            return xlstm.mlstm_block(x, _rank_leaves(p, axes, n, r), cfg,
+                                     st, tp=tp), st
+
+        res, _ = _on_threads(n, rank)
+    hold("(b) xlstm mLSTM decode", want, [y for y, _ in res], [
+        pair for r, (_, st) in enumerate(res) for pair in (
+            (st[0], wst[0]), (st[1], wst[1]),
+            (st[2], wst[2][..., r * cl:(r + 1) * cl]))])
+    del C, nn_, conv, wst, res, p
+    p = common.init_tree(xlstm.slstm_shapes(cfg), gen, "cuda", torch.float32)
+    _random_norms(p, gen, ("norm", "out_norm", "b"))
+    axes = xlstm.param_axes(cfg)["slstm_0"]
+    x = randn(1, c["slstm_chunk"], d, dtype=dtype)
+    sd = d // nh
+    st0 = (randn(1, nh, sd), randn(1, nh, sd).abs() + 1.0, randn(1, nh, sd),
+           0.1 * randn(1, nh, sd))
+    wst = tuple(s.clone() for s in st0)
+    with torch.no_grad():
+        want = xlstm.slstm_block(x, p, cfg, wst)
+
+        def rank(r, tp):
+            st = tuple(s.clone() for s in st0)
+            return xlstm.slstm_block(x, _rank_leaves(p, axes, n, r, ("r",)),
+                                     cfg, st, tp), st
+
+        res, _ = _on_threads(n, rank)
+    hold("(b) xlstm sLSTM chunk", want, [y for y, _ in res],
+         [pair for _, st in res for pair in zip(st, wst)])
+    del p, res, wst, st0
+
+    # (c) whisper's decoder layer 0 decode on a sequence-split self cache
+    cfg = configs.get("whisper-small").replace(dtype=dt)
+    model = whisper.Whisper(cfg)
+    full = common.init_tree(whisper.param_shapes(cfg)["decoder"], gen,
+                            "cuda", torch.float32)
+    p = common.layer_of(full, 0)
+    del full
+    _random_norms(p, gen, ("norm1", "norm_x", "norm2"))
+    axes = _unstacked(whisper.param_axes(cfg)["decoder"])
+    t = c["whisper_seq"]
+    blk = t // n
+    x = randn(rows, 1, cfg.d_model, dtype=dtype)
+    xk, xv = (randn(rows, cfg.enc_seq, cfg.q_heads, cfg.head_dim,
+                    dtype=dtype) for _ in range(2))
+    ck, cv = (randn(rows, t, cfg.num_kv_heads, cfg.head_dim, dtype=dtype)
+              for _ in range(2))
+    pos = torch.tensor(c["whisper_pos"], device="cuda")
+    blocks = [(ck[:, r * blk:(r + 1) * blk].clone(),
+               cv[:, r * blk:(r + 1) * blk].clone()) for r in range(n)]
+    with torch.no_grad():
+        want = model._dec_layer(x, p, xk, xv, pos[:, None], (ck, cv), pos)
+
+        def rank(r, tp):
+            return model._dec_layer(x, _rank_leaves(p, axes, n, r), xk, xv,
+                                    pos[:, None], blocks[r], pos,
+                                    kv_split=tp, tp=tp)
+
+        ys, _ = _on_threads(n, rank)
+    caches = all(torch.equal(bk, ck[:, r * blk:(r + 1) * blk])
+                 and torch.equal(bv, cv[:, r * blk:(r + 1) * blk])
+                 for r, (bk, bv) in enumerate(blocks))
+    hold("(c) whisper decoder decode", want, ys)
+    checks[f"tp_recurrent (c) whisper {dt}: each rank's cache block holds "
+           f"the unsharded cache's positions bitwise"] = caches
+    check_all("parallel", checks)
+    return out
+
+
+def tp_recurrent_long(card):
+    """tp_recurrent (d): zamba2-1.2b's shared attention decode at
+    long_500k in bf16, the caches split over 16 sequence ranks."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import common
+    c = TP_RECURRENT
+    n, t, q = c["model"], c["long_seq"], c["long_pos"]
+    cfg = configs.get("zamba2-1.2b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(c["seed"])
+    p = common.init_tree(common.attn_shapes(cfg), gen, "cuda", torch.float32)
+    x = torch.randn(1, 1, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ck, cv = (torch.randn(1, t, cfg.num_kv_heads, cfg.head_dim,
+                          generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    blk = t // n
+    blocks = [(ck[:, r * blk:(r + 1) * blk].clone(),
+               cv[:, r * blk:(r + 1) * blk].clone()) for r in range(n)]
+    positions = torch.full((1,), q, device="cuda")
+    with torch.no_grad():
+        want = common.attention(x, p, cfg, positions=positions,
+                                kv_cache=(ck, cv), cache_pos=q)[0]
+        ys, wall = _on_threads(n, lambda r, tp: common.attention(
+            x, p, cfg, positions=positions, kv_cache=blocks[r],
+            cache_pos=q, kv_split=tp)[0])
+    rel = _rel(ys[0], want)
+    same = all(torch.equal(y, ys[0]) for y in ys)
+    caches = all(torch.equal(bk, ck[:, r * blk:(r + 1) * blk])
+                 and torch.equal(bv, cv[:, r * blk:(r + 1) * blk])
+                 for r, (bk, bv) in enumerate(blocks))
+    tol = c["tol"]["bfloat16"]
+    log(f"[parallel] tp_recurrent (d) {cfg.name} shared attention decode at "
+        f"long_500k, bf16: caches [1,{t},{cfg.num_kv_heads},"
+        f"{cfg.head_dim}] ({2 * ck.nbytes / 1e9:.2f} GB a site) split over "
+        f"{n} sequence ranks of {blk} positions, the token at {q}: combined "
+        f"vs unsplit max|diff| {rel:.3e} of max|y| (tol {tol:g}); every "
+        f"rank's y equal {same}; cache blocks equal to the unsplit slices "
+        f"{caches}; ranks' wall {wall:.2f} s; card: {card}")
+    check_all("parallel", {
+        f"tp_recurrent (d) long_500k decode: within {tol:g} of max|y|": (
+            rel <= tol and bool(torch.isfinite(ys[0]).all())),
+        "tp_recurrent (d) long_500k decode: every rank's y equal": same,
+        "tp_recurrent (d) long_500k decode: the cache blocks hold the "
+        "unsplit cache's positions bitwise": caches,
+    })
+    return rel
+
+
+def tp_recurrent_prefill(card, b, s, dt):
+    """tp_recurrent (e): zamba2-1.2b's shared attention and MLP prefill
+    from position 0 as 16 ranks of 2 heads each, the partial outputs
+    summed, against the unsharded block; the rank's KV cache blocks
+    against the unsharded cache's head slices, flash launched once a rank
+    at q [b,2,s,64] over 2 KV heads."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import common, mamba2
+    from repro_torch.parallel.sharding import TensorParallel
+
+    class Partial(TensorParallel):
+        def sum(self, y):
+            return y
+
+    c = TP_RECURRENT
+    n = c["model"]
+    cfg = configs.get("zamba2-1.2b").replace(dtype=dt)
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(c["seed"])
+    p = common.init_tree(mamba2.param_shapes(cfg)["shared_attn"], gen,
+                         "cuda", torch.float32)
+    _random_norms(p, gen, ("norm1", "norm2"))
+    axes = mamba2.param_axes(cfg)["shared_attn"]
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device="cuda").to(dtype)
+    positions = torch.arange(s, device="cuda")
+    kv = (b, s, cfg.num_kv_heads, cfg.head_dim)
+    ck, cv = (torch.zeros(kv, dtype=dtype, device="cuda") for _ in range(2))
+    model = mamba2.Zamba2(cfg)
+    zero_flash_counts()
+    with torch.no_grad(), flash_shapes() as full_shapes:
+        want = model._shared_attn(x, p, positions, (ck, cv), 0)
+    full = flash_counts()
+    hl = cfg.num_kv_heads // n
+    zero_flash_counts()
+    blocks = [_rank_leaves(p, axes, n, r) for r in range(n)]
+    caches = [tuple(torch.zeros((b, s, hl, cfg.head_dim), dtype=dtype,
+                                device="cuda") for _ in range(2))
+              for _ in range(n)]
+    with torch.no_grad(), flash_shapes() as rank_shapes:
+        h = sum(common.attention(
+            common.rms_norm(x, blocks[r]["norm1"]), blocks[r]["attn"], cfg,
+            positions=positions, kv_cache=caches[r], cache_pos=0,
+            tp=Partial(None, n, r))[0] for r in range(n))
+        x1 = x + h
+        xn = common.rms_norm(x1, p["norm2"])
+        got = x1 + sum(common.mlp(xn, blocks[r]["mlp"], Partial(None, n, r),
+                                  cfg.d_ff) for r in range(n))
+    ranks = flash_counts()
+    torch.cuda.synchronize()
+    rel = _rel(got, want)
+    # the rank's k and v come from a product over its columns of wk and
+    # wv: another GEMM shape, so held at the tolerance, not bitwise
+    cache_rel = max(max(_rel(bk, ck[:, :, r * hl:(r + 1) * hl]),
+                        _rel(bv, cv[:, :, r * hl:(r + 1) * hl]))
+                    for r, (bk, bv) in enumerate(caches))
+    route = "ffma" if dt == "float32" else "wgmma"
+    want_shape = (b, hl, hl, s, s, cfg.head_dim, True, None, 0)
+    tol = c["tol"][dt]
+    log(f"[parallel] tp_recurrent (e) {cfg.name} shared attention + MLP "
+        f"prefill, {dt}, model {n}: x [{b},{s},{cfg.d_model}], {hl} of "
+        f"{cfg.num_heads} heads a rank: summed partials vs unsharded "
+        f"max|diff| {rel:.3e} of max|y| (tol {tol:g}); the ranks' cache "
+        f"blocks against the unsharded heads {cache_rel:.3e} of max; flash "
+        f"unsharded "
+        f"{full[0]} launch(es) {full[1]} at {sorted(full_shapes)}, ranks "
+        f"{ranks[0]} launches {ranks[1]} at {sorted(rank_shapes)}; card: "
+        f"{card}")
+    check_all("parallel", {
+        f"tp_recurrent (e) prefill [{b},{s}] {dt}: summed partials within "
+        f"{tol:g} of max|y|": rel <= tol and bool(torch.isfinite(got).all()),
+        f"tp_recurrent (e) prefill [{b},{s}] {dt}: the cache blocks within "
+        f"{tol:g} of the unsharded cache's heads": cache_rel <= tol,
+        f"tp_recurrent (e) prefill [{b},{s}] {dt}: {n} rank launches on "
+        f"{route} at q [{b},{hl},{s},{cfg.head_dim}]": (
+            ranks[0] == n and ranks[1][route] == n
+            and rank_shapes == {want_shape}),
+        f"tp_recurrent (e) prefill [{b},{s}] {dt}: one unsharded launch on "
+        f"{route}": full[0] == 1 and full[1][route] == 1,
+    })
+    return dict(rel=rel, launches=ranks[0], routes=ranks[1])
+
+
+def tp_recurrent_check(card):
+    """tp_recurrent (a)-(e); returns their readings and wall seconds."""
+    t0 = time.perf_counter()
+    out = {"layers": {}, "prefill": {}}
+    for dt in ("float32", "bfloat16"):
+        out["layers"][dt] = tp_recurrent_layers(card, dt)
+        free_card()
+    out["long"] = tp_recurrent_long(card)
+    free_card()
+    for b, s, dts in TP_RECURRENT["prefill"]:
+        for dt in dts:
+            out["prefill"][(b, s, dt)] = tp_recurrent_prefill(card, b, s, dt)
+            free_card()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def phase_parallel(card):
     """The port's parallel layer on the card at one NCCL rank (the
     process group on a file:// store under build/, a mixed cuda:nccl /
@@ -2948,7 +3362,11 @@ def phase_parallel(card):
         unsharded layer;
     (e) tp_serve (``tp_serve_check``): the serve cells' layout at full
         width, 16 model ranks of layer 0 combined or summed against the
-        unsharded layer (``TP_SERVE``).
+        unsharded layer (``TP_SERVE``);
+    (f) tp_recurrent (``tp_recurrent_check``): the recurrent families'
+        layout at full width, 16 model ranks of a layer against the
+        unsharded layer, and zamba2's long_500k decode on a cache split
+        over 16 sequence ranks (``TP_RECURRENT``).
     """
     import torch
     import torch.distributed as dist
@@ -3078,12 +3496,15 @@ def phase_parallel(card):
     # (e) the serve cells' layout at full width
     t_serve = time.perf_counter()
     tp_serve = tp_serve_check(card)
+    t_serve = time.perf_counter() - t_serve
+    # (f) the recurrent families' layout at full width
+    tp_rec = tp_recurrent_check(card)
     wall = time.perf_counter() - t_phase
-    log(f"[parallel] tp_serve in {time.perf_counter() - t_serve:.1f} s; "
-        f"phase in {wall:.1f} s")
+    log(f"[parallel] tp_serve in {t_serve:.1f} s, tp_recurrent in "
+        f"{tp_rec['seconds']:.1f} s; phase in {wall:.1f} s")
     return dict(compress_ms=err_ms, compress_gbs=gbs, ratio=ratio,
                 moe_ms=ms, walls=walls, seconds=wall, tp=tp,
-                tp_serve=tp_serve)
+                tp_serve=tp_serve, tp_recurrent=tp_rec)
 
 
 # the dryrun phase: the port's dry-run (launch.dryrun: one rank's step on
@@ -4175,7 +4596,7 @@ def main() -> int:
     cfg, eng, launches, shapes = phase_serve(card)
     launches.update(bench_launches)
     dry_b = dryrun_decode(eng, phase_profile(eng), card)
-    serve_sharded_one_rank(eng, card)
+    serve_sharded_one_rank(eng.model, eng.params, card)
     del eng                                    # frees the 56 GB of weights
     free_card()
     wcfg, wmodel, wparams, weng, wlaunches, wshapes = phase_serve_window(
@@ -4228,6 +4649,17 @@ def main() -> int:
         TP_SERVE["prefill_rows"], ts_cfg.q_heads // TP_SERVE["model"], 1,
         TP_SERVE["prefill_seq"]["bfloat16"], ts_cfg.head_dim, None,
         "qwen3-32b's prefill_32k rank, model axis 16", plain_rows=4096)
+    # zamba2-1.2b's tensor-parallel rank on the model axis of 16 (2 of 32
+    # heads over their 2 KV heads, causal): train_4k's [1, 4096] and
+    # prefill_32k's [2, 32768]; the parallel phase's tp_recurrent (e) in
+    # bf16 launched each once a rank
+    z_cfg = configs.get("zamba2-1.2b")
+    z_h = z_cfg.num_heads // TP_RECURRENT["model"]
+    z_rows = {(b, s): time_flash(
+        b, z_h, z_h, s, z_cfg.head_dim, None,
+        f"zamba2-1.2b's {'train_4k' if b == 1 else 'prefill_32k'} rank, "
+        f"model axis 16", plain_rows=4096)
+        for b, s, _ in TP_RECURRENT["prefill"]}
     # deepseek-moe-16b's largest serve prefill (the 256 bucket, cold, over
     # the 512-position cache view) and internvl2-76b's forward
     moe_top = max(mshapes, key=lambda sh: (sh[3], -sh[8]))
@@ -4371,6 +4803,27 @@ def main() -> int:
                            tp_serve_row["max_abs_err"]),
         **flash_keys(tp_serve_row),
     })
+    # the same wgmma route at zamba2-1.2b's tensor-parallel rank (2 of 32
+    # heads, D 64, MHA): train_4k's q [1,2,4096,64] and prefill_32k's
+    # [2,2,32768,64], each launched once a rank by the parallel phase's
+    # tp_recurrent (e) in bf16
+    rec_tp = par["tp_recurrent"]
+    for (b, s), row in z_rows.items():
+        kernels.append({
+            "name": "flash_attention/wgmma/zamba2_tp_"
+                    + ("train_rank" if b == 1 else "prefill_rank"),
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:22",
+            "launches": rec_tp["prefill"][(b, s, "bfloat16")]["launches"],
+            "tp_recurrent_rel_err": {
+                "layers": rec_tp["layers"], "long_500k": rec_tp["long"],
+                "prefill": {f"{pb}x{ps} {dt}": r["rel"] for (pb, ps, dt), r
+                            in rec_tp["prefill"].items()}},
+            "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"]),
+            **flash_keys(row),
+        })
     # the same wgmma route on the MoE and VLM paths: deepseek-moe-16b's
     # serve (28 layers x prefills) and internvl2-76b's forward and text
     # serve (32 layers x calls)

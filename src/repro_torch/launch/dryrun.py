@@ -18,10 +18,14 @@ batch rows and its blocks of the bf16 parameters and of the caches, each
 layer's leaves gathered where the layer runs, heads, MLP width,
 vocabulary and experts computed over ``model``, the caches split over KV
 heads or, where those do not divide ``model``, over sequence (decode
-combines the blocks' partial softmaxes). The recurrent families (xlstm,
-zamba2, whisper) gather per layer too, but their compute stays
-replicated over ``model``, as in training, so their caches split over
-the batch only.
+combines the blocks' partial softmaxes). The recurrent families split
+their compute over ``model`` too, in training and serving: zamba2's
+Mamba2 heads (4 of 64 a rank at model 16) and inner channels, xlstm's
+inner channels (its 4 heads run whole on every rank at model 16),
+whisper's MLP width (its 12 heads run whole); their states split over
+heads where those divide, and a batch of one (long_500k) splits zamba2's
+shared-attention caches over sequence on ``("pod", "data")`` and over KV
+heads on ``model``.
 
 Run:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-20b \\

@@ -35,11 +35,26 @@ NEG_INF = -1e30
 # norms
 
 
-def rms_norm(x, scale, eps=1e-6):
-    """RMS norm in f32, scaled by ``1 + scale`` (zero-initialised scale)."""
+def rms_norm(x, scale, eps=1e-6, cols=None):
+    """RMS norm in f32, scaled by ``1 + scale`` (zero-initialised scale).
+    ``cols`` (a slice): only those columns of the normed ``x`` are kept,
+    ``scale`` being their block (a rank's channels of a whole ``x``)."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
+    if cols is not None:
+        y = y[..., cols]
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rms_norm_split(x, scale, tp, eps=1e-6):
+    """``rms_norm`` over a dim split over ``tp``'s ranks, ``x`` [..., C]
+    and ``scale`` [C] the rank's block of its ``C * tp.size`` entries: the
+    ranks' sums of squares summed (``tp.sum``, whose backward sums the
+    gradient too) make the mean over the whole dim."""
+    xf = x.float()
+    ss = tp.sum(xf.square().sum(dim=-1, keepdim=True))
+    y = xf * torch.rsqrt(ss / (x.shape[-1] * tp.size) + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
@@ -273,22 +288,27 @@ def write_cache_block(cache, new, cache_pos, split):
 def _split_cache_attention(q, k, v, cfg: ModelConfig, kv_cache, cache_pos,
                            positions, window, is_global, causal, tp, split):
     """Attention with a cache whose sequence is split over ``split``'s
-    ranks (the KV heads too few to split over ``model``: the reference's
-    "flash-decoding-style parallel KV"). The rank's cache block holds
-    every KV head of its positions, and ``k``, ``v`` are the call's every
-    KV head; the rank writes the positions its block holds.
+    ranks (the reference's "flash-decoding-style parallel KV"): over
+    ``model`` where the KV heads are too few to split over it, or, for a
+    batch of one, over the data axes. The rank's cache block holds every
+    KV head of its positions, and ``k``, ``v`` are the call's every KV
+    head, unless the KV heads split over ``tp`` too: then the block, ``k``
+    and ``v`` hold the rank's KV heads. The rank writes the positions its
+    block holds.
 
-    Decode: the rank's query heads are gathered over ``tp`` (B x 1 x H x
-    Dh), every head attends over the rank's block, the blocks combine
-    (``comm.softmax_combine``) and the rank keeps its own heads. Prefill
-    from position 0 attends with the rank's heads over the prompt's own
-    keys on the flash kernel; a tail prefill (``cache_pos`` > 0) gathers
-    the cache's blocks first (the whole prefix: correct, not fast)."""
+    Decode: where the block holds every KV head, the rank's query heads
+    are gathered over ``tp`` (B x 1 x H x Dh); the heads attend over the
+    rank's block, the blocks combine (``comm.softmax_combine``) and the
+    rank keeps its own heads. Prefill from position 0 attends with the
+    rank's heads over the prompt's own keys on the flash kernel; a tail
+    prefill (``cache_pos`` > 0) gathers the cache's blocks first (the
+    whole prefix: correct, not fast)."""
     ck, cv = kv_cache
     b, s, h_local, _ = q.shape
     write_cache_block(ck, k, cache_pos, split)
     write_cache_block(cv, v, cache_pos, split)
-    heads = tp is not None and tp.splits(h_local, cfg.q_heads)
+    heads = (tp is not None and tp.splits(h_local, cfg.q_heads)
+             and not tp.splits(ck.shape[2], cfg.num_kv_heads))
     if s == 1:
         qa = comm.all_gather(q, tp.group, dim=2) if heads else q
         tl = ck.shape[1]
@@ -335,7 +355,8 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
     ``positions`` (the training/scoring forward and a local layer's
     prefill). ``kv_split``: the ranks a flat cache's sequence is split
     over (``_split_cache_attention``); the cache is then the rank's block
-    of positions, with every KV head."""
+    of positions, with every KV head (the rank's, where they split over
+    ``tp`` too)."""
     b, s, _ = x.shape
     window = (cfg.sliding_window
               if cfg.sliding_window > 0 and not is_global else None)
@@ -344,7 +365,10 @@ def attention(x, p, cfg: ModelConfig, *, positions, is_global=True,
     elif rope_cs is None:
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     split = kv_split is not None and kv_cache is not None
-    q, k, v = _qkv(x, p, cfg, rope_cs, None if split else tp)
+    # a sequence-split cache holds every KV head unless they split too
+    q, k, v = _qkv(x, p, cfg, rope_cs, tp if not split or (
+        tp is not None and tp.splits(kv_cache[0].shape[2],
+                                     cfg.num_kv_heads)) else None)
     fresh_kv = (k, v)
 
     if split:
@@ -647,16 +671,55 @@ def log_sigmoid(x):
 # MLP and embeddings
 
 
+def rank_block(tp, block: int, full: int):
+    """The slice of a dim of ``full`` entries that the rank's ``block`` of
+    them covers (``tp.splits``): its ``tp.rank``-th block; None where the
+    dim is not split or ``tp`` is None."""
+    if tp is None or not tp.splits(block, full):
+        return None
+    return slice(tp.rank * block, (tp.rank + 1) * block)
+
+
+def rank_heads(tp, nh: int):
+    """The rank's heads of a recurrent layer (a slice): its ``1/tp.size``
+    of the ``nh`` where they divide over the ranks (the ``act_heads``
+    spec splits the state so); None where every rank runs all of them."""
+    if tp is None or nh % tp.size:
+        return None
+    k = nh // tp.size
+    return slice(tp.rank * k, (tp.rank + 1) * k)
+
+
+def gathered_product(x, w, tp=None, full: int = 0):
+    """``x @ w`` in x's dtype. Under ``tp`` with the ``full`` output
+    columns of ``w`` split, the product of the rank's contiguous block of
+    columns, all-gathered over the ranks (whose backward reduce-scatters):
+    every rank holds the whole product, for a weight whose blocks do not
+    line up with what its columns mean (a concatenation such as mamba2's
+    ``[z|x|B|C|dt]``)."""
+    y = x @ w.to(x.dtype)
+    if tp is not None and tp.splits(w.shape[-1], full):
+        y = comm.all_gather(y, tp.group, dim=-1)
+    return y
+
+
+def row_product(x, w, tp=None, full: int = 0):
+    """``x @ w`` in x's dtype; under ``tp`` with the ``full`` input rows of
+    ``w`` split (row-parallel: ``x`` the rank's channels), the ranks'
+    partial products summed."""
+    y = x @ w.to(x.dtype)
+    if tp is not None and tp.splits(w.shape[0], full):
+        y = tp.sum(y)
+    return y
+
+
 def mlp(x, p, tp=None, width: int = 0):
     """The gated MLP; under ``tp`` with its ``width`` split, the rank's
     columns of ``w_gate`` and ``w_up`` and rows of ``w_down``, summed over
     the ranks."""
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
-    y = (F.silu(g) * u) @ p["w_down"].to(x.dtype)
-    if tp is not None and tp.splits(p["w_down"].shape[0], width):
-        y = tp.sum(y)
-    return y
+    return row_product(F.silu(g) * u, p["w_down"], tp, width)
 
 
 def _vocab_rows(ids, tp, v_local):

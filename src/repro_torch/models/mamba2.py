@@ -13,6 +13,38 @@ Serving state (``init_cache``): ``mamba`` holds (S [L,B,H,N,P], conv
 [L,B,W-1,di+2N]) in f32 and each ``attn_{i}`` a (k, v) pair of
 [B, max_seq, kvh, dh] in ``dtype``; ``prefill`` and ``decode_step`` write
 it in place and return it.
+
+On a rank's blocks (``Sharder.rank_blocks``: the sharded train and serve
+steps) each layer computes its share over the ``model`` ranks
+(``Sharder.tp``), as the reference's specs split the leaves
+(``ssm_inner``, ``heads``, ``kv_heads``, ``mlp``, ``vocab``): a Mamba2
+layer runs its block of the heads (4 of 64 at model 16) where they divide
+over the ranks, else all of them. Its leaves, leaf by leaf:
+
+- ``w_in`` ``[d, z|x|B|C|dt]`` stays the rank's contiguous block of
+  columns, which crosses the z/x/B/C/dt boundaries (524 of 8384 at model
+  16): the rank multiplies by its block and all-gathers the product over
+  ``model`` (``common.gathered_product``), then takes the columns it uses:
+  its heads' z, x and dt, and B and C whole (every head reads them). This
+  moves activations, not weights: cheaper than gathering the weight at
+  decode, dearer at train_4k;
+- ``conv`` ``[W, x|B|C]`` is gathered whole (``tp_replicated``: 34 KB a
+  layer), and so is the cached conv state at use (B x 3 x 4224 f32): the
+  rank convolves every channel and writes back its own block of the new
+  state;
+- ``a_log``, ``d_skip`` and ``dt_bias`` are whole: the rank takes its
+  heads' entries;
+- ``out_norm`` is the RMS norm over the whole inner width: the ranks' sums
+  of squares are all-reduced (``common.rms_norm_split``); where the heads
+  stay whole each rank norms them all and keeps its channels;
+- ``w_out`` is row-parallel, its partial products summed over ``model``.
+
+The cached S splits over heads as the ``act_heads`` spec splits it. The
+shared attention and MLP split their heads and width over ``model``
+(``common.attention``, ``common.mlp``), and the shared attention's caches
+split over KV heads, and for a batch of one over sequence too
+(``Sharder.cache_kv_split``), as the transformer's do; the embedding and
+the logits split the vocabulary.
 """
 from __future__ import annotations
 
@@ -27,7 +59,11 @@ from repro_torch.core import loops
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.models.xlstm import CHUNK, _causal_conv
+from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import Sharder
+
+#: the logical axes whose ``model`` split the layers' compute consumes
+TP_AXES = ("ssm_inner", "heads", "kv_heads", "mlp", "vocab")
 
 
 def mamba_shapes(cfg: ModelConfig, L: int) -> Dict:
@@ -109,31 +145,45 @@ def ssd_step(x, b_mat, c_mat, dt, a, state):
     return y[:, None], S
 
 
-def mamba_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
+def mamba_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK, tp=None):
     """Residual Mamba2 block. ``state``: (S, conv_state) views written in
-    place, or None (training)."""
+    place, or None (training). ``tp``: the ranks that split the block's
+    compute (``TensorParallel``; module docstring); ``p`` and ``state``
+    are then the rank's blocks."""
     b, t, d = x.shape
     di = cfg.ssm_expand * d
     n = cfg.ssm_state
     nh = di // cfg.head_dim
     pdim = cfg.head_dim
+    heads = common.rank_heads(tp, nh)
     y = common.rms_norm(x, p["norm"])
-    proj = y @ p["w_in"].to(y.dtype)
+    proj = common.gathered_product(y, p["w_in"], tp, 2 * di + 2 * n + nh)
     z = proj[..., :di]
     xbc = proj[..., di:di + di + 2 * n]
     dt_raw = proj[..., di + di + 2 * n:]                   # [B,T,H]
+    a_log, dt_bias, d_skip = p["a_log"], p["dt_bias"], p["d_skip"]
+    if heads is not None:                  # the rank's heads' entries
+        dt_raw = dt_raw[..., heads]
+        a_log, dt_bias, d_skip = a_log[heads], dt_bias[heads], d_skip[heads]
     if state is None:
-        S = torch.zeros((b, nh, n, pdim), dtype=torch.float32, device=x.device)
-        conv_state = None
+        S = torch.zeros((b, dt_raw.shape[-1], n, pdim), dtype=torch.float32,
+                        device=x.device)
+        conv_state = conv_in = None
     else:
         S, conv_state = state
-    xbc, new_conv = _causal_conv(xbc, p["conv"], conv_state)
+        conv_in = conv_state
+        blk = common.rank_block(tp, conv_state.shape[-1], di + 2 * n)
+        if blk is not None:
+            conv_in = comm.all_gather(conv_state, tp.group, dim=-1)
+    xbc, new_conv = _causal_conv(xbc, p["conv"], conv_in)
     xbc = F.silu(xbc)
     xssm = xbc[..., :di].reshape(b, t, nh, pdim)
+    if heads is not None:
+        xssm = xssm[:, :, heads]
     b_mat = xbc[..., di:di + n]
     c_mat = xbc[..., di + n:]
-    dt = common.softplus(dt_raw.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())                     # [H] < 0
+    dt = common.softplus(dt_raw.float() + dt_bias.float())
+    a = -torch.exp(a_log.float())                          # [H] < 0
     if t == 1 and state is not None:
         ys, _ = ssd_step(xssm, b_mat, c_mat, dt, a, S)
     else:
@@ -142,12 +192,18 @@ def mamba_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
         if state is not None:
             S.copy_(S2)
     if state is not None:
-        conv_state.copy_(new_conv)
-    ys = ys + p["d_skip"].float()[:, None] * xssm.float()
-    h = ys.reshape(b, t, di).to(x.dtype)
-    h = common.rms_norm(h, p["out_norm"])
+        conv_state.copy_(new_conv if blk is None else new_conv[..., blk])
+    ys = ys + d_skip.float()[:, None] * xssm.float()
+    h = ys.reshape(b, t, -1).to(x.dtype)
+    cols = common.rank_block(tp, p["w_out"].shape[0], di)
+    if heads is not None:                  # the rank's heads' channels
+        h = common.rms_norm_split(h, p["out_norm"], tp)
+    else:
+        h = common.rms_norm(h, p["out_norm"], cols=cols)
+    if cols is not None:
+        z = z[..., cols]
     h = h * F.silu(z)
-    return x + h @ p["w_out"].to(h.dtype)
+    return x + common.row_product(h, p["w_out"], tp, di)
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
@@ -191,7 +247,8 @@ class Zamba2:
     def __init__(self, cfg: ModelConfig, mesh=None, *, shd_rules=None):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        self.shd = Sharder(mesh, rules=shd_rules)
+        self.shd = Sharder(mesh, rules=shd_rules, tp_axes=TP_AXES,
+                           tp_replicated=("conv",))
         every = cfg.attn_every or (cfg.num_layers + 1)
         self.attn_sites = [i for i in range(cfg.num_layers)
                            if (i + 1) % every == 0]
@@ -214,12 +271,15 @@ class Zamba2:
     def param_axes(self) -> Dict:
         return param_axes(self.cfg)
 
-    def _shared_attn(self, x, p, positions, cache, cache_pos):
+    def _shared_attn(self, x, p, positions, cache, cache_pos, tp=None,
+                     kv_split=None):
         h, _ = common.attention(common.rms_norm(x, p["norm1"]), p["attn"],
                                 self.cfg, positions=positions,
-                                kv_cache=cache, cache_pos=cache_pos)
+                                kv_cache=cache, cache_pos=cache_pos, tp=tp,
+                                kv_split=kv_split)
         x = x + h
-        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"], tp,
+                              self.cfg.d_ff)
 
     def _stack(self, x, params, states, *, positions, cache_pos=None):
         """The layers in order; ``states`` (None in training) written in
@@ -228,6 +288,8 @@ class Zamba2:
         # reference's jax.checkpoint(nothing_saveable) scan body)
         remat = states is None and torch.is_grad_enabled()
         mamba = common.layers_of(params["mamba"], self.n_mamba)
+        split = (None if states is None or not self.attn_sites
+                 else self.shd.cache_kv_split("attn_0", dim=1))
         li = 0
         for gi, g_count in enumerate(self.groups):
             for _ in range(g_count):
@@ -244,20 +306,20 @@ class Zamba2:
                 cache = None if states is None else states[f"attn_{gi}"]
                 x = self._shared_attn(
                     x, self.shd.use(params["shared_attn"], "shared_attn"),
-                    positions, cache, cache_pos)
+                    positions, cache, cache_pos, self.shd.tp, split)
         return x
 
     def _mamba(self, x, p, st):
         """One Mamba2 layer on its slice ``p`` of the stacked leaves (a
         rank's blocks gathered here, inside the checkpoint)."""
         return mamba_block(x, self.shd.use(p, "mamba", stacked=True),
-                           self.cfg, st)
+                           self.cfg, st, tp=self.shd.tp)
 
     def forward(self, params, batch):
         """Training/scoring forward: (logits [B,S,V], aux 0.0)."""
         shd = self.shd
         x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
-                         self.dtype)
+                         self.dtype, shd.tp, self.cfg.vocab_size)
         positions = torch.arange(x.shape[1], device=x.device)
         x = self._stack(x, params, None, positions=positions)
         return common.unembed(x, shd.leaves(params, "final_norm",
@@ -300,7 +362,7 @@ class Zamba2:
         of the last token [B,1,V], states), written in place."""
         shd = self.shd
         x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
-                         self.dtype)
+                         self.dtype, shd.tp, self.cfg.vocab_size)
         offset = 0 if start_pos is None else int(start_pos)
         positions = torch.arange(x.shape[1], device=x.device) + offset
         x = self._stack(x, params, states, positions=positions,
@@ -312,7 +374,8 @@ class Zamba2:
         """One decode step. pos: a Python int or a [B] int tensor (each row
         decodes at its own attention position)."""
         shd = self.shd
-        x = common.embed(token, shd.leaves(params, "embedding"), self.dtype)
+        x = common.embed(token, shd.leaves(params, "embedding"), self.dtype,
+                         shd.tp, self.cfg.vocab_size)
         if isinstance(pos, torch.Tensor):
             positions = pos.long()[:, None]                # [B, 1]
         else:

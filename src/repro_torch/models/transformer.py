@@ -38,7 +38,7 @@ Serving runs the same way (``serve.step.ShardedServeStep``): each layer
 gathers its leaves where it runs, outside any checkpoint, the logits are
 the rank's block of the vocabulary, and the caches are the rank's blocks,
 split over KV heads or, where the cache specs put ``kv_seq`` on a mesh
-axis, over sequence (``_kv_split``; ``common.attention``'s
+axis, over sequence (``Sharder.cache_kv_split``; ``common.attention``'s
 ``kv_split``).
 """
 from __future__ import annotations
@@ -213,7 +213,7 @@ class DecoderLM:
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         flags = layer_flags(cfg)
         remat = caches is None and self.remat and torch.is_grad_enabled()
-        split = None if caches is None else self._kv_split()
+        split = None if caches is None else self.shd.cache_kv_split()
         layers = [(p, False, ("dense_prefix", k), False)
                   for k, p in params.get("dense_prefix", {}).items()]
         layers += [(p, cfg.is_moe, ("layers",), True)
@@ -233,16 +233,6 @@ class DecoderLM:
             if is_moe:
                 aux = aux + a
         return x, caches, aux
-
-    def _kv_split(self, key=None):
-        """The ranks the caches' sequence is split over, within
-        ``Sharder.rank_blocks`` (``Sharder.kv_split`` of the caches' spec:
-        the flat pair's, or gemma3's global stacks'); None where it is
-        whole."""
-        specs = self.shd.cache_specs
-        if specs is None:
-            return None
-        return self.shd.kv_split((specs if key is None else specs[key])[0])
 
     def _layer(self, x, p, is_moe=False, use=None, **attn):
         """One layer: attention and the MLP (or MoE), each around its
@@ -301,7 +291,7 @@ class DecoderLM:
         s = x.shape[1]
         rope_cs = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         lp = params["layers"]
-        tp, split = self.shd.tp, self._kv_split("global")
+        tp, split = self.shd.tp, self.shd.cache_kv_split("global")
         if s == 1:
             # each slot j of the ring holds position cp - ((cp - j) % w);
             # negative where the row has not reached it yet

@@ -22,6 +22,16 @@ at a time. The cross keys' and values' weights are gathered for
 ``build_cross_cache``, outside the layers, as the reference projects them
 outside its remat: they stay live until the backward (two [D, H*dh]
 leaves a decoder layer).
+
+On a rank's blocks (``Sharder.rank_blocks``: the sharded train and serve
+steps) each layer computes its share over the ``model`` ranks
+(``Sharder.tp``): the MLPs split their width (3072 / 16 = 192 columns a
+rank), and the self and cross attention their heads where the heads divide
+over the ranks; at model 16 whisper-small's 12 heads do not (they are not
+padded: ``ModelConfig.adapt_for_mesh``), so every rank runs all of them,
+and the self-attention caches split over sequence instead
+(``Sharder.cache_kv_split``, ``common.attention``'s ``kv_split``). The
+vocabulary splits where it divides (not 51865 over 16).
 """
 from __future__ import annotations
 
@@ -35,6 +45,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
 from repro_torch.parallel.sharding import Sharder
+
+#: the logical axes whose ``model`` split the layers' compute consumes
+TP_AXES = ("heads", "kv_heads", "mlp", "vocab")
 
 
 def sinusoid(positions, d_model, dtype):
@@ -53,18 +66,22 @@ def cross_kv(enc_out, p):
     return common._proj(enc_out, p["wk"]), common._proj(enc_out, p["wv"])
 
 
-def cross_attention(x, p, k, v, cfg: ModelConfig):
+def cross_attention(x, p, k, v, cfg: ModelConfig, tp=None):
     """Unmasked attention of x [B,S,d] over the encoder's k, v [B,T,H,dh],
-    scores and softmax in f32."""
+    scores and softmax in f32. Under ``tp`` with the heads split, the
+    rank's heads (of ``wq``, the cross cache and ``wo``), summed over the
+    ranks."""
     b, s, _ = x.shape
     q = common._proj(x, p["wq"])
-    dh = q.shape[-1]
+    h, dh = q.shape[-2:]
     sc = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(dh)
     pr = torch.softmax(sc, dim=-1).to(x.dtype)
     o = torch.einsum("bhst,bthd->bshd", pr, v)
-    h = cfg.q_heads
-    return common._proj(o.reshape(b, s, h * dh),
-                        p["wo"].reshape(h * dh, cfg.d_model))
+    out = common._proj(o.reshape(b, s, h * dh),
+                       p["wo"].reshape(h * dh, cfg.d_model))
+    if tp is not None and tp.splits(h, cfg.q_heads):
+        out = tp.sum(out)
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
@@ -131,7 +148,7 @@ class Whisper:
     def __init__(self, cfg: ModelConfig, mesh=None, *, shd_rules=None):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        self.shd = Sharder(mesh, rules=shd_rules)
+        self.shd = Sharder(mesh, rules=shd_rules, tp_axes=TP_AXES)
 
     def init(self, generator: Optional[torch.Generator] = None,
              device: DeviceLike = None,
@@ -162,11 +179,13 @@ class Whisper:
     def _enc_layer(self, x, p, positions):
         """One encoder layer on its slice ``p`` of the stacked leaves."""
         p = self.shd.use(p, "encoder", stacked=True)
+        tp = self.shd.tp
         h, _ = common.attention(
             common.rms_norm(x, p["norm1"]), p["attn"], self.cfg,
-            positions=positions, causal=False, use_rope=False)
+            positions=positions, causal=False, use_rope=False, tp=tp)
         x = x + h
-        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"], tp,
+                              self.cfg.d_ff)
 
     # -- decoder -------------------------------------------------------------
 
@@ -174,6 +193,8 @@ class Whisper:
                        caches=None, cache_pos=None):
         xk_all, xv_all = cross_cache
         layers = common.layers_of(params["decoder"], self.cfg.num_layers)
+        split = None if caches is None else self.shd.cache_kv_split("self")
+        tp = self.shd.tp
         for i, p in enumerate(layers):
             # the cross keys and values come from the cross cache: the
             # layer gathers what it runs
@@ -181,33 +202,37 @@ class Whisper:
                                     for k in ("wq", "wo")})
             if caches is None:
                 x = _remat(self._dec_layer, x, p, xk_all[i], xv_all[i],
-                           positions)
+                           positions, None, None, None, tp)
             else:
                 x = self._dec_layer(x, p, xk_all[i], xv_all[i], positions,
-                                    (caches[0][i], caches[1][i]), cache_pos)
+                                    (caches[0][i], caches[1][i]), cache_pos,
+                                    split, tp)
         return x
 
     def _dec_layer(self, x, p, xk, xv, positions, cache=None,
-                   cache_pos=None):
+                   cache_pos=None, kv_split=None, tp=None):
         """One decoder layer on its slice ``p`` of the stacked leaves, its
         cross keys and values ``xk``, ``xv`` and its self-attention
-        ``cache`` (written in place)."""
+        ``cache`` (written in place; ``kv_split``: the ranks its sequence
+        is split over), its compute split over ``tp``'s ranks."""
         cfg = self.cfg
         p = self.shd.use(p, "decoder", stacked=True)
         h, _ = common.attention(
             common.rms_norm(x, p["norm1"]), p["self_attn"], cfg,
             positions=positions, use_rope=False, kv_cache=cache,
-            cache_pos=cache_pos)
+            cache_pos=cache_pos, tp=tp, kv_split=kv_split)
         x = x + h
         x = x + cross_attention(common.rms_norm(x, p["norm_x"]),
-                                p["cross_attn"], xk, xv, cfg)
-        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"])
+                                p["cross_attn"], xk, xv, cfg, tp)
+        return x + common.mlp(common.rms_norm(x, p["norm2"]), p["mlp"], tp,
+                              cfg.d_ff)
 
     def _embed_dec(self, params, tokens, positions):
         """Token embeddings plus sinusoids of ``positions`` ([S] shared by
         the batch, or [B, S] per row)."""
-        x = common.embed(tokens, self.shd.leaves(params, "embedding"),
-                         self.dtype)
+        shd = self.shd
+        x = common.embed(tokens, shd.leaves(params, "embedding"),
+                         self.dtype, shd.tp, self.cfg.vocab_size)
         pe = sinusoid(positions, self.cfg.d_model, self.dtype)
         return x + (pe[None] if positions.dim() == 1 else pe)
 

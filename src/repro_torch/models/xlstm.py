@@ -19,6 +19,30 @@ Serving state (``init_cache``): ``mlstm`` holds (C [L,B,NH,dh,dh], n
 return it: a decode step scales C and adds the rank-1 update in place (one
 batched matmul with a k of 1), so the 16 MB a row and a layer of
 xlstm-1.3b's C are never copied.
+
+On a rank's blocks (``Sharder.rank_blocks``: the sharded train and serve
+steps) each block computes its share over the ``model`` ranks
+(``Sharder.tp``), as the reference's specs split the leaves
+(``ssm_inner``, ``heads``, ``mlp``, ``vocab``). In the mLSTM, ``w_up``
+``[d, xi|z]`` stays the rank's contiguous block of columns, which need not
+line up with the inner channels the rank uses (512 of 8192 at model 16):
+the rank multiplies by its block and all-gathers the product over
+``model`` (``common.gathered_product``: activations move, not weights).
+``conv`` splits on the inner width as ``xi``'s channels do, so the rank
+convolves its channels with its own block of the cached conv state;
+``wq``, ``wk``, ``wv`` and ``w_gates`` split on their input dim and are
+row-parallel (each product summed over ``model``, ``b_gates`` added once
+after the sum). The recurrence runs the rank's heads where they divide
+over the ranks (the ``act_heads`` spec splits C and n so), else all of
+them on every rank (4 heads at model 16); ``out_norm`` is the RMS norm
+over the whole inner width (the ranks' sums of squares all-reduced where
+the rank holds its heads' channels), ``w_down`` row-parallel. In the
+sLSTM, ``w_in`` ``[d, 4 gates x heads x dh]`` is a product on the rank's
+block all-gathered (one (gate, head) block a rank at model 16), ``r`` is
+used whole (``tp_replicated``) and the recurrence runs every head on every
+rank (a state split over heads is gathered at use and the rank writes
+back its block); the FFN splits over ``mlp``. The embedding and the
+logits split the vocabulary.
 """
 from __future__ import annotations
 
@@ -33,10 +57,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import loops
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import common
+from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import Sharder
 
 I_CLAMP = 8.0  # clamp on the input-gate pre-activation (exp gate)
 CHUNK = 256    # the chunkwise form's chunk (the reference's default)
+
+#: the logical axes whose ``model`` split the layers' compute consumes
+TP_AXES = ("ssm_inner", "heads", "mlp", "vocab")
 
 
 def _ffn_width(d):  # llama-style 8/3 rounded to 64
@@ -92,8 +120,8 @@ def _causal_conv(x, w, state=None):
     return out, new_state
 
 
-def _mlstm_gates(xi, p, nh):
-    g = xi @ p["w_gates"].to(xi.dtype)
+def _mlstm_gates(xi, p, nh, tp=None, di: int = 0):
+    g = common.row_product(xi, p["w_gates"], tp, di)
     g = (g + p["b_gates"].to(xi.dtype)).float()
     logi = g[..., :nh].clamp_max(I_CLAMP)               # [B,T,NH]
     logf = common.log_sigmoid(g[..., nh:])              # [B,T,NH] <= 0
@@ -171,27 +199,39 @@ def mlstm_step(q, k, v, logi, logf, state):
     return (num / den[..., None])[:, None], (C, n)
 
 
-def mlstm_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
+def mlstm_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK, tp=None):
     """Residual mLSTM block. ``state``: (C, n, conv_state) views written in
-    place, or None (training: zero state, nothing carried)."""
+    place, or None (training: zero state, nothing carried). ``tp``: the
+    ranks that split the block's compute (module docstring); ``p`` and
+    ``state`` are then the rank's blocks."""
     b, t, d = x.shape
     di, nh = 2 * d, cfg.num_heads
     dh = di // nh
+    heads = common.rank_heads(tp, nh)
     y = common.rms_norm(x, p["norm"])
-    up = y @ p["w_up"].to(y.dtype)
+    up = common.gathered_product(y, p["w_up"], tp, 2 * di)
     xi, z = up[..., :di], up[..., di:]
+    # the rank's inner channels: the conv's, the row-parallel products'
+    # inputs and the output gate's
+    cols = common.rank_block(tp, p["conv"].shape[-1], di)
+    if cols is not None:
+        xi, z = xi[..., cols], z[..., cols]
     if state is None:
         conv_state = None
-        C = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
-        n = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
+        nl = nh if heads is None else heads.stop - heads.start
+        C = torch.zeros((b, nl, dh, dh), dtype=torch.float32, device=x.device)
+        n = torch.zeros((b, nl, dh), dtype=torch.float32, device=x.device)
     else:
         C, n, conv_state = state
     xc, new_conv = _causal_conv(xi, p["conv"], conv_state)
     xc = F.silu(xc)
-    q = (xc @ p["wq"].to(xc.dtype)).reshape(b, t, nh, dh)
-    k = (xc @ p["wk"].to(xc.dtype)).reshape(b, t, nh, dh)
-    v = (xi @ p["wv"].to(xi.dtype)).reshape(b, t, nh, dh)
-    logi, logf = _mlstm_gates(xc, p, nh)
+    q = common.row_product(xc, p["wq"], tp, di).reshape(b, t, nh, dh)
+    k = common.row_product(xc, p["wk"], tp, di).reshape(b, t, nh, dh)
+    v = common.row_product(xi, p["wv"], tp, di).reshape(b, t, nh, dh)
+    logi, logf = _mlstm_gates(xc, p, nh, tp, di)
+    if heads is not None:
+        q, k, v = q[:, :, heads], k[:, :, heads], v[:, :, heads]
+        logi, logf = logi[..., heads], logf[..., heads]
     if t == 1 and state is not None:
         h, _ = mlstm_step(q, k, v, logi, logf, (C, n))
     else:
@@ -202,10 +242,13 @@ def mlstm_block(x, p, cfg: ModelConfig, state, *, chunk=CHUNK):
             n.copy_(n2)
     if state is not None:
         conv_state.copy_(new_conv)
-    h = h.reshape(b, t, di).to(x.dtype)
-    h = common.rms_norm(h, p["out_norm"])
+    h = h.reshape(b, t, -1).to(x.dtype)
+    if heads is not None:                  # the rank's heads' channels
+        h = common.rms_norm_split(h, p["out_norm"], tp)
+    else:
+        h = common.rms_norm(h, p["out_norm"], cols=cols)
     h = h * F.silu(z)                                     # output gate
-    return x + h @ p["w_down"].to(h.dtype)
+    return x + common.row_product(h, p["w_down"], tp, di)
 
 
 def _slstm_step(carry, wx_t, r):
@@ -231,36 +274,44 @@ def _slstm_step(carry, wx_t, r):
     return (c, n, m_new, h), h
 
 
-def slstm_block(x, p, cfg: ModelConfig, state):
+def slstm_block(x, p, cfg: ModelConfig, state, tp=None):
     """Time-recurrent sLSTM with exponential gating and its stabiliser ``m``
     (which starts at -1e30, so the first step's gates reduce correctly): a
     Python loop over the tokens, the reference's ``lax.scan``.
 
     state: (c, n, m, h), each [B, NH, dh] f32, written in place; or None
-    (zeros). Returns x."""
+    (zeros). ``tp``: the ranks that split the block's compute (module
+    docstring); ``p`` and ``state`` are then the rank's blocks. Returns
+    x."""
     b, t, d = x.shape
     nh = cfg.num_heads
     dh = d // nh
     y = common.rms_norm(x, p["norm"])
-    wx = y @ p["w_in"].to(y.dtype)
+    wx = common.gathered_product(y, p["w_in"], tp, 4 * d)
     wx = (wx + p["b"].to(wx.dtype)).float().reshape(b, t, 4, nh, dh)
     # [4,NH,dh,dh] -> [NH,dh,4*dh], once: a per-token einsum would lay it
     # out (and, under a gradient, save a copy of it) at every token
     r = p["r"].float().permute(1, 2, 0, 3).reshape(nh, dh, 4 * dh)
+    heads = None
     if state is None:
         zeros = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
         carry = (zeros, zeros, torch.full_like(zeros, -1e30), zeros)
     else:
         carry = state
+        heads = common.rank_block(tp, state[0].shape[1], nh)
+        if heads is not None:
+            # the recurrence runs every head: the rank's blocks gathered
+            carry = tuple(comm.all_gather(s, tp.group, dim=1) for s in state)
     # the tokens have one shape: a dry-run runs the first (core.loops.scan)
     (c, n, m, h), hs = loops.scan(_slstm_step, tuple(carry),
                                     wx.unbind(1), (r,))
     if state is not None:
         for dst, src in zip(state, (c, n, m, h)):
-            dst.copy_(src)
+            dst.copy_(src if heads is None else src[:, heads])
     hseq = torch.stack(hs, dim=1).reshape(b, t, d).to(x.dtype)
     x = x + common.rms_norm(hseq, p["out_norm"])
-    return x + common.mlp(common.rms_norm(x, p["norm"]), p["ffn"])
+    return x + common.mlp(common.rms_norm(x, p["norm"]), p["ffn"], tp,
+                          _ffn_width(d))
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
@@ -307,7 +358,8 @@ class XLSTM:
     def __init__(self, cfg: ModelConfig, mesh=None, *, shd_rules=None):
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        self.shd = Sharder(mesh, rules=shd_rules)
+        self.shd = Sharder(mesh, rules=shd_rules, tp_axes=TP_AXES,
+                           tp_replicated=("r",))
         every = cfg.slstm_every or (cfg.num_layers + 1)
         self.slstm_idx = [i for i in range(cfg.num_layers)
                           if (i + 1) % every == 0]
@@ -356,20 +408,20 @@ class XLSTM:
                 name = f"slstm_{gi}"
                 st = None if states is None else states[name]
                 x = slstm_block(x, self.shd.use(params[name], name),
-                                self.cfg, st)
+                                self.cfg, st, self.shd.tp)
         return x
 
     def _mlstm(self, x, p, st):
         """One mLSTM layer on its slice ``p`` of the stacked leaves (a
         rank's blocks gathered here, inside the checkpoint)."""
         return mlstm_block(x, self.shd.use(p, "mlstm", stacked=True),
-                           self.cfg, st)
+                           self.cfg, st, tp=self.shd.tp)
 
     def forward(self, params, batch):
         """Training/scoring forward: (logits [B,S,V], aux 0.0)."""
         shd = self.shd
         x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
-                         self.dtype)
+                         self.dtype, shd.tp, self.cfg.vocab_size)
         x = self._stack(x, params, None)
         return common.unembed(x, shd.leaves(params, "final_norm",
                                             "unembed")), 0.0
@@ -420,7 +472,7 @@ class XLSTM:
         del start_pos
         shd = self.shd
         x = common.embed(batch["tokens"], shd.leaves(params, "embedding"),
-                         self.dtype)
+                         self.dtype, shd.tp, self.cfg.vocab_size)
         x = self._stack(x, params, states)
         return common.unembed(x[:, -1:], shd.leaves(
             params, "final_norm", "unembed")), states
@@ -428,7 +480,8 @@ class XLSTM:
     def decode_step(self, params, token, pos, states):
         del pos  # position-free
         shd = self.shd
-        x = common.embed(token, shd.leaves(params, "embedding"), self.dtype)
+        x = common.embed(token, shd.leaves(params, "embedding"), self.dtype,
+                         shd.tp, self.cfg.vocab_size)
         x = self._stack(x, params, states)
         return common.unembed(x, shd.leaves(params, "final_norm",
                                             "unembed")), states

@@ -295,6 +295,22 @@ class NamedSharding:
         return out
 
 
+def axes_group(mesh, axes: Sequence[str]):
+    """The process group of a DeviceMesh's ranks that differ only on
+    ``axes`` and hold this rank's coordinates on the others, numbered
+    major to minor over ``axes`` (a dim split over them is split so). It
+    makes one group for each coordinate of the other axes, so every rank
+    of the mesh calls it, in the same order."""
+    import torch.distributed as dist
+    names = list(mesh.mesh_dim_names)
+    order = [names.index(a) for a in names if a not in axes] + [
+        names.index(a) for a in axes]
+    n = math.prod(mesh_shape(mesh)[a] for a in axes)
+    ranks = mesh.mesh.permute(order).reshape(-1, n).tolist()
+    group, _ = dist.new_subgroups_by_enumeration(ranks)
+    return group
+
+
 class TensorParallel(NamedTuple):
     """The ranks that split one layer's compute: the ``model`` axis's
     ``group`` of ``size`` ranks, this rank ``rank`` of them. A product
@@ -342,7 +358,8 @@ class Sharder:
     ``tp_axes``: the logical axes whose ``model`` split the model's
     compute consumes (none: every layer runs replicated over ``model``);
     ``tp_replicated``: leaf names used whole even so (the MoE router,
-    whose softmax spans every expert)."""
+    whose softmax spans every expert; mamba2's conv, xlstm's sLSTM
+    ``r``)."""
 
     def __init__(self, mesh=None, rules: Optional[dict] = None,
                  tp_axes: Sequence[str] = (),
@@ -353,6 +370,7 @@ class Sharder:
         self.tp_replicated = frozenset(tp_replicated)
         self._batch_axes = None
         self._blocks = None
+        self._groups = {}
         self.cache_specs = None
 
     @property
@@ -426,8 +444,9 @@ class Sharder:
     def kv_split(self, spec, dim: int = 2) -> Optional[TensorParallel]:
         """The ranks that split a cache leaf's sequence (dim ``dim`` of its
         ``spec``, the ``kv_seq`` axis), within :meth:`rank_blocks`: the
-        rank's block of positions is the ``rank``-th of ``size``. None
-        where the sequence is whole."""
+        rank's block of positions is the ``rank``-th of ``size``, over one
+        group of every split axis (:func:`axes_group` on a DeviceMesh,
+        made once and kept). None where the sequence is whole."""
         if self._blocks is None:
             return None
         sizes = mesh_shape(self.mesh)
@@ -435,15 +454,28 @@ class Sharder:
                                  else ()) if sizes[a] > 1)
         if not axes:
             return None
-        if len(axes) > 1 and comm.world_group(self.mesh) is None:
-            raise NotImplementedError(
-                f"a cache sequence split over {axes} on a DeviceMesh")
         rank = 0
         for a in axes:
             rank = rank * sizes[a] + self.mesh.get_local_rank(a)
-        group = self.mesh.get_group(axes[0] if len(axes) == 1 else axes)
+        if len(axes) == 1:
+            group = self.mesh.get_group(axes[0])
+        elif comm.world_group(self.mesh) is not None:
+            group = self.mesh.get_group(axes)       # a RankMesh's stand-in
+        else:
+            if axes not in self._groups:
+                self._groups[axes] = axes_group(self.mesh, axes)
+            group = self._groups[axes]
         return TensorParallel(group, math.prod(sizes[a] for a in axes),
                               rank)
+
+    def cache_kv_split(self, key=None, dim: int = 2):
+        """:meth:`kv_split` of the (k, v) pair at ``key`` of the caches'
+        specs (the whole tree for None), within :meth:`rank_blocks` with
+        ``cache_specs``; else None."""
+        specs = self.cache_specs
+        if specs is None:
+            return None
+        return self.kv_split((specs if key is None else specs[key])[0], dim)
 
     def use(self, tree, *path, stacked: bool = False):
         """The leaves of ``tree``, the rank's blocks of the parameter

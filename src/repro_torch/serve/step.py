@@ -26,9 +26,10 @@ pass, so it decodes greedily under either setting, and so does the port.
 :class:`ShardedServeStep` runs a model's prefill and decode on a mesh as
 the reference's dry-run lays its serve cells out (``cell_rules``): the
 parameters and caches at rest are each rank's blocks, each layer gathers
-its own leaves where it runs, heads, MLP width, vocabulary and experts
-split over ``model``, and the caches over KV heads or, where those are
-too few, over sequence (``common.attention``'s ``kv_split``).
+its own leaves where it runs, heads, MLP width, the recurrent layers'
+inner channels, vocabulary and experts split over ``model``, and the
+caches over KV heads (the recurrent states over heads) or, where those
+are too few, over sequence (``common.attention``'s ``kv_split``).
 """
 from __future__ import annotations
 
@@ -44,9 +45,8 @@ from repro_torch.models.common import (cache_slot_view, copy_cache_block,
                                        reset_cache_blocks)
 from repro_torch.models.registry import abstract_params
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import (LOGICAL_RULES, NamedSharding,
-                                           mesh_shape, spec_axes, spec_for,
-                                           tree_specs)
+from repro_torch.parallel.sharding import (NamedSharding, mesh_shape,
+                                           spec_axes, spec_for, tree_specs)
 
 # ---------------------------------------------------------------------------
 # prompt-length bucketing
@@ -305,14 +305,6 @@ def cell_rules(cfg, batch: int, mesh) -> dict:
     return rules
 
 
-def _row_rules(rules=None) -> dict:
-    """``rules`` with every axis replicated but the batch's: the caches of
-    a model whose compute runs whole on every ``model`` rank."""
-    out = {k: None for k in LOGICAL_RULES}
-    out["batch"] = (rules or {}).get("batch", LOGICAL_RULES["batch"])
-    return out
-
-
 class ShardedServeStep:
     """A model's prefill and decode on a DeviceMesh over the whole process
     group, or on a ``launch.mesh.RankMesh`` (the dry-run's rank, on meta
@@ -321,9 +313,8 @@ class ShardedServeStep:
     The model is built on ``mesh`` with its cell's rules
     (``build_model(cfg, mesh, shd_rules=cell_rules(cfg, batch, mesh))``).
     ``layout`` and ``layout_cache`` cut full trees into the rank's blocks
-    (``param_specs``; ``cache_specs`` under the same rules, or split over
-    the batch only for a model that splits no compute over ``model``:
-    the recurrent families), ``rows`` cuts the rank's rows of a global
+    (``param_specs``; ``cache_specs`` under the same rules: each family's
+    ``cache_axes``), ``rows`` cuts the rank's rows of a global
     batch tensor, and ``prefill``/``decode`` run the model on blocks
     (``Sharder.rank_blocks``) and return the logits of the rank's rows as
     its block of the vocabulary, as the reference's ``act_vocab`` spec
@@ -336,8 +327,7 @@ class ShardedServeStep:
         shapes, self.axes = abstract_params(model)
         self.param_specs = tree_specs(mesh, self.axes, shapes, rules)
         self.cache_specs = cache_specs(
-            mesh, model, abstract_cache(model, batch, max_seq),
-            rules if model.shd.tp_axes else _row_rules(rules))
+            mesh, model, abstract_cache(model, batch, max_seq), rules)
         spec = spec_for(mesh, ("batch",), (batch,), rules)
         self.row_split = NamedSharding(mesh, spec)
         self.batch_axes = spec_axes(spec[0]) if len(spec) else ()

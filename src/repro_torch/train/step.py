@@ -13,9 +13,8 @@ one-process step's on the same mesh shape, run as the reference's layout
 runs under GSPMD: the state at rest is each rank's block of every leaf,
 each layer gathers its own leaves where it runs (``Sharder.use``: a rank
 holds one layer at a time) and computes its share of the heads, the MLP
-width and the vocabulary over ``model`` (Megatron-style; the families
-that split nothing over ``model`` run it replicated), the gathers'
-backward reduce-scatters each microbatch's gradients to the rank's
+width, the recurrent layers' inner channels and the vocabulary over
+``model`` (Megatron-style), the gathers' backward reduce-scatters each microbatch's gradients to the rank's
 blocks, the blocks are summed over the ranks that hold them alike, and
 AdamW updates each rank's own blocks. MoE layers may run expert
 parallelism over ``model`` (``moe_impl="shard_map"``).

@@ -388,9 +388,10 @@ def test_a_block_owns_exactly_its_bytes(device, spec):
 
 def test_zamba2_decode_peaks_near_its_argument_bytes():
     """zamba2-1.2b decode_32k on the single mesh: its 12 shared-attention
-    KV leaves are split on dim 0 (the batch), and each rank's block no
-    longer keeps the whole leaf's storage: the peak lies within 3 GB of
-    the argument bytes (209.6 GB against 13.17 GB when it did)."""
+    KV leaves are split on dim 0 (the batch) and over their KV heads, and
+    each rank's block no longer keeps the whole leaf's storage: the peak
+    lies within 3 GB of the argument bytes (209.6 GB against 13.17 GB when
+    it did)."""
     rec, _ = dryrun.analyze_cell("zamba2-1.2b", "decode_32k",
                                  make_production_mesh())
     args = rec["analysis"]["memory"]["argument_bytes"]
@@ -418,6 +419,34 @@ def test_granite_serve_cells_fit_and_split_their_compute(shape):
                                    {"data": 16, "model": 1})
     assert 1 / 16 <= counter.flops / whole.flops <= 1.05 / 16, (
         counter.flops / whole.flops)
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_zamba2_serve_cells_split_their_compute(shape):
+    """zamba2-1.2b's serve cell on the single mesh: its rank's FLOPs are
+    1/16 of the same cell computed replicated over ``model`` (data 16 x
+    model 1), up to 1 % more: the chunks' C B^T products of the Mamba2
+    layers, which every rank computes whole (1.0038 x 1/16 at prefill on
+    the host, exactly 1/16 at decode); and its peak falls below 5 GB
+    (14.43 and 11.20 GB when its compute ran replicated)."""
+    rec, counter = dryrun.analyze_cell("zamba2-1.2b", shape,
+                                       make_production_mesh())
+    assert rec["fits"] and rec["peak_gb"] < 5.0, rec["peak_gb"]
+    _, whole = dryrun.analyze_cell("zamba2-1.2b", shape,
+                                   {"data": 16, "model": 1})
+    assert 1 / 16 <= counter.flops / whole.flops <= 1.01 / 16, (
+        counter.flops / whole.flops)
+
+
+def test_zamba2_long_500k_splits_its_caches_over_pod_and_data():
+    """zamba2-1.2b long_500k (a batch of one): the shared-attention caches
+    split over sequence on ``("pod", "data")`` and over KV heads on
+    ``model``, so the rank's peak falls from 26.12 GB (every cache whole)
+    to below 2 GB on both meshes."""
+    for multi in (False, True):
+        rec, _ = dryrun.analyze_cell("zamba2-1.2b", "long_500k",
+                                     make_production_mesh(multi_pod=multi))
+        assert rec["fits"] and rec["peak_gb"] < 2.0, (multi, rec["peak_gb"])
 
 
 def test_moe_2d_train_cell_computes_the_ranks_experts():

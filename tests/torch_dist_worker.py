@@ -104,6 +104,9 @@ def train(args):
     tokens = rng.integers(0, cfg.vocab_size, tuple(args["batch"]))
     batch = {"tokens": torch.from_numpy(tokens.astype(np.int32))}
     batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (args["batch"][0], cfg.enc_seq, cfg.d_model)).astype(np.float32))
     losses, norms, grads, fulls = [], [], [], []
     lay = step.shardings.params
     for _ in range(args["steps"]):
@@ -180,9 +183,10 @@ def serve_tp(args):
     for each case file of ``args["cases"]``: a prefill of the global
     batch (with ``tail``, of its first ``tail`` tokens and then of the
     rest at ``start_pos``), then ``steps`` greedy decode steps at the
-    per-row positions ``pos`` + i. Returns per case the rank's rows, the
-    whole-vocabulary logits of those rows from each call and the greedy
-    tokens."""
+    per-row positions ``pos`` + i (a case's ``cfg``: fields of the smoke
+    config replaced). Returns per case the rank's rows, the
+    whole-vocabulary logits of those rows from each call, the greedy
+    tokens and the shapes of the rank's cache blocks."""
     from repro_torch import configs
     from repro_torch.models import build_model
     from repro_torch.serve.step import ShardedServeStep, cell_rules
@@ -190,7 +194,8 @@ def serve_tp(args):
     out = {}
     for name, path in args["cases"].items():
         c = torch.load(path)
-        cfg = configs.get_smoke(c["arch"]).replace(dtype="float32")
+        cfg = configs.get_smoke(c["arch"]).replace(dtype="float32",
+                                                   **c.get("cfg", {}))
         b = c["batch"]["tokens"].shape[0]
         model = build_model(cfg, mesh, shd_rules=cell_rules(cfg, b, mesh))
         step = ShardedServeStep(model, mesh, b, c["max_seq"])
@@ -220,8 +225,18 @@ def serve_tp(args):
                 tok = logits[-1].argmax(-1)
                 tokens.append(tok)
         out[name] = {"rows": step.rows(torch.arange(b)), "logits": logits,
-                     "tokens": tokens}
+                     "tokens": tokens, "cache_shapes": [
+                         tuple(t.shape) for t in _tensors(caches)]}
     return out
+
+
+def _tensors(tree):
+    """The tensors of a dict/tuple tree, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
 
 
 def compress(args):
