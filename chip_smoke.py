@@ -222,10 +222,14 @@ Phases, each of which must pass (any failure exits non-zero):
               mesh, each completing, granite-20b's train_4k fitting 80 GB
               a rank with useful >= 0.5, granite-20b's prefill_32k and
               decode_32k and deepseek-moe-16b's decode_32k (the sharded
-              serve step) fitting 80 GB a rank; (e) (after record_cli) the port's
-              regression gate on the bench phase's rows and the two replay
-              reports: rc 0, 1 (a compiles raised), 1 (a row slowed 20 %),
-              0.
+              serve step) fitting 80 GB a rank; (e) (after record_cli) the
+              port's linter (repro_torch.analysis --project --baseline
+              over its default paths, on the host: rc 0, each rule's
+              count and the seconds logged), then the port's regression
+              gate on the bench phase's rows, the two replay reports and
+              the linter's --gate-json rows: rc 0, 1 (a compiles raised),
+              1 (a row slowed 20 %), 0, 0 (the linter's rows against
+              themselves), 1 (one rule's findings raised by 1).
 12. timing  — each kernel held against its plain version and timed beside
               it, a PyTorch library call computing the same function, and
               its bound on the card: flash at the serve phase's prefill
@@ -3759,13 +3763,51 @@ def dryrun_sizes(card):
     return time.perf_counter() - t0
 
 
+def dryrun_lint():
+    """(e), on the host: the port's linter (``python -m repro_torch.analysis
+    --project --baseline``, in-process) over its default paths in this
+    checkout with the checked-in (empty) baseline, which must exit 0; logs
+    each rule's active and suppressed findings and the seconds taken, and
+    leaves its ``--gate-json`` rows for the gate. Returns the rows' path."""
+    from repro_torch.analysis import cli
+    t0 = time.perf_counter()
+    rows_path = GATE_DIR / "analysis_rows.json"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["--project", "--baseline", "--json", "--gate-json",
+                       str(rows_path)] + cli.default_paths(str(ROOT)))
+    seconds = time.perf_counter() - t0
+    doc = json.loads(out.getvalue())
+    counts = {code: {"active": 0, "suppressed": 0}
+              for code in sorted(json.loads(rows_path.read_text()))
+              if code != "analysis/total"}
+    for f in doc["findings"]:
+        kind = "suppressed" if f["suppressed"] or f["baselined"] \
+            else "active"
+        counts[f"analysis/{f['code']}"][kind] += 1
+    log(f"[dryrun] (e) repro_torch.analysis --project --baseline: rc {rc}, "
+        f"{doc['summary']} in {seconds:.2f} s; by rule (active, "
+        f"suppressed): " + ", ".join(
+            f"{code.split('/')[1]} {c['active']} {c['suppressed']}"
+            for code, c in counts.items()))
+    for f in doc["findings"]:
+        log(f"[dryrun] (e) lint: {f['path']}:{f['line']} {f['code']} "
+            f"suppressed={f['suppressed']} baselined={f['baselined']}")
+    check_all("dryrun", {"(e) the port's linter exits 0": rc == 0})
+    return rows_path
+
+
 def dryrun_gate():
     """(e): the port's regression gate (in-process, ``main(argv)``) on the
     card's own rows: the bench phase's rows against themselves (rc 0),
     against a copy with one ``compiles`` raised by 1 (rc 1) and with one
     timed row above 50 us slowed by 20 % (rc 1); the record_cli phase's
-    two replay reports against each other (rc 0)."""
+    two replay reports against each other (rc 0); the port linter's
+    ``--gate-json`` rows (``dryrun_lint``) against themselves (rc 0) and
+    against a copy with one rule's ``findings`` raised by 1 (rc 1)."""
     from repro_torch.benchmarks import regression_gate
+    lint_path = dryrun_lint()
     t0 = time.perf_counter()
     rows_path = GATE_DIR / "bench_rows.json"
     rows = json.loads(rows_path.read_text())
@@ -3779,7 +3821,11 @@ def dryrun_gate():
     raised[compiled[0]]["compiles"] += 1
     slowed = json.loads(rows_path.read_text())
     slowed[timed[0]]["us_per_call"] *= 1.2
-    for name, doc in (("raised", raised), ("slowed", slowed)):
+    lint_rule = "analysis/DLK002"
+    lint_raised = json.loads(lint_path.read_text())
+    lint_raised[lint_rule]["findings"] += 1
+    for name, doc in (("raised", raised), ("slowed", slowed),
+                      ("analysis_raised", lint_raised)):
         (GATE_DIR / f"{name}.json").write_text(json.dumps(doc))
     cases = {
         "rows against themselves": ([rows_path, rows_path], 0),
@@ -3789,6 +3835,9 @@ def dryrun_gate():
             [rows_path, GATE_DIR / "slowed.json"], 1),
         "the two replay reports": ([GATE_DIR / "replay_a.json",
                                     GATE_DIR / "replay_b.json"], 0),
+        "the linter's rows against themselves": ([lint_path, lint_path], 0),
+        f"one rule's findings raised by 1 ({lint_rule})": (
+            [lint_path, GATE_DIR / "analysis_raised.json"], 1),
     }
     rcs = {}
     for name, (files, _) in cases.items():

@@ -21,10 +21,10 @@ uploaded artifact and fails (exit 1) on:
   the shared-prefix workload is deterministic, so a drop means a sharing
   regression (trie matching, block refcounts, admission) is silently
   recomputing prefill work the cache used to serve for free, or
-- ANY increase in a row's ``findings`` field — the ``repro.analysis``
-  linter (``--gate-json``) emits one row per rule with its non-suppressed
-  finding count; an increase means a new DLK violation landed without a
-  pragma or a fix, or
+- ANY increase in a row's ``findings`` field — the port's linter
+  (``python -m repro_torch.analysis --gate-json``) emits one row per rule
+  with its non-suppressed finding count; an increase means a new DLK
+  violation landed without a pragma or a fix, or
 - ANY drift in a replay-report row (``launch.replay --json``: rows carrying
   ``attributed_j``) — replay is a pure function of (trace bytes, workload,
   policy) and the CI trace is recorded from seeded sources, so energies are

@@ -9,6 +9,14 @@ every engine step goes through :func:`counting_call`, which counts one
 ``jax.jit`` would trace a new executable. ``prefill_compiles`` and
 ``decode_compiles`` keep the reference's meaning, and the two can be
 compared call for call.
+
+``counting_call`` is the one sanctioned wrapper: the port's dalek-lint
+(``python -m repro_torch.analysis``) flags as DLK001 any ``torch.compile``,
+``torch.jit.script``/``trace`` or CUDA-graph capture built outside a
+``counting_call(...)`` expression or a function of this module, since its
+compiles or captures would never reach a ``TraceStats``. Its DLK002,
+DLK003 and DLK009 take their taint from the names bound to
+``counting_call``.
 """
 from __future__ import annotations
 

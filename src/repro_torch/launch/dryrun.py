@@ -256,6 +256,7 @@ def analyze_cell(arch, shape_name, mesh, variant=None, cfg=None):
     fn, args, cfg, shape, info = build_cell(arch, shape_name, mesh,
                                             variant, cfg)
     stats = TraceStats()
+    # dalek: allow[step-kwargs] one counter a cell, named after the cell as the record's jit_traces
     counted = counting_call(fn, f"{info['kind']}:{arch}/{shape.name}",
                             stats)
     counter = count_cell(counted, args)
