@@ -9,10 +9,12 @@ Phases, each of which must pass (any failure exits non-zero):
               parallel).
 2. kernels  — hold each kernel against its plain PyTorch version on the card
               (and the flash kernel's autograd Function at the train
-              shapes, granite-20b's q [4,48,512,128] causal and gemma3-27b's
-              [1,32,1024,128] with the 1024 window: its forward equal to the
-              bare kernel's bitwise, dq/dk/dv against the plain version's
-              own autograd in f32):
+              shapes, granite-20b's q [4,48,512,128] causal, gemma3-27b's
+              [1,32,1024,128] with the 1024 window, zamba2-1.2b's
+              [4,32,512,64], whisper-small's encoder [4,12,1500,64]
+              non-causal and decoder [4,12,448,64]: its forward equal to
+              the bare kernel's bitwise, dq/dk/dv against the plain
+              version's own autograd in f32):
               flash attention (D 16/64/128, Hkv = H, 8 and 1, ragged S and
               T, S = 1, T below 64, causal with and without q_offset, a
               window with and without a prefix, 64-row tiles crossing a
@@ -54,11 +56,15 @@ Phases, each of which must pass (any failure exits non-zero):
               its window rings and a decode past the window. Their prefill
               attention is the f32 path of the flash kernel: the ffma
               route's launches (windowed on gemma3's local layers) are
-              zeroed before and read after. Then 3 f32 train steps of each
-              on the card against 3 on the host (losses, grad norms,
-              parameters; every layer's flash launched twice a step, the
-              forward and the remat recompute, windowed on gemma3's local
-              layers), and step 3 again from a checkpoint of step 2.
+              zeroed before and read after. Then 3 f32 train steps of
+              each family's smoke model (granite-20b, gemma3-27b,
+              zamba2-1.2b, whisper-small with frames, xlstm-1.3b,
+              deepseek-moe-16b, internvl2-76b with patches) on the card
+              against 3 on the host (losses, grad norms, parameters; flash
+              launched as the family's remat sites give,
+              train_flash_launches: every checkpointed layer twice a step,
+              windowed on gemma3's local layers), and step 3 again from a
+              checkpoint of step 2, bitwise.
 5. serve    — granite-20b at its published width (bf16 weights made on the
               card from a seed) through ContinuousEngine: 8 requests, batch
               4, max_seq 512, 32 new tokens each, four sharing a 128-token
@@ -114,7 +120,11 @@ Phases, each of which must pass (any failure exits non-zero):
               where its router probabilities at the top-k cut differ by
               less than 1e-5), the output within 1e-4 of max|y|. With the
               model freed, flash is held as in 2 at every shape the serve
-              gave it.
+              gave it. Then moonshot-v1-16b-a3b at its published width and
+              depth (48 layers, 64 routed experts top-6 + 2 shared, vocab
+              163840; 28.39 B bf16 params) serves the same 8 requests
+              twice with the same gates (48 flash launches a prefill), and
+              is freed; flash is held at its shapes.
 9b. serve_recurrent — the card freed, xlstm-1.3b (48 layers: 42 mLSTM,
               6 sLSTM; 3.71 B params), zamba2-1.2b (38 layers: 32 mamba2,
               one shared attention block at 6 sites, 32:32 heads of 64)
@@ -154,7 +164,18 @@ Phases, each of which must pass (any failure exits non-zero):
               nonzero); flash counts and host syncs are zeroed just before
               the loop and read just after: one compile, one sync a step,
               the joules partitioned by tag, 4 x 2 x 6 x 2 flash launches
-              all on wgmma. Then a profiled step.
+              all on wgmma. Then a profiled step. Then, one after the
+              other and each freed before the next, the other families at
+              their published widths through the same loop and gates
+              (TRAIN_FAMILIES; flash launches as train_flash_launches
+              derives them from each family's remat sites, a profiled step
+              each; an MoE's step-1 gradients read twice, bitwise the
+              same): zamba2-1.2b whole (38 layers, 8 x 512, 4 steps),
+              whisper-small whole (12 + 12 layers, 8 x 448 tokens over
+              1500 frames), xlstm-1.3b whole (48 layers: the dry-run's
+              count fits 80 GB; 3 steps), deepseek-moe-16b cut to 4 of 28
+              layers and internvl2-76b to 1 of 80 (4 x 256 patches + 256
+              tokens).
 11b. parallel — the port's parallel layer at one NCCL rank (a one-rank
               process group on a file:// store under build/,
               make_host_mesh(1, 1, 1, "cuda")): the train phase's
@@ -218,7 +239,9 @@ Phases, each of which must pass (any failure exits non-zero):
               profile's device-busy time; (c) the depth cuts of PERF.md §4
               against 80 GB (granite-20b trains at 4 layers, not at 52;
               internvl2-76b serves at 32 layers, not at 80; deepseek-moe-16b
-              whole); (d) one production cell of each family on the 16 x 16
+              whole; the train phase's other families: zamba2-1.2b,
+              whisper-small and xlstm-1.3b whole, deepseek-moe-16b at 4
+              layers, not 28, internvl2-76b at 1, not 2 or 80); (d) one production cell of each family on the 16 x 16
               mesh, each completing, granite-20b's train_4k fitting 80 GB
               a rank with useful >= 0.5, granite-20b's prefill_32k and
               decode_32k and deepseek-moe-16b's decode_32k (the sharded
@@ -246,10 +269,15 @@ Phases, each of which must pass (any failure exits non-zero):
               (q and kv [1,2,4096,64] and [2,2,32768,64], causal),
               deepseek-moe-16b's largest serve prefill (q [1,16,256,128]
               over the 512-position cache view) and internvl2-76b's forward
-              (q [1,64,512,128], kv [1,8,512,128]), whisper-small's
+              (q [1,64,512,128], kv [1,8,512,128]), moonshot-v1-16b-a3b's
+              largest serve prefill, whisper-small's
               encoder (non-causal, q and kv [1,12,1500,64], sdpa with no
               mask) and zamba2-1.2b's cold 256-token chunk (q
-              [1,32,256,64], kv [1,32,512,64]), the ffma route at the
+              [1,32,256,64], kv [1,32,512,64]), every shape the train
+              phase's other families gave flash under the gradient, at one
+              microbatch (zamba2 [4,32,512,64], whisper's encoder
+              [4,12,1500,64] and decoder [4,12,448,64], deepseek-moe
+              [4,16,512,128], internvl2 [2,64,512,128] over 8 KV heads), the ffma route at the
               f32 smoke model's prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
               and 4096^3, dpa4's transpose at 4096^2 on four inputs in
               turn, so that each call reads and writes past the L2 (with
@@ -264,7 +292,9 @@ Phases, each of which must pass (any failure exits non-zero):
 13. cli     — `python -m repro_torch.launch.serve --arch granite-20b
               --smoke`, `--arch gemma3-27b --smoke --engine static
               --trace-out ...`, `python -m repro_torch.launch.train
-              --arch granite-20b --smoke --steps 4 --trace-out ...` and
+              --arch granite-20b --smoke --steps 4 --trace-out ...` (and
+              the same for zamba2-1.2b, whisper-small and
+              deepseek-moe-16b) and
               `python -m repro_torch.benchmarks.run --only serving` (the
               port's bench_serving) on the card, side by side; each trace
               must validate and partition its run's joules.
@@ -518,10 +548,17 @@ def phase_kernels():
 
 
 # the flash kernel under a gradient at the train phase's shape (granite-20b,
-# batch 8 in two microbatches of 4, seq 512: causal) and at gemma3-27b's
-# (a local layer at S 1024 with its 1024 window):
-# (B, H, Hkv, S, D, window)
-GRAD_CASES = [(4, 48, 1, 512, 128, None), (1, 32, 16, 1024, 128, 1024)]
+# batch 8 in two microbatches of 4, seq 512: causal), at gemma3-27b's (a
+# local layer at S 1024 with its 1024 window) and at the recurrent
+# families' head dim 64 with MHA: zamba2-1.2b's shared attention (32:32,
+# S 512), whisper-small's encoder (12:12, non-causal, S 1500: no multiple
+# of the 64-row tile) and its decoder (S 448):
+# (B, H, Hkv, S, D, window, causal)
+GRAD_CASES = [(4, 48, 1, 512, 128, None, True),
+              (1, 32, 16, 1024, 128, 1024, True),
+              (4, 32, 32, 512, 64, None, True),
+              (4, 12, 12, 1500, 64, None, False),
+              (4, 12, 12, 448, 64, None, True)]
 # dq, dk, dv of the Function (bf16: the plain f32 recompute, each gradient
 # rounded to bf16 once, 2^-9 relative) against the f32 plain autograd on
 # the same values: max|err| within this share of max|want|
@@ -538,24 +575,27 @@ def hold_flash_function():
     g = torch.Generator(device="cuda")
     g.manual_seed(17)
     worst = 0.0
-    for (b, h, hkv, s, d, win) in GRAD_CASES:
+    for (b, h, hkv, s, d, win, causal) in GRAD_CASES:
         q, k, v, do = (torch.randn(b, n, s, d, device="cuda", generator=g)
                        .to(torch.bfloat16) for n in (h, hkv, hkv, h))
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         before = dict(ops.route_launches)
-        out = ops.flash_attention(*leaves, window=win)
+        out = ops.flash_attention(*leaves, window=win, causal=causal)
         taken = {r: c - before[r] for r, c in ops.route_launches.items()
                  if c != before[r]}
-        bare = ops.flash_attention(q, k, v, window=win)
+        bare = ops.flash_attention(q, k, v, window=win, causal=causal)
         out.backward(do)
         want = [x.float().requires_grad_() for x in (q, k, v)]
-        ref.attention(*want, window=win).backward(do.float())
+        ref.attention(*want, window=win, causal=causal).backward(
+            do.float())
         errs = [((x.grad.float() - w.grad).abs().max()
                  / w.grad.abs().max()).item() for x, w in zip(leaves, want)]
         same = torch.equal(out, bare)
         worst = max(worst, *errs)
         log(f"[kernels] flash Function bf16 q[{b},{h},{s},{d}] "
-            f"kv[{b},{hkv},{s},{d}] window {win}: forward on {taken}, equal "
+            f"kv[{b},{hkv},{s},{d}] window {win}"
+            + ("" if causal else ", non-causal")
+            + f": forward on {taken}, equal "
             f"to the bare kernel bitwise {same}; dq, dk, dv max|err| / "
             f"max|want| " + ", ".join(f"{e:.3e}" for e in errs)
             + f" (tol {GRAD_TOL:g}; the f32 plain autograd)")
@@ -999,7 +1039,7 @@ def phase_small():
         raise AssertionError(f"the gemma3 f32 prefill took flash routes "
                              f"{wroutes}, {windowed} windowed")
     n_f32 = wroutes["ffma"]
-    for arch in ("granite-20b", "gemma3-27b"):
+    for arch in SMALL_TRAIN_ARCHS:
         small_train(arch)
     # the first granite prefill's flash shape: q [1,H,29,D], kv [1,Hkv,64,D]
     return n_f32, (cfg.num_heads, cfg.num_kv_heads, 29, 64, cfg.head_dim)
@@ -1007,6 +1047,11 @@ def phase_small():
 
 SMALL_TRAIN = dict(steps=3, batch=4, seq=48, seed=3,
                    opt=dict(lr=1e-3, warmup_steps=2, total_steps=10))
+# every family's smoke model: the dense two, the recurrent three, the MoE
+# and the VLM
+SMALL_TRAIN_ARCHS = ("granite-20b", "gemma3-27b", "zamba2-1.2b",
+                     "whisper-small", "xlstm-1.3b", "deepseek-moe-16b",
+                     "internvl2-76b")
 # 3 f32 train steps, the card against the host: losses and grad norms
 # within 1e-4 relative; parameters: all but 1e-4 of the elements within
 # 2e-5 and every one within twice the summed learning rate (an AdamW step
@@ -1020,9 +1065,9 @@ SMALL_TRAIN_TOL = dict(rtol=1e-4, atol=2e-5, share=1e-4)
 def small_train(arch):
     """The smoke model in f32, 3 train steps on the card and 3 on the host
     from the same weights and batches (gemma3's local layers take the
-    flash kernel's window mode under the gradient); then a checkpoint of
-    the card's state written at step 2 and restored gives the same step
-    3."""
+    flash kernel's window mode under the gradient; whisper's batches carry
+    frames, the VLM's patches); then a checkpoint of the card's state
+    written at step 2 and restored gives the same step 3."""
     import tempfile
     import numpy as np
     import torch
@@ -1045,7 +1090,7 @@ def small_train(arch):
     data = SyntheticTokens(DataConfig(seed=c["seed"],
                                       vocab_size=cfg.vocab_size,
                                       seq_len=c["seq"],
-                                      global_batch=c["batch"]))
+                                      global_batch=c["batch"]), cfg)
     batches = [data.batch(i) for i in range(c["steps"])]
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1077,7 +1122,7 @@ def small_train(arch):
         torch.equal(a, b) for a, b in zip(tree_leaves(again.params),
                                           tree_leaves(cs.params)))
     n_local = int((~layer_flags(cfg)).sum())
-    want_flash = cfg.num_layers * c["steps"] * 2
+    want_flash = train_flash_launches(cfg, model, 1, c["steps"])
     log(f"[small] {cfg.name} f32, {c['steps']} train steps, card vs host: "
         f"losses / grad norms card {ch}, host {hh}: max rel err "
         f"{hist_err:.3e} (tol {tol['rtol']:g}); params max|err| "
@@ -1092,8 +1137,9 @@ def small_train(arch):
             and all(np.isfinite(x) for r in ch for x in r)),
         f"{arch}: train params, card == host": (
             diffs.max().item() <= 2 * lr_sum and over <= tol["share"]),
-        f"{arch}: flash launches == layers x steps x 2 (forward and remat), "
-        f"all ffma": n == want_flash and routes == {"ffma": n, "wgmma": 0},
+        f"{arch}: flash launches == {want_flash} (train_flash_launches: "
+        f"{cfg.family}, {c['steps']} steps), all ffma": (
+            n == want_flash and routes == {"ffma": n, "wgmma": 0}),
         f"{arch}: windowed launches == local layers x steps x 2": (
             windowed == n_local * c["steps"] * 2),
         f"{arch}: step 3 from the step-2 checkpoint == step 3": replay_same,
@@ -1118,16 +1164,17 @@ def flash_counts():
 
 @contextlib.contextmanager
 def flash_shapes():
-    """The set of (B, H, Hkv, S, T, D, causal, window, q_offset) the flash
-    kernel was launched at inside the block."""
+    """A Counter of the flash kernel's launches inside the block at each
+    (B, H, Hkv, S, T, D, causal, window, q_offset)."""
+    import collections
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    seen = set()
+    seen = collections.Counter()
     launch = flash_ops._launch
 
     def spy(q, k, v, causal, window, q_offset, route, block_m):
         b, h, s, d = q.shape
-        seen.add((b, h, k.shape[1], s, k.shape[2], d, bool(causal), window,
-                  int(q_offset)))
+        seen[(b, h, k.shape[1], s, k.shape[2], d, bool(causal), window,
+              int(q_offset))] += 1
         return launch(q, k, v, causal, window, q_offset, route, block_m)
 
     flash_ops._launch = spy
@@ -1584,7 +1631,7 @@ def phase_serve_window(card):
             and routes == {"wgmma": n_flash, "ffma": 0}),
         "windowed launches == 52 x prefills": windowed == n_local * n_pre,
         "flash shapes == those the prompts' buckets give": (
-            shapes == want_shapes),
+            set(shapes) == want_shapes),
         "every request has energy > 0": all(r.energy_j > 0 for r in reqs),
         "joule partition (1e-6 J)": joule_partition_error(eng, reqs) <= 1e-6,
         "tokens in vocab": all(0 <= t < cfg.vocab_size
@@ -1633,7 +1680,7 @@ def phase_static_window(cfg, model, params):
         "flash: one prefill, every layer on wgmma at B 4": (
             n_flash == cfg.num_layers and routes == {"wgmma": n_flash,
                                                      "ffma": 0}
-            and windowed == n_local and shapes == want_shapes),
+            and windowed == n_local and set(shapes) == want_shapes),
         "tokens in vocab": all(0 <= t < cfg.vocab_size
                                for r in reqs for t in r.output),
     })
@@ -1745,6 +1792,11 @@ def short_serve(label, cfg, model, params, card, c):
 # on a fresh engine (the same tokens), and a short serve at batch 3 (one
 # group of 3 rows, capacity 1: the rows compete for experts and drop)
 SERVE_MOE = dict(arch="deepseek-moe-16b", seed=0)
+# the MoE serve phase's second model, after deepseek-moe-16b is freed:
+# moonshot-v1-16b-a3b at its published width and depth (48 layers, 64
+# routed experts top-6 + 2 shared, vocab 163840; 28.39 B params, 56.8 GB
+# in bf16)
+SERVE_MOONSHOT = dict(arch="moonshot-v1-16b-a3b", seed=0)
 MOE_B3 = dict(batch=3, max_seq=512, max_new=8, seed=1, lens=(30, 300), n=4)
 # one full-width MoE layer held on the card against the host in f32: a
 # 256-token prefill group (capacity 30) and a 3-token decode group
@@ -1778,15 +1830,15 @@ def moe_drops():
         moe.route = route
 
 
-def phase_serve_moe(card):
-    """deepseek-moe-16b through ContinuousEngine on the paged path at full
-    width and depth: the serve phase's requests at batch 4 (twice, on
-    fresh engines: the same tokens), then a short serve at batch 3 with
-    the expert drops counted. Every prefill layer on flash's wgmma route
-    (MHA 16:16, D 128)."""
+def serve_moe_model(arch, seed, card, label="serve_moe"):
+    """``arch`` (an MoE at its published width and depth) through
+    ContinuousEngine on the paged path: the serve phase's requests at
+    batch 4, twice on fresh engines (the same tokens), every prefill layer
+    on flash's wgmma route. Returns (cfg, model, params, engine, flash
+    launches, flash shapes)."""
     import torch
     from repro_torch.serve.engine import ContinuousEngine
-    cfg, model, params = make_model(SERVE_MOE["arch"], SERVE_MOE["seed"])
+    cfg, model, params = make_model(arch, seed)
     kw = dict(batch_size=SERVE["batch"], max_seq=SERVE["max_seq"])
     warm_up(model, params, serve_requests(cfg.vocab_size), **kw)
     eng = ContinuousEngine(model, params, **kw)
@@ -1795,16 +1847,17 @@ def phase_serve_moe(card):
     with flash_shapes() as shapes:
         stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
             lambda: eng.serve(reqs))
-    log(f"[serve_moe] flash launches {n_flash} by route {routes}, shapes "
+    log(f"[{label}] flash launches {n_flash} by route {routes}, shapes "
         f"(B, H, Hkv, S, T, D, causal, window, q_offset): "
         f"{sorted(shapes, key=str)}")
-    log_serve("serve_moe", stats, wall, reqs, card)
+    log_serve(label, stats, wall, reqs, card)
     again = serve_requests(cfg.vocab_size)
     ContinuousEngine(model, params, telemetry=False, **kw).serve(again)
     same = [a.output == b.output for a, b in zip(reqs, again)]
-    log(f"[serve_moe] a second serve of the same requests on a fresh "
+    log(f"[{label}] a second serve of the same requests on a fresh "
         f"engine: {sum(same)} of {len(same)} requests emit the same tokens")
-    check_all("serve_moe", {
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    check_all(label, {
         "all 8 complete": stats["completed"] == len(reqs) == 8,
         "every request at its budget": all(
             len(r.output) == SERVE["max_new"] for r in reqs),
@@ -1812,17 +1865,28 @@ def phase_serve_moe(card):
         "host syncs == prefills + decode steps": (
             n_syncs == stats["prefills"] + stats["decode_steps"]),
         "prefix hit rate > 0": stats["prefix_cache"]["hit_rate"] > 0,
-        "flash launches == 28 x prefills, all wgmma": (
+        f"flash launches == {cfg.num_layers} x prefills, all wgmma": (
             n_flash == cfg.num_layers * stats["prefills"] > 0
             and routes == {"wgmma": n_flash, "ffma": 0} and windowed == 0),
-        "flash at MHA 16:16, D 128": all(
-            sh[1:3] == (16, 16) and sh[5] == 128 for sh in shapes),
+        f"flash at MHA {h}:{hkv}, D {d}": all(
+            sh[1:3] == (h, hkv) and sh[5] == d for sh in shapes),
         "every request has energy > 0": all(r.energy_j > 0 for r in reqs),
         "joule partition (1e-6 J)": joule_partition_error(eng, reqs) <= 1e-6,
         "tokens in vocab": all(0 <= t < cfg.vocab_size
                                for r in reqs for t in r.output),
         "two serves emit the same tokens": all(same),
     })
+    return cfg, model, params, eng, n_flash, shapes
+
+
+def phase_serve_moe(card):
+    """deepseek-moe-16b through ContinuousEngine on the paged path at full
+    width and depth: the serve phase's requests at batch 4 (twice, on
+    fresh engines: the same tokens), then a short serve at batch 3 with
+    the expert drops counted. Every prefill layer on flash's wgmma route
+    (MHA 16:16, D 128)."""
+    cfg, model, params, eng, n_flash, shapes = serve_moe_model(
+        SERVE_MOE["arch"], SERVE_MOE["seed"], card)
     with moe_drops() as seen:
         b3_stats, _ = short_serve("serve_moe_b3", cfg, model, params, card,
                                   MOE_B3)
@@ -2221,7 +2285,7 @@ def phase_vlm(card):
         "flash launches == 32, all wgmma": (
             n_flash == cfg.num_layers and routes == {"wgmma": n_flash,
                                                      "ffma": 0}),
-        "flash at q [1,64,512,128], kv [1,8,512,128]": shapes == {want_shape},
+        "flash at q [1,64,512,128], kv [1,8,512,128]": set(shapes) == {want_shape},
     })
     del logits, batch
     _, n_serve = short_serve("vlm_serve", cfg, model, params, card,
@@ -2236,6 +2300,71 @@ def phase_vlm(card):
 # 6 steps through train.loop.run
 TRAIN = dict(arch="granite-20b", layers=4, batch=8, seq=512, micro=2,
              steps=6, lr=3e-4, seed=0)
+# the train phase's other configurations, after granite-20b's and in this
+# order: each family at its published width through the same loop and
+# gates, f32 masters made on the card from the seed; the depth cut (layers,
+# None: whole) where the dry-run's count (DRYRUN["cuts"]) says the whole
+# model's train state does not fit 80 GB: deepseek-moe-16b is 262 GB of
+# state whole, internvl2-76b 62.1 GB at 2 layers before its activations.
+# whisper-small trains on its released models' 448-token text context over
+# 1500 frames a row, internvl2-76b on 256 patches + 256 tokens a row
+TRAIN_FAMILIES = (
+    dict(TRAIN, arch="zamba2-1.2b", layers=None, steps=4),
+    dict(TRAIN, arch="whisper-small", layers=None, seq=448, steps=4),
+    dict(TRAIN, arch="xlstm-1.3b", layers=None, steps=3),
+    dict(TRAIN, arch="deepseek-moe-16b", layers=4, steps=4),
+    dict(TRAIN, arch="internvl2-76b", layers=1, batch=4, seq=256, steps=4),
+)
+
+
+def train_flash_launches(cfg, model, micro, steps):
+    """The flash launches ``steps`` train steps of ``micro`` microbatches
+    give, from where each family runs attention under its remat: a layer
+    inside a checkpoint launches twice a microbatch (the forward and the
+    backward's recompute; the Function's own backward is the plain
+    version). The decoder LMs checkpoint every layer (the dense prefix
+    too); whisper each encoder and decoder layer (``models/whisper.py``
+    ``_remat``; its cross attention is not on flash); zamba2's shared
+    attention runs outside the checkpoint (``models/mamba2.py`` ``_stack``),
+    once a site; xlstm has no attention."""
+    if cfg.family == "ssm":
+        per = 0
+    elif cfg.family == "hybrid":
+        per = len(model.attn_sites)
+    elif cfg.family == "audio":
+        per = 2 * (cfg.enc_layers + cfg.num_layers)
+    else:
+        per = 2 * cfg.num_layers
+    return per * micro * steps
+
+
+def train_model_flop(cfg, params, c):
+    """(model FLOP a step, what it counts): 6·N over every position the
+    model runs, the remat recompute not counted. N is every parameter,
+    the embedding with it, but for an MoE only the active ones (the
+    shared experts and top-k of the routed: ``perf.roofline.
+    active_params``); a VLM's backbone runs over its patches too;
+    whisper's encoder counts over its frames, the rest over the tokens."""
+    from repro_torch.perf import roofline
+    n = sum(p.numel() for p in _leaves(params))
+    rows, seq = c["batch"], c["seq"]
+    if cfg.family == "audio":
+        n_enc = sum(p.numel() for p in _leaves(
+            {k: params[k] for k in ("encoder", "enc_final_norm")}))
+        return (6 * rows * (n_enc * cfg.enc_seq + (n - n_enc) * seq),
+                f"6·N·positions: the encoder's {n_enc / 1e9:.3f} B params "
+                f"over {cfg.enc_seq} frames a row, the other "
+                f"{(n - n_enc) / 1e9:.3f} B over {seq} tokens")
+    n_act = roofline.active_params(cfg, n)
+    pos = seq + (cfg.stub_prefix_len if cfg.family == "vlm" else 0)
+    what = (f"6·N·positions, N the {n_act / 1e9:.3f} B active params "
+            f"(the {cfg.num_shared_experts} shared experts and "
+            f"{cfg.experts_per_token} routed of {cfg.num_experts}) of "
+            f"{n / 1e9:.3f} B" if cfg.is_moe else
+            "6·N·tokens (N with the embedding" + (
+                f"; {cfg.stub_prefix_len} patches + {seq} tokens a row"
+                if cfg.family == "vlm" else "") + ")")
+    return 6 * n_act * rows * pos, what
 
 
 def _named(tree, prefix=""):
@@ -2246,14 +2375,15 @@ def _named(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def phase_train(card):
-    """The port's trainer on the card: f32 master parameters made on the
-    card from a seed, train.step.make_train_step under counting_call,
-    through train.loop.run with a tracer and a registry. Step 1's
-    gradients are read once before the loop (every leaf nonzero: the flash
-    kernel's Function carries wq, wk and wv a gradient); the flash counts
-    and the host syncs are zeroed just before the loop and read just after.
-    Then a profiled step."""
+def phase_train(card, c=TRAIN):
+    """The port's trainer on the card for one configuration of TRAIN or
+    TRAIN_FAMILIES: f32 master parameters made on the card from a seed,
+    train.step.make_train_step under counting_call, through train.loop.run
+    with a tracer and a registry. Step 1's gradients are read once before
+    the loop (every leaf nonzero: the flash kernel's Function carries wq,
+    wk and wv a gradient); the flash counts and the host syncs are zeroed
+    just before the loop and read just after. Then a profiled step
+    (granite-20b's also in its two halves)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2266,7 +2396,8 @@ def phase_train(card):
                                              init_opt_state, tree_leaves)
     from repro_torch.train.step import (StepConfig, TrainState,
                                         make_grad_fn, make_train_step)
-    c = TRAIN
+    label = "train" if c is TRAIN else f"train {c['arch']}"
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     cfg, model, params = make_model(c["arch"], c["seed"], c["layers"],
                                     dtype=torch.float32)
@@ -2280,7 +2411,7 @@ def phase_train(card):
                                       vocab_size=cfg.vocab_size,
                                       seq_len=c["seq"],
                                       global_batch=c["batch"]), cfg)
-    log(f"[train] state (f32 params, m, v) "
+    log(f"[{label}] state (f32 params, m, v) "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     # step 1's gradients, read once (this also warms up the forward and
     # backward shapes before the loop)
@@ -2291,10 +2422,24 @@ def phase_train(card):
     amax = torch.stack([g.abs().amax() for g in leaves]).tolist()
     finite = torch.stack([torch.isfinite(g).all() for g in leaves]).all()
     zero = [n for n, a in zip(names, amax) if not a > 0]
-    log(f"[train] step 1's gradients in {time.perf_counter() - t0:.2f} s: "
-        f"loss {loss0.item():.4f}; max|grad| by leaf " + ", ".join(
+    log(f"[{label}] step 1's gradients in {time.perf_counter() - t0:.2f} "
+        f"s: loss {loss0.item():.4f}; max|grad| by leaf " + ", ".join(
             f"{n} {a:.3e}" for n, a in zip(names, amax)))
     grads_ok = bool(finite) and not zero
+    checks = {}
+    if cfg.is_moe:
+        # an MoE's step-1 gradients again, bitwise: the dispatch's backward
+        # sums a token's k rows in a fixed order (models/moe.py route),
+        # where a scatter-add by token index would add them with atomics
+        _, again = make_grad_fn(model, step_cfg)(
+            state.params, batch_to_device(data.batch(0), "cuda"))
+        same = all(torch.equal(a, b) for a, b in zip(leaves, _leaves(again)))
+        log(f"[{label}] step 1's gradients read again: bitwise the same "
+            f"{same}")
+        checks["step 1's gradients again: bitwise the same"] = same
+        del again
+        # the phase's peak is the step's, not the two gradient sets'
+        torch.cuda.reset_peak_memory_stats()
     del grads, leaves
     stats = TraceStats()
     step = make_train_step(model, opt_cfg, step_cfg)
@@ -2302,36 +2447,41 @@ def phase_train(card):
     tracer, registry = Tracer(), MetricsRegistry()
     loop_cfg = loop_mod.LoopConfig(total_steps=c["steps"],
                                    ckpt_every=c["steps"] + 1)
-    (state, history, summary), wall, n_syncs, (n_flash, routes, windowed) = \
-        counted_path(lambda: loop_mod.run(
-            counted, state, data, loop_cfg, device="cuda", tracer=tracer,
-            metrics_registry=registry))
+    with flash_shapes() as shapes:
+        (state, history, summary), wall, n_syncs, (n_flash, routes,
+                                                   windowed) = \
+            counted_path(lambda: loop_mod.run(
+                counted, state, data, loop_cfg, device="cuda",
+                tracer=tracer, metrics_registry=registry))
     peak = torch.cuda.max_memory_allocated()
     walls = [r["wall_s"] for r in history]
     med = float(np.median(walls[1:]))
-    model_flop = 6 * n_params * tokens
+    model_flop, flop_what = train_model_flop(cfg, params, c)
     by_tag = summary["energy_by_tag"]
     for r in history:
-        log(f"[train] step {r['step']}: loss {r['loss']:.4f}, grad norm "
+        log(f"[{label}] step {r['step']}: loss {r['loss']:.4f}, grad norm "
             f"{r['grad_norm']:.4f}, wall {r['wall_s'] * 1e3:.1f} ms")
-    log(f"[train] {cfg.name} ({c['layers']} of "
-        f"{configs.get(c['arch']).num_layers} layers, full width): "
+    depth = (f"{c['layers']} of {configs.get(c['arch']).num_layers} layers"
+             if c["layers"] is not None else f"{cfg.num_layers} layers, "
+             "whole")
+    log(f"[{label}] {cfg.name} ({depth}, full width): "
         f"{n_params / 1e9:.3f} B params; batch {c['batch']} x {c['seq']} in "
         f"{c['micro']} microbatches; {c['steps']} steps in {wall:.2f} s; "
         f"step wall median of steps 2-{c['steps']} {med * 1e3:.1f} ms "
-        f"({tokens / med:.0f} tokens/s); model FLOP 6·N·tokens "
-        f"{model_flop / 1e12:.2f} TFLOP a step (N with the embedding; the "
-        f"remat recompute not counted): {model_flop / med / 1e12:.1f} "
-        f"TFLOP/s, {model_flop / med / PEAK_OPS['bfloat16']:.1%} of 989; "
+        f"({tokens / med:.0f} tokens/s); model FLOP {flop_what} "
+        f"{model_flop / 1e12:.2f} TFLOP a step (the remat recompute not "
+        f"counted): {model_flop / med / 1e12:.1f} TFLOP/s, "
+        f"{model_flop / med / PEAK_OPS['bfloat16']:.1%} of 989; "
         f"peak memory {peak / 1e9:.2f} GB; modeled energy "
         f"{summary['energy_j']:.3f} J, {summary['j_per_token']:.6f} J/token "
         f"(H100_SXM power model at utilization 1.0 through the probe's "
         f"240 W clip); tags {by_tag}; host syncs {n_syncs}; "
         f"train_step_compiles {stats.compiles('train_step')}; flash "
-        f"launches {n_flash} by route {routes}, windowed {windowed}; "
-        f"card: {card}")
-    want_flash = c["layers"] * c["micro"] * c["steps"] * 2
-    check_all("train", {
+        f"launches {n_flash} by route {routes}, windowed {windowed}, by "
+        f"shape (B, H, Hkv, S, T, D, causal, window, q_offset) "
+        f"{dict(shapes)}; card: {card}")
+    want_flash = train_flash_launches(cfg, model, c["micro"], c["steps"])
+    check_all(label, {
         "every loss and grad norm finite": all(
             np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
             for r in history) and len(history) == c["steps"],
@@ -2340,13 +2490,17 @@ def phase_train(card):
         "host syncs == steps": n_syncs == c["steps"],
         "per-tag joules partition the session (1e-6 J)": abs(
             sum(by_tag.values()) - summary["energy_j"]) <= 1e-6,
-        "flash launches == layers x microbatches x steps x 2, all wgmma": (
+        f"flash launches == {want_flash} (train_flash_launches: "
+        f"{cfg.family}, {c['micro']} microbatches x {c['steps']} steps), "
+        f"all wgmma, none windowed": (
             n_flash == want_flash and routes == {"wgmma": n_flash,
                                                  "ffma": 0}
             and windowed == 0),
+        **checks,
     })
-    # a step, and its two halves apart: the forward and backward of both
-    # microbatches (grad_fn), and the AdamW update on one set of gradients
+    # a step, and (granite-20b's) its two halves apart: the forward and
+    # backward of both microbatches (grad_fn), and the AdamW update on one
+    # set of gradients
     batch = batch_to_device(data.batch(c["steps"]), "cuda")
     box = [state]
     grad_fn = make_grad_fn(model, step_cfg)
@@ -2354,19 +2508,24 @@ def phase_train(card):
     def one_step():
         box[0], _ = step(box[0], batch)
 
-    prof = profile_steps("train", {"train step": one_step})["train step"]
-    _, grads = grad_fn(box[0].params, batch)
-    profile_steps("train", {
-        "forward and backward (2 microbatches)": lambda: grad_fn(
-            box[0].params, batch),
-        "AdamW update": lambda: adamw_update(opt_cfg, box[0].params, grads,
-                                             box[0].opt),
-    })
-    del state, box, params, grads
-    return dict(launches=n_flash, step_ms=med * 1e3, peak_gb=peak / 1e9,
-                profile=prof, shape=(c["batch"] // c["micro"],
-                                     cfg.num_heads, cfg.num_kv_heads,
-                                     c["seq"], cfg.head_dim))
+    prof = profile_steps(label, {"train step": one_step},
+                         **({} if c is TRAIN else dict(n=1, warm=False))
+                         )["train step"]
+    if c is TRAIN:
+        _, grads = grad_fn(box[0].params, batch)
+        profile_steps("train", {
+            "forward and backward (2 microbatches)": lambda: grad_fn(
+                box[0].params, batch),
+            "AdamW update": lambda: adamw_update(opt_cfg, box[0].params,
+                                                 grads, box[0].opt),
+        })
+        del grads
+    del state, box, params
+    log(f"[{label}] phase in {time.perf_counter() - t_phase:.1f} s")
+    return dict(arch=c["arch"], launches=n_flash, step_ms=med * 1e3,
+                peak_gb=peak / 1e9, profile=prof, shapes=dict(shapes),
+                shape=(c["batch"] // c["micro"], cfg.num_heads,
+                       cfg.num_kv_heads, c["seq"], cfg.head_dim))
 
 
 # the parallel phase: the train phase's configuration for 3 steps through
@@ -2574,7 +2733,7 @@ def tp_layer_check(card):
                 f"{route} at q [1,{h},{c['seq']},{cfg.head_dim}] over "
                 f"{kvh} KV head(s)": (
                     ranks[0] == c["model"] and ranks[1][route] == ranks[0]
-                    and rank_shapes == {want_shape}),
+                    and set(rank_shapes) == {want_shape}),
                 f"tp_layer {arch} {dt}: one unsharded launch on {route}": (
                     full[0] == 1 and full[1][route] == 1),
             })
@@ -2858,7 +3017,7 @@ def tp_serve_prefill(card, dt):
         f"tp_serve (b) prefill {dt}: {n} rank launches on {route} at q "
         f"[{b},{h_rank},{s},{cfg.head_dim}] over 1 KV head": (
             ranks[0] == n and ranks[1][route] == n
-            and rank_shapes == {want_shape}),
+            and set(rank_shapes) == {want_shape}),
         f"tp_serve (b) prefill {dt}: one unsharded launch on {route}": (
             full[0] == 1 and full[1][route] == 1),
     })
@@ -3316,7 +3475,7 @@ def tp_recurrent_prefill(card, b, s, dt):
         f"tp_recurrent (e) prefill [{b},{s}] {dt}: {n} rank launches on "
         f"{route} at q [{b},{hl},{s},{cfg.head_dim}]": (
             ranks[0] == n and ranks[1][route] == n
-            and rank_shapes == {want_shape}),
+            and set(rank_shapes) == {want_shape}),
         f"tp_recurrent (e) prefill [{b},{s}] {dt}: one unsharded launch on "
         f"{route}": full[0] == 1 and full[1][route] == 1,
     })
@@ -3531,7 +3690,18 @@ DRYRUN = dict(
           ("granite-20b", 4, "train_phase", True),
           ("internvl2-76b", None, "vlm_phase", False),
           ("internvl2-76b", 32, "vlm_phase", True),
-          ("deepseek-moe-16b", None, "serve_phase", True)),
+          ("deepseek-moe-16b", None, "serve_phase", True),
+          # the train phase's other families (TRAIN_FAMILIES), whole and
+          # at their cuts: xlstm-1.3b's whole count fits, so it trains
+          # whole; internvl2-76b's 2 layers do not
+          ("zamba2-1.2b", None, "train_phase", True),
+          ("whisper-small", None, "whisper_train", True),
+          ("xlstm-1.3b", None, "train_phase", True),
+          ("deepseek-moe-16b", None, "train_phase", False),
+          ("deepseek-moe-16b", 4, "train_phase", True),
+          ("internvl2-76b", None, "vlm_train", False),
+          ("internvl2-76b", 2, "vlm_train", False),
+          ("internvl2-76b", 1, "vlm_train", True)),
     # one production cell of each family (the dense one also trains)
     cells=(("granite-20b", "train_4k"), ("granite-20b", "prefill_32k"),
            ("granite-20b", "decode_32k"), ("deepseek-moe-16b", "decode_32k"),
@@ -3550,12 +3720,21 @@ DRYRUN = dict(
 
 def phase_cells():
     """The card phases' shapes as dry-run cells: the train phase (batch 8
-    x 512), the VLM phase's forward (256 patches + 256 tokens), the serve
-    phase (batch 4, 512 positions) and its decode step."""
+    x 512; whisper-small's 8 x 448 over its frames, internvl2-76b's 4 x
+    256 after its 256 patches), the VLM phase's forward (256 patches + 256
+    tokens), the serve phase (batch 4, 512 positions) and its decode
+    step."""
     from repro_torch.configs.base import ShapeConfig
+    fam = {c["arch"]: c for c in TRAIN_FAMILIES}
     return {
         "train_phase": ShapeConfig("train_phase", "train", TRAIN["seq"],
                                    TRAIN["batch"]),
+        "whisper_train": ShapeConfig(
+            "whisper_train", "train", fam["whisper-small"]["seq"],
+            fam["whisper-small"]["batch"]),
+        "vlm_train": ShapeConfig(
+            "vlm_train", "train", fam["internvl2-76b"]["seq"],
+            fam["internvl2-76b"]["batch"]),
         "vlm_phase": ShapeConfig("vlm_phase", "prefill", 256, 1),
         "serve_phase": ShapeConfig("serve_phase", "prefill",
                                    SERVE["max_seq"], SERVE["batch"]),
@@ -3853,23 +4032,27 @@ def dryrun_gate():
     return rcs
 
 
-def _profiled(fn, n=3):
+def _profiled(fn, n=3, warm=True):
     """(host ms per call, device-busy ms per call, kernels per call,
     {kernel name: device ms per call}) of ``fn`` on the card: host time
     without the profiler, device time as the sum of the CUDA kernels'
-    durations under ``torch.profiler``."""
+    durations under ``torch.profiler``, which records the kernels alone
+    (xlstm-1.3b's train step launches 560,000 kernels: with the host's
+    operators recorded too, reading the trace back took minutes).
+    ``warm`` False: ``fn`` has run at these shapes already (a train
+    step of xlstm-1.3b takes 15 s)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -3951,10 +4134,10 @@ def kernel_class(name) -> str:
     return "other"
 
 
-def profile_steps(label, steps, n=3):
+def profile_steps(label, steps, n=3, **kw):
     out = {}
     for name, fn in steps.items():
-        host, dev, n_k, by_name = _profiled(fn, n)
+        host, dev, n_k, by_name = _profiled(fn, n, **kw)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         by_class = {}
         for k, v in by_name.items():
@@ -4502,11 +4685,13 @@ def phase_cli():
     """The serving CLI on the card: granite-20b's smoke model on the
     continuous engine, and gemma3-27b's (the CLI's default arch) on the
     static engine with a timeline written by --trace-out; the training
-    CLI on granite-20b's smoke model, 4 steps, with its own --trace-out;
-    and the port's bench_serving (every scenario on the smoke models; its
-    gates print PASS or FAIL, readings, and its token assertions must
-    hold). validate_chrome_trace must accept both timelines, and each must
-    partition its run's joules. The four run side by side."""
+    CLI on granite-20b's, zamba2-1.2b's, whisper-small's and
+    deepseek-moe-16b's smoke models, 4 steps each, each with its own
+    --trace-out; and the port's bench_serving (every scenario on the smoke
+    models; its gates print PASS or FAIL, readings, and its token
+    assertions must hold). validate_chrome_trace must accept every
+    timeline, and each must partition its run's joules. All run side by
+    side."""
     import tempfile
     from repro_torch.obs import validate_chrome_trace
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -4514,20 +4699,23 @@ def phase_cli():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         trace = pathlib.Path(tmp) / "trace.json"
-        train_trace = pathlib.Path(tmp) / "train_trace.json"
+        traces = {"serve": trace}
         runs = {
             "granite continuous": cli + ["--arch", "granite-20b", "--smoke"],
             "gemma3 static": cli + ["--arch", "gemma3-27b", "--smoke",
                                     "--engine", "static", "--prompt-len",
                                     "40", "--trace-out", str(trace)],
-            "granite train": [sys.executable, "-m",
-                              "repro_torch.launch.train", "--arch",
-                              "granite-20b", "--smoke", "--steps", "4",
-                              "--trace-out", str(train_trace)],
             "bench serving": [sys.executable, "-m",
                               "repro_torch.benchmarks.run", "--only",
                               "serving"],
         }
+        for arch in ("granite-20b", "zamba2-1.2b", "whisper-small",
+                     "deepseek-moe-16b"):
+            name = f"{arch.split('-')[0]} train"
+            traces[name] = pathlib.Path(tmp) / f"train_{arch}.json"
+            runs[name] = [sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", arch, "--smoke", "--steps", "4",
+                          "--trace-out", str(traces[name])]
         procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env,
                                         stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True)
@@ -4545,7 +4733,7 @@ def phase_cli():
                 failed.append(f"{name} exited {proc.returncode}")
         if failed:
             raise AssertionError(f"CLI runs failed: {failed}")
-        for name, path in (("serve", trace), ("train", train_trace)):
+        for name, path in traces.items():
             doc = json.loads(path.read_text())
             validate_chrome_trace(doc)
             od = doc["otherData"]
@@ -4619,6 +4807,11 @@ def free_card():
 
 
 def main() -> int:
+    # one allocator for every phase, read before CUDA starts: on fixed
+    # segments the blocks xlstm-1.3b's whole train step frees (it peaks at
+    # 76.7 GB of the card's 79.2 GiB) left its 2.8 GB stacked gradients no
+    # room, 7 GB reserved but free (the step OOMed in two runs of three)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4627,6 +4820,10 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails here, before any output, alone)
     from repro_torch import configs
     t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     card = smi_line()
     idle = subprocess.run(["nvidia-smi", "--query-gpu=power.draw,clocks.sm,"
                            "clocks.max.sm", "--format=csv,noheader"],
@@ -4634,7 +4831,8 @@ def main() -> int:
                           timeout=60).stdout.strip()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; nvidia-smi: {card}; before any work "
-        f"(power draw, SM clock, max SM clock): {idle}")
+        f"(power draw, SM clock, max SM clock): {idle}; allocator "
+        f"{os.environ['PYTORCH_CUDA_ALLOC_CONF']}")
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     flash_errs = phase_kernels()
@@ -4642,6 +4840,7 @@ def main() -> int:
     errs = phase_kernels_measurement()
     bench_launches = phase_bench()
     f32_launches, f32_shape = phase_small()
+    mark("build, kernels, bench, small")
     cfg, eng, launches, shapes = phase_serve(card)
     launches.update(bench_launches)
     dry_b = dryrun_decode(eng, phase_profile(eng), card)
@@ -4657,6 +4856,7 @@ def main() -> int:
     del wmodel, wparams                        # frees gemma3's 56.8 GB
     free_card()
     held_err = hold_window_shapes(wshapes)
+    mark("serve, serve_window")
     phase_serve_dense(card)
     free_card()
     mcfg, mmodel, mparams, meng, moe_launches, mshapes = phase_serve_moe(
@@ -4667,17 +4867,34 @@ def main() -> int:
     del mmodel, mparams                        # frees deepseek-moe's 32.8 GB
     free_card()
     moe_held_err = hold_window_shapes(mshapes, "hold_moe_flash")
+    ocfg, *moon, moon_launches, oshapes = serve_moe_model(
+        SERVE_MOONSHOT["arch"], SERVE_MOONSHOT["seed"], card,
+        "serve_moonshot")
+    del moon                                   # frees moonshot's 56.8 GB
+    free_card()
+    moon_held_err = hold_window_shapes(oshapes, "hold_moonshot_flash")
+    mark("dense, serve_moe (deepseek-moe-16b, moonshot-v1-16b-a3b)")
     rec = phase_serve_recurrent(card)
     rec_held_err = hold_window_shapes(
         set().union(*(r["shapes"] for r in rec.values())),
         "hold_recurrent_flash")
+    mark("serve_recurrent")
     vlm_launches, vlm_shape = phase_vlm(card)
     free_card()
+    mark("vlm")
     train = phase_train(card)
     free_card()
+    mark("train granite-20b")
+    trains = []
+    for c in TRAIN_FAMILIES:
+        trains.append(phase_train(card, c))
+        free_card()
+        mark(f"train {c['arch']}")
     dry_a = dryrun_train(card, train)
     dry_s = dryrun_sizes(card)
+    mark("dryrun (a), (c), (d)")
     par = phase_parallel(card)
+    mark("parallel")
     flash_rows = phase_timing(cfg, shapes)
     window_rows = timing_window(wcfg)
     train_row = time_flash(*train["shape"][:3], train["shape"][3],
@@ -4719,6 +4936,29 @@ def main() -> int:
     vlm_row = time_flash(1, vlm_shape[1], vlm_shape[2], vlm_shape[3],
                          vlm_shape[5], None,
                          "internvl2-76b's forward, 256 patches + 256 tokens")
+    # moonshot-v1-16b-a3b's largest serve prefill, as deepseek-moe-16b's
+    moon_top = max(oshapes, key=lambda sh: (sh[3], -sh[8]))
+    moon_row = time_flash(1, ocfg.num_heads, ocfg.num_kv_heads, moon_top[3],
+                          ocfg.head_dim, None,
+                          "moonshot-v1-16b-a3b's largest serve prefill",
+                          t=moon_top[4], off=moon_top[8])
+    # each flash shape the train phase's other families gave the kernel
+    # under the gradient, at one microbatch, with its launches in the loop
+    train_rows = {}
+    for r in trains:
+        tag = r["arch"].split("-")[0]
+        for sh, n in sorted(r["shapes"].items(), key=str):
+            b, h, hkv, s, t, d, causal, win, off = sh
+            part = ({True: "_decoder", False: "_encoder"}[causal]
+                    if r["arch"] == "whisper-small" else "")
+            name = f"flash_attention/wgmma/{tag}_train{part}"
+            if name in train_rows:
+                raise AssertionError(f"{r['arch']} trained on more flash "
+                                     f"shapes than named: {r['shapes']}")
+            train_rows[name] = (n, time_flash(
+                b, h, hkv, s, d, win, f"{r['arch']}'s train step, one "
+                f"microbatch" + (f" ({part[1:]})" if part else ""), t=t,
+                off=off, causal=causal))
     # whisper-small's encoder (non-causal, 12:12, S = T = 1500) and
     # zamba2-1.2b's shared attention on a cold 256-token chunk (32:32 over
     # its 512-position cache row)
@@ -4743,8 +4983,11 @@ def main() -> int:
                                  for v in DPA_IN)))
     transpose_row = timing_transpose(
         errs, dpa_rows[("dpa_matmul/dpa4", 4096)]["transpose_device_ms"])
+    mark("timing")
     phase_cli()
+    mark("cli")
     phase_record_cli()
+    mark("record_cli")
     t_gate = time.perf_counter()
     gate_rcs = dryrun_gate()
     log(f"[dryrun] phase: (a) train FLOPs {dry_a['flops']:.6e} equal on meta "
@@ -4878,6 +5121,8 @@ def main() -> int:
     # serve (32 layers x calls)
     for tag, n, row, held in (("deepseek_moe", moe_launches, moe_row,
                                moe_held_err),
+                              ("moonshot", moon_launches, moon_row,
+                               moon_held_err),
                               ("internvl2_vlm", vlm_launches, vlm_row, 0.0)):
         kernels.append({
             "name": f"flash_attention/wgmma/{tag}",
@@ -4905,6 +5150,21 @@ def main() -> int:
             "launches": rec[arch]["launches"],
             "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"],
                                rec_held_err),
+            **flash_keys(row),
+        })
+    # the same wgmma route under the train phase's gradient for the other
+    # families (zamba2-1.2b, whisper-small's encoder and decoder,
+    # deepseek-moe-16b, internvl2-76b; xlstm-1.3b launches none), each
+    # timed at one microbatch's shape and counted over its loop
+    for name, (n, row) in train_rows.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:22",
+            "launches": n,
+            "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"]),
             **flash_keys(row),
         })
     # STREAM at 128 MiB f32, dpa_matmul at 4096^3; each error is the

@@ -6,7 +6,11 @@ the reference's ``models/mamba2.py`` on tensors.
 The SSD scan is the chunkwise-parallel algorithm (intra-chunk masked
 matmuls and inter-chunk state passing, cumulative log decays exponentiated
 in f32 with no stabiliser, as in the reference); the single-step recurrence
-used for decode agrees with it. The shared attention's prefill runs on the
+used for decode agrees with it. One departure: the intra-chunk decay is
+masked before it is exponentiated, not after. The forward is the same bit
+for bit; the reference's gradient is NaN once a chunk's summed log decays
+pass ~88 above the diagonal (a 128-token chunk of the smoke model), the
+port's is finite. The shared attention's prefill runs on the
 flash kernel (causal, from the chunk's start over the whole cache row).
 
 Serving state (``init_cache``): ``mamba`` holds (S [L,B,H,N,P], conv
@@ -115,8 +119,11 @@ def _ssd_chunk(carry, xs, a, mask):
     lc = torch.cumsum(logf, dim=1)
     ltot = lc[:, -1]                                       # [B,H]
     # intra-chunk
+    # (masked before the exponential: above the diagonal dm grows with the
+    # chunk, its exp overflows past ~88, and exp's backward would give
+    # 0 * inf = NaN there; the reference exponentiates first)
     dm = lc[:, :, None, :] - lc[:, None, :, :]             # [B,W,W,H]
-    A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
+    A = torch.exp(torch.where(mask[None, :, :, None], dm, -torch.inf))
     cb = cf @ bf.transpose(-1, -2)                         # [B,W,W]
     scores = cb[..., None] * A * dtc[:, None, :, :]        # [B,W,W,H]
     xh = xf.transpose(1, 2)                                # [B,H,W,P]

@@ -30,6 +30,13 @@ integers, not only its floats:
   different order each run. ``combine`` gathers them into ``[T, k, D]`` in
   ascending expert order (the order the reference's sorted scatter adds
   them) and sums over ``k``: the same tokens on every run.
+- *The dispatch's backward.* Gathering each token's row ``k`` times by its
+  token index would be a scatter-add of ``k`` gradient rows a token in
+  the backward, with atomics on the card: a train step would differ from
+  run to run in the last bits. ``route`` gathers through ``_Dispatch``,
+  whose forward is that one gather and whose backward writes each
+  gradient row to its copy by the permutation ``order`` (unique indices)
+  and sums a token's ``k`` copies over a fixed axis.
 
 The expert products are plain batched matmuls in the reference (outside any
 Pallas kernel), so they are ``torch.einsum`` here.
@@ -108,6 +115,30 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+class _Dispatch(torch.autograd.Function):
+    """xg [G, T, D] -> its rows in sorted-expert order [G, T*k, D], row j
+    token ``tok[j]``'s: one gather. Row j is copy ``order[j] % k`` of that
+    token and ``order`` is a permutation, so the backward writes each
+    gradient row to its copy (no two to one place) and sums a token's
+    ``k`` copies over a fixed axis: no scatter-add, the same bits every
+    run."""
+
+    @staticmethod
+    def forward(ctx, xg, tok, order):
+        ctx.save_for_backward(order)
+        g, ctx.t, d = xg.shape
+        n = tok.shape[1]
+        return xg.gather(1, tok[..., None].expand(g, n, d))
+
+    @staticmethod
+    def backward(ctx, grad):
+        order, = ctx.saved_tensors
+        g, n, d = grad.shape
+        copies = torch.empty_like(grad).scatter_(
+            1, order[..., None].expand(g, n, d), grad)
+        return copies.reshape(g, ctx.t, n // ctx.t, d).sum(dim=2), None, None
+
+
 def route(xg, logits, cfg: ModelConfig, capacity: int):
     """Group-local routing of ``G`` groups at once, ``_route_group``'s
     semantics. xg [G, T, D]; logits [G, T, E].
@@ -135,7 +166,7 @@ def route(xg, logits, cfg: ModelConfig, capacity: int):
 
     # each kept slot is written once; every dropped token lands on the
     # trash row, which is cut off
-    src = xg.gather(1, tok[..., None].expand(g, t * k, d))
+    src = _Dispatch.apply(xg, tok, order)
     buf = torch.zeros((g, e * capacity + 1, d), dtype=xg.dtype,
                       device=xg.device)
     buf.scatter_(1, slot[..., None].expand(g, t * k, d), src)

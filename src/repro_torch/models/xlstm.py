@@ -11,7 +11,11 @@ the reference's group scans.
 Numerics, as in the reference: gates in f32; the input-gate pre-activation
 is clamped at ``I_CLAMP`` instead of carrying a running-max stabiliser, so
 the chunkwise and the recurrent forms agree. The chunkwise form
-exponentiates cumulative log gates in f32 with no stabiliser either.
+exponentiates cumulative log gates in f32 with no stabiliser either. One
+departure: the intra-chunk decay is masked before it is exponentiated, not
+after. The forward is the same bit for bit; the reference's gradient is
+NaN once a chunk's summed log forget gates pass ~88 above the diagonal
+(a 256-token chunk of the smoke model), the port's is finite.
 
 Serving state (``init_cache``): ``mlstm`` holds (C [L,B,NH,dh,dh], n
 [L,B,NH,dh], conv [L,B,3,di]) and each ``slstm_{i}`` (c, n, m, h) of
@@ -161,8 +165,11 @@ def _mlstm_chunk(state, xs, mask, scale):
     lc = torch.cumsum(lf, dim=1)                          # [B,W,NH] inclusive
     ltot = lc[:, -1]                                      # [B,NH]
     # intra-chunk: decay matrix A[t,s] = exp(lc_t - lc_s + li_s), s<=t
+    # (masked before the exponential: above the diagonal dm grows with the
+    # chunk, its exp overflows past ~88, and exp's backward would give
+    # 0 * inf = NaN there; the reference exponentiates first)
     dm = lc[:, :, None, :] - lc[:, None, :, :] + li[:, None, :, :]
-    A = torch.where(mask[None, :, :, None], torch.exp(dm), 0.0)
+    A = torch.exp(torch.where(mask[None, :, :, None], dm, -torch.inf))
     scores = (qh @ kh.transpose(-1, -2)) * A.permute(0, 3, 1, 2)
     num_intra = scores @ vh                               # [B,NH,W,dh]
     den_intra = scores.sum(dim=-1)                        # [B,NH,W]

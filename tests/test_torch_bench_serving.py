@@ -31,11 +31,17 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def bench(tmp_path_factory):
+    # one thread for the bench, and the worker's count back after it: a
+    # module fixture outlives the tests of its file
+    n = torch.get_num_threads()
     torch.set_num_threads(1)
-    path = tmp_path_factory.mktemp("bench") / "rows.json"
-    trace = path.with_name("trace.json")
-    speedup = bench_serving.main(SMALL + ["--json", str(path),
-                                          "--trace-out", str(trace)])
+    try:
+        path = tmp_path_factory.mktemp("bench") / "rows.json"
+        trace = path.with_name("trace.json")
+        speedup = bench_serving.main(SMALL + ["--json", str(path),
+                                              "--trace-out", str(trace)])
+    finally:
+        torch.set_num_threads(n)
     return speedup, json.loads(path.read_text()), trace
 
 

@@ -21,6 +21,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.models import build_model as tbuild
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as tstep
+from torch_weights import both_trees
 
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 
@@ -127,7 +128,7 @@ def test_reference_checkpoint_restores_in_the_port_and_trains_on(tmp_path):
     jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(arch).replace(dtype="float32")
     jm = jbuild(jcfg, q_block=8)
-    jp, _ = jm.init(jax.random.key(0))
+    jp, _ = both_trees(tcfg, 0)
     batches = _batches(jcfg.vocab_size)
     jfn = jax.jit(jstep.make_train_step(jm, jopt.OptConfig(**OPT),
                                         jstep.StepConfig()))

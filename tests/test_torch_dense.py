@@ -21,10 +21,10 @@ from repro.models import build_model as jbuild
 from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.queue import Request as JRequest
 from repro_torch import configs as tconfigs
-from repro_torch.bridge import params_from_numpy
 from repro_torch.core.hw import H100_SXM
 from repro_torch.models import build_model as tbuild
 from repro_torch.serve.engine import ContinuousEngine, Request
+from torch_weights import both_trees
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHES = ["qwen3-32b", "deepseek-coder-33b"]
@@ -35,8 +35,7 @@ def models(request):
     jcfg = jconfigs.get_smoke(request.param).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(request.param).replace(dtype="float32")
     jm = jbuild(jcfg, q_block=8)
-    jp, _ = jm.init(jax.random.key(2))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    jp, tp = both_trees(tcfg, 2)
     return jcfg, jm, jp, tcfg, tbuild(tcfg), tp
 
 

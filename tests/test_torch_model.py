@@ -18,9 +18,9 @@ from repro.models import build_model as jbuild
 from repro.models import common as jc
 from repro.parallel.sharding import Sharder
 from repro_torch import configs as tconfigs
-from repro_torch.bridge import params_from_numpy
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import common as tc
+from torch_weights import both_trees
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SHD = Sharder(None)
@@ -31,8 +31,7 @@ def models():
     jcfg = jconfigs.get_smoke("granite-20b").replace(dtype="float32")
     tcfg = tconfigs.get_smoke("granite-20b").replace(dtype="float32")
     jm = jbuild(jcfg, q_block=8)
-    jp, _ = jm.init(jax.random.key(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    jp, tp = both_trees(tcfg, 0)
     return jcfg, jm, jp, tcfg, tbuild(tcfg), tp
 
 

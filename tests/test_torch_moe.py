@@ -49,6 +49,7 @@ from repro_torch.models.transformer import head_mask, param_shapes
 from repro_torch.serve.engine import ContinuousEngine, Request
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as tstep
+from torch_weights import both_trees, numpy_tree
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 MOE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -71,37 +72,6 @@ def _bridge(jp):
     return params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
 
 
-def _numpy_tree(spec, seed, unstack=False):
-    """Numpy weights for a (shape, fan_in) tree: N(0, 1/fan_in), zero where
-    fan_in is None (norm scales); ``unstack`` drops the leading layer
-    axis."""
-    rng = np.random.default_rng(seed)
-
-    def make(leaf):
-        if isinstance(leaf, dict):
-            return {k: make(v) for k, v in leaf.items()}
-        shape, fan_in = leaf
-        shape = shape[1:] if unstack else shape
-        if fan_in is None:
-            return np.zeros(shape, np.float32)
-        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
-            np.float32)
-
-    return make(spec)
-
-
-def _weights(tcfg, seed):
-    """(reference params, the port's) of ``tcfg``'s model from a numpy
-    seed; padded query heads zeroed as both inits zero them."""
-    tree = _numpy_tree(param_shapes(tcfg), seed)
-    mask = head_mask(tcfg)
-    if mask is not None:
-        m = mask.numpy()
-        tree["layers"]["attn"]["wq"][:, :, ~m] = 0
-        tree["layers"]["attn"]["wo"][:, ~m] = 0
-    return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
-
-
 _MODELS = {}
 
 
@@ -111,7 +81,7 @@ def _models(name):
     if name not in _MODELS:
         jcfg = jconfigs.get_smoke(name).replace(dtype="float32")
         tcfg = tconfigs.get_smoke(name).replace(dtype="float32")
-        jp, tp = _weights(tcfg, 2)
+        jp, tp = both_trees(tcfg, 2)
         _MODELS[name] = (jcfg, jbuild(jcfg, q_block=8), jp, tcfg,
                          tbuild(tcfg), tp)
     return _MODELS[name]
@@ -119,7 +89,7 @@ def _models(name):
 
 def _moe_layer(cfg, seed):
     """One unstacked MoE layer's params for the reference and the port."""
-    tree = _numpy_tree(tmoe.moe_param_shapes(cfg, 1), seed, unstack=True)
+    tree = numpy_tree(tmoe.moe_param_shapes(cfg, 1), seed, unstack=True)
     return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
 
 
@@ -190,6 +160,46 @@ def test_route_and_combine_match_reference(case):
     ygot = tmoe.combine(_t(out)[None], (gslot, gtok, gorder), gw, gkeep, t, k)
     np.testing.assert_allclose(ygot[0].numpy(), np.asarray(ywant),
                                **ROUTE_TOL)
+
+
+@pytest.mark.parametrize("groups,t", [(1, 12), (3, 5)])
+def test_dispatch_gathers_each_copy_once(groups, t):
+    """``route``'s dispatch buffer equals a gather of each token's row by
+    its token index (``order // k``), bit for bit, and gives the same
+    input gradient; its backward writes the gradient rows by ``order``, a
+    permutation, and runs no scatter-add (atomics on the card: a
+    different sum each run), as that gather's backward does."""
+    cfg = tconfigs.get_smoke("deepseek-moe-16b").replace(dtype="float32")
+    e, k, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
+    rng = np.random.default_rng(t)
+    xg = _t(rng.standard_normal((groups, t, d)).astype(np.float32))
+    xg.requires_grad_()
+    logits = _t(rng.standard_normal((groups, t, e)).astype(np.float32))
+    cap = tmoe.capacity_for(cfg, t)
+    dispatch, (slot, tok, order), *_ = tmoe.route(xg, logits, cfg, cap)
+    assert torch.equal(order.sort(dim=-1).values,
+                       torch.arange(t * k).expand(groups, t * k))
+    src = xg.gather(1, tok[..., None].expand(groups, t * k, d))
+    buf = torch.zeros((groups, e * cap + 1, d)).scatter(
+        1, slot[..., None].expand(groups, t * k, d), src)
+    want = buf[:, :-1].reshape(groups, e, cap, d)
+    assert torch.equal(dispatch, want)
+    w = _t(rng.standard_normal(tuple(want.shape)).astype(np.float32))
+
+    def backward_ops(y):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            (g,) = torch.autograd.grad((y * w).sum(), xg)
+        return g, {e.key for e in prof.key_averages()}
+
+    got_g, got_ops = backward_ops(dispatch)
+    want_g, want_ops = backward_ops(want)
+    torch.testing.assert_close(got_g, want_g, rtol=1e-6, atol=1e-6)
+    assert float(got_g.abs().max()) > 0
+    adds = {"aten::scatter_add", "aten::scatter_add_", "aten::index_add",
+            "aten::index_add_", "aten::index_put_"}
+    assert want_ops & adds, sorted(want_ops)
+    assert not got_ops & adds, sorted(got_ops & adds)
 
 
 def test_top_k_breaks_ties_toward_the_lower_index():
@@ -292,7 +302,7 @@ def test_train_loss_and_gradients_match_reference(name):
     jloss = jstep.make_loss_fn(jm, jstep.StepConfig(**scfg))
     want, wg = jax.value_and_grad(jloss)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
-    _, tp = _weights(tcfg, 2)
+    _, tp = both_trees(tcfg, 2)
     for x in topt.tree_leaves(tp):
         x.requires_grad_()
     loss = tstep.make_loss_fn(tm, tstep.StepConfig(**scfg))(
@@ -411,7 +421,7 @@ def test_head_padding_is_an_exact_no_op():
     jpad, tpad = jcfg.adapt_for_mesh(3), tcfg.adapt_for_mesh(3)
     assert tpad.q_heads == jpad.q_heads == 12
     jm = jbuild(jpad, q_block=8)
-    jp, tp = _weights(tpad, 4)
+    jp, tp = both_trees(tpad, 4)
     batch = _batch(jcfg, 2, 9, 11)
     want, _ = jm.forward(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     got, _ = tbuild(tpad).forward(tp, {k: _t(v) for k, v in batch.items()})

@@ -46,7 +46,6 @@ from repro import configs as jconfigs
 from repro.launch.mesh import make_host_mesh as jmesh
 from repro.models import build_model as jbuild
 from repro.models import moe as jmoe
-from repro.models.common import ParamBuilder
 from repro.parallel.sharding import Sharder as JSharder
 from repro.train import optimizer as jopt
 from repro.train import step as jstep
@@ -60,11 +59,11 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import abstract_params
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import moe as tmoe
-from repro_torch.models.transformer import param_shapes
 from repro_torch.parallel.sharding import NamedSharding, Sharder
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as tstep
 from torch_dist_worker import SRC, one_rank, spawn
+from torch_weights import model_tree, numpy_tree
 
 OPT = dict(lr=1e-2)
 # the 4-rank mesh's shape, for the one-process side
@@ -120,9 +119,7 @@ def _moe_setup(capacity_factor=None):
     if capacity_factor is not None:
         jcfg = jcfg.replace(capacity_factor=capacity_factor)
         tcfg = tcfg.replace(capacity_factor=capacity_factor)
-    pb = ParamBuilder(jax.random.key(0))
-    jmoe.moe_init(pb, jcfg, None)
-    p = jax.tree.map(np.asarray, pb.params)
+    p = numpy_tree(tmoe.moe_param_shapes(tcfg, 1), 0, unstack=True)
     rng = np.random.default_rng(0)
     x = (rng.normal(size=(4, 16, jcfg.d_model)) * 0.3).astype(np.float32)
     r = rng.normal(size=x.shape).astype(np.float32)
@@ -352,18 +349,7 @@ def test_sharded_step_at_one_rank_matches_reference(tmp_path):
     step on ``make_host_mesh()`` must do the same."""
     jcfg = jconfigs.get_smoke("deepseek-moe-16b").replace(dtype="float32")
     tcfg = tconfigs.get_smoke("deepseek-moe-16b").replace(dtype="float32")
-    rng = np.random.default_rng(1)
-
-    def make(spec):
-        if isinstance(spec, dict):
-            return {k: make(v) for k, v in spec.items()}
-        shape, fan_in = spec
-        if fan_in is None:
-            return np.zeros(shape, np.float32)
-        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
-            np.float32)
-
-    p = make(param_shapes(tcfg))
+    p = model_tree(tcfg, 1)
     opt = dict(lr=1e-3, warmup_steps=2, total_steps=10)
     mesh = jmesh()
     jm = jbuild(jcfg, mesh, q_block=8)

@@ -14,6 +14,10 @@ every greedy choice).
 - Each model's ``forward``, ``prefill`` in chunks at ``start_pos`` (1-token
   chunks included) and ``decode_step`` at per-row positions, with every
   state leaf.
+- The whole train step: the loss and every gradient against
+  ``jax.value_and_grad`` of the reference's loss, and three steps of
+  ``make_train_step`` against the jitted reference step; the SSD's and
+  mLSTM's gradients over a long chunk, where the reference's are NaN.
 - ``pow2_chunks``; a chunked prefill equal to a whole one.
 - The reference's ``tests/test_recurrent_serving.py`` properties inside the
   port: batched decode equal to one request at a time, slot reuse leaking
@@ -39,6 +43,7 @@ import torch
 
 from repro import configs as jconfigs
 from repro.core import hw as jhw
+from repro.data import pipeline as jpipe
 from repro.models import build_model as jbuild
 from repro.models import mamba2 as jmamba
 from repro.models import whisper as jwhisper
@@ -47,8 +52,9 @@ from repro.parallel.sharding import Sharder
 from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.queue import Request as JRequest
 from repro.serve.step import pow2_chunks as jpow2_chunks
+from repro.train import optimizer as jopt
+from repro.train import step as jstep
 from repro_torch import configs as tconfigs
-from repro_torch.bridge import params_from_numpy
 from repro_torch.core.hw import H100_SXM
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model as tbuild
@@ -59,6 +65,9 @@ from repro_torch.models import xlstm as txlstm
 from repro_torch.models.registry import serving_caps
 from repro_torch.serve.engine import ContinuousEngine, Request
 from repro_torch.serve.step import pow2_chunks
+from repro_torch.train import optimizer as topt
+from repro_torch.train import step as tstep
+from torch_weights import both_trees
 
 REL = 1e-4
 ARCHES = ["xlstm-1.3b", "zamba2-1.2b", "whisper-small"]
@@ -106,25 +115,6 @@ def _close_tree(tree, jtree, what=""):
         _close(a, b, what=f"{what} leaf {i}")
 
 
-def _numpy_tree(spec, seed):
-    """Numpy weights for a (shape, fan_in) tree: N(0, 1/fan_in), zero where
-    fan_in is None, one where it is "ones"."""
-    rng = np.random.default_rng(seed)
-
-    def make(leaf):
-        if isinstance(leaf, dict):
-            return {k: make(v) for k, v in leaf.items()}
-        shape, fan_in = leaf
-        if fan_in is None:
-            return np.zeros(shape, np.float32)
-        if fan_in == "ones":
-            return np.ones(shape, np.float32)
-        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
-            np.float32)
-
-    return make(spec)
-
-
 def _randn(rng, *shape, scale=1.0):
     return (scale * rng.standard_normal(shape)).astype(np.float32)
 
@@ -138,9 +128,8 @@ def _models(name):
     if name not in _MODELS:
         jcfg = jconfigs.get_smoke(name).replace(dtype="float32")
         tcfg = tconfigs.get_smoke(name).replace(dtype="float32")
-        tree = _numpy_tree(SHAPES[name](tcfg), 2)
-        _MODELS[name] = (jcfg, jbuild(jcfg), jax.tree.map(jnp.asarray, tree),
-                         tcfg, tbuild(tcfg), params_from_numpy(tree, "cpu"))
+        jp, tp = both_trees(tcfg, 2)
+        _MODELS[name] = (jcfg, jbuild(jcfg), jp, tcfg, tbuild(tcfg), tp)
     return _MODELS[name]
 
 
@@ -357,6 +346,78 @@ def test_ssd_chunkwise_matches_reference_and_steps(chunk):
     _close(tS1, jS1, what="step S")
 
 
+def _long_chunk(kind, t):
+    """(port function, reference function, inputs, states) of a chunkwise
+    form over ``t`` tokens whose summed log decays pass ~88 within it."""
+    if kind == "mlstm":
+        q, k, v, logi, logf, C, n = _mlstm_inputs(3, b=1, t=t, nh=2, dh=4)
+        return (txlstm.mlstm_chunkwise, jxlstm.mlstm_chunkwise,
+                [q, k, v, logi, logf], [C, n])
+    rng = np.random.default_rng(7)
+    b, h, p, n = 1, 2, 4, 3
+    x = _randn(rng, b, t, h, p)
+    bm, cm = _randn(rng, b, t, n), _randn(rng, b, t, n)
+    dt = np.logaddexp(0, _randn(rng, b, t, h)).astype(np.float32)
+    a = -np.exp(_randn(rng, h, scale=0.5))
+    return (tmamba.ssd_chunkwise, jmamba.ssd_chunkwise,
+            [x, bm, cm, dt, a], [_randn(rng, b, h, n, p)])
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "ssd"])
+def test_chunkwise_gradients_over_a_long_chunk(kind):
+    """One 256-token chunk, over which the summed log decays pass ~88
+    above the diagonal, and the same inputs in 16-token chunks (each of
+    whose decays stays small, so the gradient runs through the state
+    carried between chunks). The port's forward is the reference's at
+    both, and its gradient with respect to every input, at both, is the
+    reference's in 16-token chunks: the same function of the inputs. The
+    reference exponentiates before it masks, so its own gradient over
+    the long chunk is NaN: the one place the port departs from it."""
+    t = 256
+    fn, jfn, xs, states = _long_chunk(kind, t)
+    rng = np.random.default_rng(8)
+    jcall = [jnp.asarray(a) for a in xs]
+    jst = tuple(map(jnp.asarray, states))
+
+    def args():
+        leaves = [_t(a).requires_grad_() for a in xs + states]
+        return leaves, (*leaves[:len(xs)], tuple(leaves[len(xs):])
+                        if kind == "mlstm" else leaves[-1])
+
+    def jgrad(chunk, weights):
+        def jloss(*flat):
+            st_in = (tuple(flat[len(xs):]) if kind == "mlstm"
+                     else flat[-1])
+            yy, ss = jfn(*flat[:len(xs)], st_in, chunk=chunk)
+            o = [yy] + (list(ss) if kind == "mlstm" else [ss])
+            return sum((oo * jnp.asarray(_np(w))).sum()
+                       for oo, w in zip(o, weights))
+        return jax.grad(jloss, argnums=tuple(range(len(xs + states))))(
+            *jcall, *jst)
+
+    weights = None
+    grads = {}
+    for chunk in (t, 16):
+        leaves, call = args()
+        y, st = fn(*call, chunk=chunk)
+        outs = [y] + (list(st) if kind == "mlstm" else [st])
+        if weights is None:
+            weights = [_t(_randn(rng, *o.shape)) for o in outs]
+        sum(((o * w).sum() for o, w in zip(outs, weights))).backward()
+        grads[chunk] = [x.grad for x in leaves]
+        jy, _ = jfn(*jcall, jst if kind == "mlstm" else jst[0], chunk=chunk)
+        _close(y, jy, what=f"y at chunk {chunk}")
+    assert not all(np.isfinite(np.asarray(g)).all()
+                   for g in jgrad(t, weights))
+    want = jgrad(16, weights)
+    for i, jg in enumerate(want):
+        assert np.isfinite(np.asarray(jg)).all(), f"reference input {i}"
+        for chunk in (t, 16):
+            g = grads[chunk][i]
+            assert bool(torch.isfinite(g).all()), f"input {i}, chunk {chunk}"
+            _close(g, jg, what=f"gradient of input {i} at chunk {chunk}")
+
+
 @pytest.mark.parametrize("t,with_state", [(8, False), (8, True), (1, True)])
 def test_mamba_block(t, with_state):
     jcfg, _, jp, tcfg, tm, tp = _models("zamba2-1.2b")
@@ -428,6 +489,88 @@ def test_forward_matches_reference(name):
     tl, taux = tm.forward(tp, {k: _t(v) for k, v in batch.items()})
     _close(tl, jl, what="logits")
     assert taux == jaux == 0.0
+
+
+def _train_batches(cfg, n, batch, seq):
+    """``n`` of the reference pipeline's step-indexed batches (whisper's
+    with frames): the same arrays feed both sides."""
+    data = jpipe.SyntheticTokens(jpipe.DataConfig(
+        seed=4, vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch),
+        cfg)
+    return [data.batch(i) for i in range(n)]
+
+
+@pytest.mark.parametrize("name", ARCHES)
+def test_train_loss_and_gradients_match_reference(name):
+    """The train step's loss and every parameter's gradient against
+    ``jax.value_and_grad`` of the reference's loss, remat on (the mLSTM
+    and Mamba2 layers and whisper's layers recomputed in the backward;
+    xlstm's sLSTM token loop and zamba2's shared attention outside the
+    checkpoint): every leaf within 1e-4 of the reference's gradient,
+    relative and of its max|g|, and nonzero."""
+    jcfg, jm, jp, tcfg, tm, _ = _models(name)
+    (batch,) = _train_batches(jcfg, 1, 2, 24)
+    jloss = jstep.make_loss_fn(jm, jstep.StepConfig())
+    want, wg = jax.value_and_grad(jloss)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    _, tp = both_trees(tcfg, 2)                 # a copy this test may mark
+    for x in topt.tree_leaves(tp):
+        x.requires_grad_()
+    loss = tstep.make_loss_fn(tm, tstep.StepConfig())(
+        tp, {k: _t(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-4)
+    jflat = jax.tree_util.tree_flatten_with_path(wg)[0]
+    tflat = jax.tree.leaves(tp, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert len(jflat) == len(tflat)
+    for (path, w), g in zip(jflat, tflat):
+        what = jax.tree_util.keystr(path)
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            _np(g.grad), w, rtol=1e-4,
+            atol=1e-4 * max(float(np.abs(w).max()), 1e-30), err_msg=what)
+        assert float(g.grad.abs().max()) > 0, f"{what}: zero gradient"
+
+
+# the dense family's optimizer (``tests/test_torch_train.py``), and the
+# same at lr 1e-4, where ``tests/test_torch_parallel.py`` holds these
+# families' sharded trajectory
+TRAIN_OPTS = [dict(lr=1e-3, warmup_steps=2, total_steps=10),
+              dict(lr=1e-4, warmup_steps=2, total_steps=10)]
+
+
+@pytest.mark.parametrize("opt", TRAIN_OPTS, ids=lambda o: f"lr{o['lr']:g}")
+@pytest.mark.parametrize("name", ARCHES)
+def test_train_step_matches_reference_over_three_steps(name, opt):
+    """Three steps of ``make_train_step`` (2 microbatches, AdamW) against
+    the jitted reference step on the same weights and batches: loss, grad
+    norm and lr within 1e-4 relative at every step; every parameter
+    within twice the summed learning rate, and at most 1e-4 of the
+    elements more than 2e-5 apart."""
+    jcfg, jm, jp, tcfg, tm, _ = _models(name)
+    scfg = dict(num_microbatches=2)
+    jfn = jax.jit(jstep.make_train_step(jm, jopt.OptConfig(**opt),
+                                        jstep.StepConfig(**scfg)))
+    jst = jstep.TrainState(jp, jopt.init_opt_state(jp))
+    tfn = tstep.make_train_step(tm, topt.OptConfig(**opt),
+                                tstep.StepConfig(**scfg))
+    _, tp = both_trees(tcfg, 2)
+    tst = tstep.TrainState(tp, topt.init_opt_state(tp))
+    for i, batch in enumerate(_train_batches(jcfg, 3, 4, 16)):
+        jst, jmet = jfn(jst, batch)
+        tst, tmet = tfn(tst, {k: _t(x) for k, x in batch.items()})
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                       rtol=1e-4, err_msg=f"step {i} {k}")
+    lr_sum = sum(float(topt.lr_schedule(topt.OptConfig(**opt),
+                                        torch.tensor(i))) for i in (1, 2, 3))
+    diffs = np.concatenate([
+        np.abs(_np(g) - np.asarray(w)).ravel() for w, g in zip(
+            jax.tree.leaves(jst.params), jax.tree.leaves(
+                tst.params, is_leaf=lambda x: isinstance(x, torch.Tensor)))])
+    assert diffs.max() <= 2 * lr_sum, diffs.max()
+    assert (diffs > 2e-5).mean() <= 1e-4, (diffs > 2e-5).sum()
+    assert int(tst.opt.step) == 3
 
 
 @pytest.mark.parametrize("name", ARCHES)

@@ -1,7 +1,8 @@
 """The port's continuous engine: inside the port (prefix hit == cold
 prefill, copy-on-write isolation, the joule partition, the CLI) and against
-the reference engine on the same requests, with the reference's weights
-bridged across, both in f32 and with the same ``DeviceSpec`` values.
+the reference engine on the same requests, with the same weights on both
+sides (drawn from a numpy seed: ``torch_weights``), both in f32 and with
+the same ``DeviceSpec`` values.
 
 The engines agree on what a run decides — completions, sheds, finish
 reasons, token counts, signature/compile counts and the tokens themselves.
@@ -10,7 +11,6 @@ inside one run: per-request joules partition the slot-tag energy to 1e-6 J.
 """
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -21,11 +21,11 @@ from repro.models import build_model as jbuild
 from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.queue import Request as JRequest
 from repro_torch import configs as tconfigs
-from repro_torch.bridge import params_from_numpy
 from repro_torch.core.hw import H100_SXM
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build_model as tbuild
 from repro_torch.serve.engine import ContinuousEngine, Request
+from torch_weights import both_trees
 
 MAX_SEQ = 48
 
@@ -35,8 +35,7 @@ def models():
     jcfg = jconfigs.get_smoke("granite-20b").replace(dtype="float32")
     tcfg = tconfigs.get_smoke("granite-20b").replace(dtype="float32")
     jm = jbuild(jcfg, q_block=8)
-    jp, _ = jm.init(jax.random.key(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    jp, tp = both_trees(tcfg, 0)
     return jcfg, jm, jp, tcfg, tbuild(tcfg), tp
 
 
@@ -67,7 +66,22 @@ def both_runs(models):
     return jreqs, jstats, treqs, tstats, eng
 
 
-def test_engine_matches_reference(both_runs):
+def _margins(models, req, out, step):
+    """The top-2 logit margin of each model where two outputs part: its
+    forward over the prompt and the ``step`` tokens both emitted before.
+    A margin near 0 on either side is a tie, not a port fault."""
+    _, jm, jp, _, tm, tp = models
+    toks = np.concatenate([req.prompt, np.asarray(out[:step], np.int32)])
+    toks = toks[None].astype(np.int32)
+    jl = np.asarray(jm.forward(jp, {"tokens": toks})[0])[0, -1]
+    with torch.no_grad():
+        tl = tm.forward(tp, {"tokens": torch.from_numpy(toks)})[0][0, -1]
+    top = [np.sort(np.asarray(x, np.float64))[-2:] for x in (jl, tl.numpy())]
+    return {k: float(t[1] - t[0]) for k, t in zip(("reference", "port"),
+                                                   top)}
+
+
+def test_engine_matches_reference(models, both_runs):
     # the reference's pool-maintenance counts (zero_blocks, copy_block) are
     # left out: they jit module-level functions, whose executables another
     # test in the same process may already have compiled
@@ -85,7 +99,13 @@ def test_engine_matches_reference(both_runs):
         assert a.finish_reason == b.finish_reason
         assert a.cached_prompt_tokens == b.cached_prompt_tokens
         assert len(a.output) == len(b.output)
-        assert a.output == b.output, f"req {a.req_id}"
+        if a.output != b.output:
+            step = next(i for i, (x, y) in enumerate(zip(a.output, b.output))
+                        if x != y)
+            raise AssertionError(
+                f"req {a.req_id}: token {step} is {a.output[step]} in the "
+                f"port, {b.output[step]} in the reference; top-2 logit "
+                f"margins there {_margins(models, a, a.output, step)}")
 
 
 def test_joules_partition_slot_tag_energy(both_runs):

@@ -9,7 +9,6 @@ compared only inside one run.
 """
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -21,11 +20,11 @@ from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.queue import Request as JRequest
 from repro_torch import configs as tconfigs
-from repro_torch.bridge import params_from_numpy
 from repro_torch.core.hw import H100_SXM
 from repro_torch.models import build_model as tbuild
 from repro_torch.serve.engine import ContinuousEngine, Request, ServeEngine
 from repro_torch.serve.step import make_decode_step, make_paged_decode_step
+from torch_weights import both_trees
 
 MAX_SEQ = 48
 JDEV = jhw.DeviceSpec(**dataclasses.asdict(H100_SXM))
@@ -36,8 +35,7 @@ def models():
     jcfg = jconfigs.get_smoke("granite-20b").replace(dtype="float32")
     tcfg = tconfigs.get_smoke("granite-20b").replace(dtype="float32")
     jm = jbuild(jcfg, q_block=8)
-    jp, _ = jm.init(jax.random.key(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    jp, tp = both_trees(tcfg, 0)
     return jm, jp, tbuild(tcfg), tp
 
 

@@ -43,6 +43,7 @@ from repro_torch.train.optimizer import (OptConfig, abstract_opt_state,
                                          tree_map)
 from repro_torch.train.step import ShardedTrainStep, StepConfig, TrainState
 from torch_dist_worker import spawn
+from torch_weights import numpy_tree
 
 TP = 4
 
@@ -53,16 +54,6 @@ class _Partial(TensorParallel):
 
     def sum(self, x):
         return x
-
-
-def _numpy_weights(spec, rng):
-    if isinstance(spec, dict):
-        return {k: _numpy_weights(v, rng) for k, v in spec.items()}
-    shape, fan_in = spec
-    if fan_in is None:
-        # the norm scales: small, not zero, so that they count
-        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
-    return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
 
 
 def tp_layer(cfg, p, x, positions, is_global, size):
@@ -95,7 +86,8 @@ def test_tp_layer_partials_sum_to_the_reference_layer(arch, over, is_global,
     jcfg = jconfigs.get_smoke(arch).replace(**kw)
     cfg = tconfigs.get_smoke(arch).replace(**kw)
     rng = np.random.default_rng(11)
-    p = _numpy_weights(_dense_layer_shapes(cfg, (), cfg.d_ff), rng)
+    # the norm scales small, not zero, so that they count
+    p = numpy_tree(_dense_layer_shapes(cfg, (), cfg.d_ff), rng, norms=0.1)
     s = 48                                  # past gemma3's 32-token window
     x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
     h_local = cfg.q_heads // TP

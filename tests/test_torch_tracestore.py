@@ -25,7 +25,6 @@ import subprocess
 import sys
 import types
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -42,6 +41,7 @@ from repro_torch.core.probe import MAX_PD_WATTS
 from repro_torch.launch import replay as treplay_cli
 from repro_torch.models import build_model as tbuild
 from repro_torch.serve.engine import ContinuousEngine, Request
+from torch_weights import both_trees
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("repro", "repro_torch")
@@ -472,7 +472,7 @@ def test_reference_replay_reclips_reports_above_the_probe_limit(tmp_path):
     same trace gives the live joules."""
     cfg = jconfigs.get_smoke("granite-20b")
     model = jbuild(cfg, q_block=8)
-    params, _ = model.init(jax.random.key(0))
+    params, _ = both_trees(cfg, 0)
     rng = np.random.default_rng(0)
     reqs = [JRequest(i, rng.integers(0, cfg.vocab_size, 8).astype(np.int32),
                      max_new_tokens=3 + (i % 3) * 3) for i in range(5)]

@@ -35,11 +35,11 @@ from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.launch import train as ttrain
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import common as tc
-from repro_torch.models.transformer import param_shapes
 from repro_torch.obs import validate_chrome_trace
 from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as tstep
+from torch_weights import model_tree
 
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 
@@ -224,29 +224,11 @@ def test_flash_without_a_gradient_stays_off_the_function():
 # the model under a gradient, and the train step against the reference
 
 
-def _numpy_params(cfg, seed):
-    """Weights for both sides from a numpy seed: N(0, 1/fan_in), zero norm
-    scales, in the reference's tree (the port's ``param_shapes`` names it
-    leaf for leaf: ``tests/test_torch_model.py``)."""
-    rng = np.random.default_rng(seed)
-
-    def make(spec):
-        if isinstance(spec, dict):
-            return {k: make(v) for k, v in spec.items()}
-        shape, fan_in = spec
-        if fan_in is None:
-            return np.zeros(shape, np.float32)
-        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
-            np.float32)
-
-    return make(param_shapes(cfg))
-
-
 @pytest.fixture(scope="module", params=["granite-20b", "gemma3-27b"])
 def bridged(request):
     jcfg = jconfigs.get_smoke(request.param).replace(dtype="float32")
     tcfg = tconfigs.get_smoke(request.param).replace(dtype="float32")
-    return jcfg, jbuild(jcfg, q_block=8), _numpy_params(tcfg, 0), tcfg
+    return jcfg, jbuild(jcfg, q_block=8), model_tree(tcfg, 0), tcfg
 
 
 def test_forward_and_gradients_match_reference(bridged):

@@ -31,25 +31,10 @@ from repro_torch.models.transformer import layer_flags, param_shapes
 from repro_torch.serve.engine import ContinuousEngine, Request, ServeEngine
 from repro_torch.serve.step import (make_decode_step, make_slot_prefill,
                                     pad_to_bucket, prefill_buckets)
+from torch_weights import numpy_tree
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 MAX_SEQ = 64
-
-
-def _numpy_weights(spec, rng):
-    """N(0, 1/fan_in) weights of a (shape, fan_in) spec tree from a numpy
-    generator (zeros for fan_in None, ones for ``"ones"``): the same draw
-    on every process, where the reference's ``init`` folds ``hash(name)``
-    into each key and so draws other weights under each hash seed."""
-    if isinstance(spec, dict):
-        return {k: _numpy_weights(v, rng) for k, v in spec.items()}
-    shape, fan_in = spec
-    if fan_in is None:
-        return np.zeros(shape, np.float32)
-    if fan_in == "ones":
-        return np.ones(shape, np.float32)
-    return (rng.standard_normal(shape) / np.sqrt(max(fan_in, 1))).astype(
-        np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +42,7 @@ def models():
     jcfg = jconfigs.get_smoke("gemma3-27b").replace(dtype="float32")
     tcfg = tconfigs.get_smoke("gemma3-27b").replace(dtype="float32")
     jm = jbuild(jcfg, q_block=8)
-    p = _numpy_weights(param_shapes(tcfg), np.random.default_rng(1))
+    p = numpy_tree(param_shapes(tcfg), 1)
     jp = jax.tree.map(jnp.asarray, p)
     tp = params_from_numpy(p, "cpu")
     return jcfg, jm, jp, tcfg, tbuild(tcfg), tp
