@@ -99,9 +99,44 @@ Phases, each of which must pass (any failure exits non-zero):
               same weights (the four long requests in one batch of 4, 16
               tokens each). With gemma3 freed, the planned flash call is
               held as in 2 at every shape the two serves gave it.
-8. dense    — qwen3-32b and deepseek-coder-33b at their published widths,
-              the depth cut to 4 layers: a short continuous serve each on
-              the paged path (qk_norm and their GQA heads on the card).
+8. dense    — qwen3-32b and deepseek-coder-33b at their published widths
+              and depths (64 and 62 layers, 65.5 and 66.7 GB of bf16
+              weights): a short continuous serve each on the paged path
+              (qk_norm and their GQA heads on the card), a flash launch
+              a layer a prefill.
+8b. serve_long — the reference grid's 32k cells, whole models at max_seq
+              32768 (prefill_32k's length, decode at decode_32k's
+              positions; batches cut to 4), each freed before the next,
+              4 prompts of 32736 tokens and 32 new tokens from numpy seed
+              0. First the dry-run's counts (meta device) of each: its
+              decode step at batch 4 x 32768 and a one-row 32768-token
+              prefill (zamba2's largest chunk too); a model serves at
+              batch 4 where the count leaves 5 % of 80 GB free, else at
+              batch 2. (a) granite-20b on the paged path, requests 1-3
+              sharing request 0's first 16384 tokens: 3 prefix hits, each
+              tail in the 16384 bucket at q_offset 16384; gates as 5 (52
+              flash launches a prefill on wgmma at the cold bucket's and
+              the tails' shapes); then the profile of one cold
+              32768-token prefill (kernels only) and the dry-run's count
+              of a decode step at position 32767 on a contiguous cache of
+              4 x 32768 against the card's (FLOPs equal, peak within 10 %
+              of max_memory_allocated). (b) gemma3-27b on its window rings
+              (no prefix cache), gates as 7 (62 launches a prefill, 52
+              windowed, at the shapes the buckets give). (c) zamba2-1.2b
+              through the recurrent-state adapter, 10 pow2 chunks a
+              prompt: gates as 9b (signatures within the pow2 sizes, 6
+              flash launches a chunk of S >= 2, a second serve on a fresh
+              engine the same tokens). Then two f32 holds (TF32 off,
+              weights from seed 0): granite-20b at 2 of 52 layers, the
+              four requests through the paged engine (prefix hits and
+              all) against each prompt through the contiguous path (a cold
+              prefill of the whole prompt on a flat cache, then 8 decode
+              steps fed the engine's tokens); zamba2-1.2b up to its first
+              shared-attention site (6 layers), one prompt's pow2 chunks
+              and 8 decode steps against the same prompt in 1024-token
+              chunks then its pow2 remainder: logits within 1e-3 of
+              max|logit|, a greedy choice differing only under that
+              margin.
 9. serve_moe — deepseek-moe-16b at its published width and depth (28
               layers: one dense, 27 with 64 routed experts top-6 and 2
               shared; 16.38 B bf16 params made on the card from a seed)
@@ -233,13 +268,20 @@ Phases, each of which must pass (any failure exits non-zero):
               the card under the same counter: FLOPs equal, 4 x 2 x 2
               flash launches on wgmma, the dry-run's peak within 10 % of
               max_memory_allocated; (b) (in the serve
-              phase, before granite is freed) granite-20b's decode_step
-              at full depth on a contiguous cache of batch 4 x 512: FLOPs
-              equal on meta and on the card, the memory term beside the
-              profile's device-busy time; (c) the depth cuts of PERF.md §4
+              phase, before granite is freed, and again in serve_long)
+              granite-20b's decode_step at full depth on a contiguous
+              cache of batch 4 x 512 at position 511 and of 4 x 32768 at
+              position 32767: FLOPs equal on meta and on the card, the
+              dry-run's peak within 10 % of max_memory_allocated, the
+              memory term beside the profile's device-busy time; (c) the
+              depth cuts of PERF.md §4
               against 80 GB (granite-20b trains at 4 layers, not at 52;
               internvl2-76b serves at 32 layers, not at 80; deepseek-moe-16b
-              whole; the train phase's other families: zamba2-1.2b,
+              whole; qwen3-32b and deepseek-coder-33b whole at the serve
+              phase's shape; serve_long's decode step at 4 x 32768 for
+              granite-20b, gemma3-27b and zamba2-1.2b; qwen3-32b's
+              one-row 32768-token prefill does not fit;
+              the train phase's other families: zamba2-1.2b,
               whisper-small and xlstm-1.3b whole, deepseek-moe-16b at 4
               layers, not 28, internvl2-76b at 1, not 2 or 80); (d) one production cell of each family on the 16 x 16
               mesh, each completing, granite-20b's train_4k fitting 80 GB
@@ -264,7 +306,7 @@ Phases, each of which must pass (any failure exits non-zero):
               granite-20b's train_4k tensor-parallel rank (q
               [1,3,4096,128], kv [1,1,4096,128], causal), at qwen3-32b's
               prefill_32k rank (q [2,4,32768,128], kv [2,1,32768,128],
-              causal; the plain version 4096 query rows at a time), and
+              causal), and
               zamba2-1.2b's train_4k and prefill_32k tensor-parallel ranks
               (q and kv [1,2,4096,64] and [2,2,32768,64], causal),
               deepseek-moe-16b's largest serve prefill (q [1,16,256,128]
@@ -277,7 +319,16 @@ Phases, each of which must pass (any failure exits non-zero):
               phase's other families gave flash under the gradient, at one
               microbatch (zamba2 [4,32,512,64], whisper's encoder
               [4,12,1500,64] and decoder [4,12,448,64], deepseek-moe
-              [4,16,512,128], internvl2 [2,64,512,128] over 8 KV heads), the ffma route at the
+              [4,16,512,128], internvl2 [2,64,512,128] over 8 KV heads),
+              serve_long's shapes over 32768 positions (granite-20b's cold
+              q [1,48,32768,128] and its tail [1,48,16384,128] at
+              q_offset 16384 over one KV head, gemma3-27b's global and
+              local layers at S 32768, zamba2-1.2b's first and last chunk
+              [1,32,16384,64] and [1,32,32,64] at q_offset 32704; the
+              plain version as many query rows at a time as keep its f32
+              scores within 4 GiB; each bf16 query row also held on its
+              own scale, a check that must fail the plain version with
+              one 64-key V tile zeroed), the ffma route at the
               f32 smoke model's prefill shape, STREAM at 128 MiB f32, dpa_matmul at 512^3
               and 4096^3, dpa4's transpose at 4096^2 on four inputs in
               turn, so that each call reads and writes past the L2 (with
@@ -456,6 +507,14 @@ FLASH_CASES = [
     (1, 32, 32, 64, 512, 64, True, None, 256),
 ]
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the timing rows also hold each bf16 query row on its own scale: max|got -
+# want| over a row within this share of the row's max|want|. One bf16 ulp
+# of an output is at most 2^-7 (7.8e-3) of it, so a kernel a rounding off
+# passes; past a few thousand keys a row's outputs are far under the
+# absolute tolerance (about N(0, e/n) over n keys), and this still fails
+# a kernel that drops one 64-key tile of V (``planted_tile``)
+FLASH_ROW_TOL = 1e-2
+FLASH_TILE = 64
 # the largest ratio ref.mask_margin may read (a mask one key off reads ~1)
 MASK_MARGIN = 0.25
 
@@ -1727,62 +1786,496 @@ def hold_window_shapes(shapes, label="hold_window"):
     return worst
 
 
-# qwen3-32b (qk_norm, 64 / 8 heads) and deepseek-coder-33b (56 / 8) at
-# their published widths, the depth cut to 4 layers
-DENSE_CUT = dict(layers=4, batch=4, max_seq=512, max_new=8, seed=0,
-                 lens=(30, 300), n=4)
+# qwen3-32b (qk_norm, 64 layers, 64 / 8 heads; 65.5 GB in bf16) and
+# deepseek-coder-33b (62 layers, 56 / 8; 66.7 GB) at their published
+# widths and depths: each fits one card whole (the dryrun phase's (c))
+DENSE = dict(batch=4, max_seq=512, max_new=8, seed=0, lens=(30, 300), n=4)
 
 
 def phase_serve_dense(card):
-    """A short continuous serve of each on the paged path, so that qk_norm
-    and their GQA shapes reach the flash kernel on the card."""
-    c = DENSE_CUT
+    """A short continuous serve of each, whole, on the paged path: qk_norm
+    and their GQA shapes on the flash kernel, a launch a layer a
+    prefill."""
+    c = DENSE
     for name in ("qwen3-32b", "deepseek-coder-33b"):
-        cfg, model, params = make_model(name, c["seed"], c["layers"])
+        cfg, model, params = make_model(name, c["seed"])
         short_serve("dense", cfg, model, params, card, c)
         del params, model
         free_card()
 
 
-def short_serve(label, cfg, model, params, card, c):
-    """``c["n"]`` requests of ``c["lens"]`` tokens from seed ``c["seed"]``,
-    ``c["max_new"]`` new each, through ContinuousEngine on the paged path
-    at batch ``c["batch"]``: every request at its budget, one decode
-    compile, one host sync a prefill and a decode step, every prefill layer
-    on flash's wgmma route, joules partitioned. Returns (stats, flash
-    launches)."""
+def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
+                warm=0):
+    """``reqs`` (None: ``c["n"]`` requests of ``c["lens"]`` tokens from
+    seed ``c["seed"]``, ``c["max_new"]`` new each) through ContinuousEngine
+    at batch ``c["batch"]`` x ``c["max_seq"]``, the flash counts and shapes
+    read around the serve, the peak memory reset before it: every request
+    complete at its budget, one decode compile, one host sync a prefill and
+    a decode step, every prefill launch on flash's wgmma route (``flash``:
+    stats -> (launches, windowed), None: a launch a layer a prefill, none
+    windowed), joules partitioned, every request's energy above 0, tokens
+    in vocab. ``warm``: first serve each request's first ``warm`` prompt
+    tokens (2 new) on an engine of the same shape, freed before the serve.
+    Returns dict(eng, stats, syncs, flash, routes, windowed, shapes,
+    peak)."""
     import numpy as np
+    import torch
     from repro_torch import configs
     from repro_torch.serve.engine import ContinuousEngine, Request
     name = cfg.name
-    rng = np.random.default_rng(c["seed"])
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(
-        rng.integers(*c["lens"]))).astype(np.int32),
-        max_new_tokens=c["max_new"]) for i in range(c["n"])]
-    eng = ContinuousEngine(model, params, batch_size=c["batch"],
-                           max_seq=c["max_seq"])
-    stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
-        lambda: eng.serve(reqs))
+    if reqs is None:
+        rng = np.random.default_rng(c["seed"])
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(
+            rng.integers(*c["lens"]))).astype(np.int32),
+            max_new_tokens=c["max_new"]) for i in range(c["n"])]
+    kw = dict(batch_size=c["batch"], max_seq=c["max_seq"])
+    if warm:
+        ContinuousEngine(model, params, telemetry=False, **kw).serve([
+            Request(r.req_id, r.prompt[:warm].copy(), max_new_tokens=2)
+            for r in reqs])
+        free_card()
+    eng = ContinuousEngine(model, params, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    with flash_shapes() as shapes:
+        stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
+            lambda: eng.serve(reqs))
+    peak = torch.cuda.max_memory_allocated()
+    want, want_windowed = (flash or (lambda st: (
+        cfg.num_layers * st["prefills"], 0)))(stats)
     log(f"[{label}] {name} ({cfg.num_layers} of "
-        f"{configs.get(name).num_layers} layers, batch {c['batch']}): flash "
-        f"launches {n_flash} by route {routes}")
+        f"{configs.get(name).num_layers} layers, batch {c['batch']} x "
+        f"{c['max_seq']}): flash launches {n_flash} by route {routes}, "
+        f"windowed {windowed}; shapes (B, H, Hkv, S, T, D, causal, window, "
+        f"q_offset): {sorted(shapes.items(), key=str)}")
     log_serve(label, stats, wall, reqs, card)
     check_all(label, {
-        f"{name}: every request at its budget": all(
-            len(r.output) == c["max_new"] for r in reqs),
+        f"{name}: every request complete at its budget": (
+            stats["completed"] == len(reqs) and all(
+                len(r.output) == r.max_new_tokens for r in reqs)),
         f"{name}: decode_compiles == 1": stats["decode_compiles"] == 1,
         f"{name}: host syncs == prefills + decode steps": (
             n_syncs == stats["prefills"] + stats["decode_steps"]),
-        f"{name}: flash launches == layers x prefills, all wgmma": (
-            n_flash == cfg.num_layers * stats["prefills"] > 0
-            and routes == {"wgmma": n_flash, "ffma": 0}
-            and windowed == 0),
+        f"{name}: flash launches == {want}, {want_windowed} windowed, all "
+        f"wgmma": (n_flash == want > 0
+                   and routes == {"wgmma": n_flash, "ffma": 0}
+                   and windowed == want_windowed),
         f"{name}: joule partition (1e-6 J)": (
             joule_partition_error(eng, reqs) <= 1e-6),
+        f"{name}: every request's energy > 0": all(
+            r.energy_j > 0 for r in reqs),
         f"{name}: tokens in vocab": all(
             0 <= t < cfg.vocab_size for r in reqs for t in r.output),
     })
-    return stats, n_flash
+    return dict(eng=eng, stats=stats, syncs=n_syncs, flash=n_flash,
+                routes=routes, windowed=windowed, shapes=dict(shapes),
+                peak=peak)
+
+
+# the reference grid's 32k cells served whole on the card
+# (``configs.base.SHAPES``): prefills at prefill_32k's sequence length, its
+# batch of 32 cut to 4, and decode at decode_32k's positions (32736 to
+# 32767), its batch of 128 cut to 4. 4 prompts of 32736 tokens and 32 new
+# tokens each from numpy seed 0; on granite-20b's paged path requests 1-3
+# share request 0's first 16384 tokens: 3 prefix hits, each tail 16352
+# tokens in the 16384 bucket at q_offset 16384, so the bucket ends on the
+# view's last position and no bucketed tail runs past it
+SERVE_LONG = dict(max_seq=32768, prompt=32736, shared=16384, n=4,
+                  max_new=32, batch=4, seed=0, warm=64,
+                  # the dry-run's count must leave this share of 80 GB free
+                  # for a serve at batch 4 (else batch 2)
+                  free_share=0.05,
+                  # the f32 holds: granite-20b at 2 of 52 layers and
+                  # zamba2-1.2b up to its first shared-attention site, 8
+                  # teacher-forced decode steps, the reference path's chunk
+                  hold=dict(layers=2, steps=8, chunk=1024))
+# the f32 holds' tolerance: max|logit diff| within this share of max|logit|
+LONG_LOGIT_TOL = 1e-3
+
+
+def long_requests(vocab, shared=0):
+    """``SERVE_LONG``'s 4 requests; with ``shared`` requests 1-3 begin
+    with request 0's first ``shared`` tokens."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    c = SERVE_LONG
+    rng = np.random.default_rng(c["seed"])
+    prompts = [rng.integers(0, vocab, c["prompt"]).astype(np.int32)
+               for _ in range(c["n"])]
+    for p in prompts[1:]:
+        p[:shared] = prompts[0][:shared]
+    return [Request(i, p, max_new_tokens=c["max_new"])
+            for i, p in enumerate(prompts)]
+
+
+def long_counts(arch):
+    """The dry-run's counts (one device, the meta device) of ``arch``'s 32k
+    serve and the batch they allow: the decode step at batch 4 over 32768
+    positions, a one-row 32768-token prefill (zamba2-1.2b's largest chunk,
+    16384 tokens, too); the serve's peak at batch b is the larger of the
+    decode step's and the one-row prefill's with b - 1 more rows of cache
+    beside it. Batch 4 where that leaves ``free_share`` of 80 GB free, else
+    batch 2. Returns (batch, {count: peak bytes})."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    c = SERVE_LONG
+    cells = phase_cells()
+    names = ["long_decode", "long_prefill"]
+    if arch == "zamba2-1.2b":
+        names.append("long_chunk")
+    peaks = {}
+    for name in names:
+        rec, _ = dryrun.analyze_cell(arch, cells[name], ONE_DEVICE)
+        peaks[name] = rec["analysis"]["peak_bytes"]
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel() * t.element_size()),
+             build_model(configs.get(arch)).init_cache(1, c["max_seq"],
+                                                       device="meta"))
+    row = sum(sizes)
+    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
+    peaks["serve_b4"] = max(peaks["long_decode"],
+                            peaks["long_prefill"] + 3 * row)
+    batch = 4 if peaks["serve_b4"] <= limit else 2
+    log(f"[serve_long] {arch} dry-run counts: decode step at batch 4 x "
+        f"{c['max_seq']} {peaks['long_decode'] / 1e9:.2f} GB, one-row "
+        f"{c['max_seq']}-token prefill {peaks['long_prefill'] / 1e9:.2f} GB"
+        + (f", its largest chunk (16384 tokens) "
+           f"{peaks['long_chunk'] / 1e9:.2f} GB" if "long_chunk" in peaks
+           else "")
+        + f", a row of cache {row / 1e9:.3f} GB; the serve at batch 4 "
+        f"{peaks['serve_b4'] / 1e9:.2f} GB against {limit / 1e9:.1f} GB "
+        f"(80 GB less {c['free_share']:.0%}): batch {batch}")
+    return batch, peaks
+
+
+def serve_long_granite(card, batch):
+    """(a) granite-20b whole on the paged path with the shared 16k prefix,
+    then the profile of one cold 32768-token prefill (kernels only) and
+    the dry-run's count of a decode step at position 32767 held against
+    the card's."""
+    import torch
+    from repro_torch.serve.step import bucket_for
+    c = SERVE_LONG
+    cfg, model, params = make_model("granite-20b", c["seed"])
+    reqs = long_requests(cfg.vocab_size, c["shared"])
+    r = short_serve("serve_long_granite", cfg, model, params, card,
+                    dict(c, batch=batch), reqs, warm=c["warm"])
+    stats, eng = r["stats"], r["eng"]
+    want_shapes = {(1, cfg.num_heads, cfg.num_kv_heads,
+                    bucket_for(len(q.prompt) - q.cached_prompt_tokens,
+                               eng.buckets), c["max_seq"], cfg.head_dim,
+                    True, None, q.cached_prompt_tokens) for q in reqs}
+    check_all("serve_long_granite", {
+        "prefix hits == 3": stats["prefix_cache"]["hits"] == 3,
+        "requests 1-3 served 16384 prompt tokens from the prefix cache": (
+            [q.cached_prompt_tokens for q in reqs]
+            == [0] + [c["shared"]] * 3),
+        "flash shapes == the cold bucket's and the tails' (q_offset "
+        "16384)": set(r["shapes"]) == want_shapes,
+    })
+    # every slot is free after the serve: the table row of null blocks
+    ad = eng.adapter
+    prompt = torch.zeros((1, c["max_seq"]), dtype=torch.int32,
+                         device=ad.device)
+    null_row = torch.zeros(ad.n_slot_blocks, dtype=torch.int32,
+                           device=ad.device)
+    prof = profile_steps("profile_long", {
+        "prefill (32768 tokens, cold)": lambda: ad._prefill_slot(
+            ad.params, prompt, c["max_seq"], 0, null_row, ad.caches)},
+        n=1, warm=False)
+    p = prof["prefill (32768 tokens, cold)"]
+    log(f"[profile_long] flash {p['flash_ms']:.3f} of {p['device_ms']:.3f} "
+        f"device ms: {p['flash_ms'] / p['device_ms']:.1%} of the cold "
+        f"32768-token prefill; card: {card}")
+    r["profile"] = prof
+    del eng, ad, prompt, null_row
+    r.pop("eng")
+    free_card()
+    r["dryrun"] = dryrun_decode(model, params, card, c["max_seq"],
+                                c["batch"])
+    del model, params
+    free_card()
+    return r
+
+
+def serve_long_gemma3(card, batch):
+    """(b) gemma3-27b whole on its window rings (no prefix cache: rings
+    cannot resume mid-stream), the 4 prompts unshared."""
+    from repro_torch.models.transformer import layer_flags as flags
+    c = SERVE_LONG
+    cfg, model, params = make_model("gemma3-27b", c["seed"])
+    reqs = long_requests(cfg.vocab_size)
+    n_local = int((~flags(cfg)).sum())
+    # 62 launches a prefill, the 52 local layers' windowed
+    r = short_serve("serve_long_gemma3", cfg, model, params, card,
+                    dict(c, batch=batch), reqs, warm=c["warm"],
+                    flash=lambda st: (cfg.num_layers * st["prefills"],
+                                      n_local * st["prefills"]))
+    stats, eng = r["stats"], r["eng"]
+    check_all("serve_long_gemma3", {
+        "adapter window-ring": stats["adapter"] == "window-ring",
+        "every prompt past the window, every decode on a wrapped ring": all(
+            len(q.prompt) > cfg.sliding_window for q in reqs),
+        "flash shapes == those the prompts' buckets give": (
+            set(r["shapes"]) == window_shapes(
+                cfg, 1, eng.buckets, [len(q.prompt) for q in reqs],
+                c["max_seq"])),
+    })
+    del eng, model, params
+    r.pop("eng")
+    free_card()
+    return r
+
+
+def serve_long_zamba2(card, batch):
+    """(c) zamba2-1.2b whole through the recurrent-state adapter: each
+    32736-token prompt in 10 pow2 chunks (16384 down to 32), then the same
+    requests on a fresh engine."""
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.step import pow2_chunks
+    c = SERVE_LONG
+    cfg, model, params = make_model("zamba2-1.2b", c["seed"])
+    reqs = long_requests(cfg.vocab_size)
+    chunks = [pow2_chunks(len(q.prompt)) for q in reqs]
+    bound = len({x for ch in chunks for x in ch})
+    sites, _ = recurrent_flash_sites(model)
+    # a launch a shared-attention site a chunk of 2 tokens or more
+    want_flash = sites * sum(x >= 2 for ch in chunks for x in ch)
+    r = short_serve("serve_long_zamba2", cfg, model, params, card,
+                    dict(c, batch=batch), reqs, warm=c["warm"],
+                    flash=lambda st: (want_flash, 0))
+    stats = r["stats"]
+    del r["eng"]
+    free_card()
+    again = long_requests(cfg.vocab_size)
+    ContinuousEngine(model, params, telemetry=False, batch_size=batch,
+                     max_seq=c["max_seq"]).serve(again)
+    same = [a.output == b.output for a, b in zip(reqs, again)]
+    log(f"[serve_long_zamba2] pow2 chunks {chunks[0]}; flash launches "
+        f"{r['flash']} (want {want_flash}); signatures {stats['compiles']};"
+        f" a second serve on a fresh engine: {sum(same)} of {len(same)} "
+        f"requests emit the same tokens")
+    check_all("serve_long_zamba2", {
+        "adapter recurrent": stats["adapter"] == "recurrent",
+        "each prompt 10 pow2 chunks": all(len(ch) == 10 for ch in chunks),
+        f"prefill signatures <= {bound} (pow2 chunk sizes)": (
+            0 < stats["prefill_compiles"] <= bound),
+        "state_scatter signatures == 1": (
+            stats["compiles"].get("state_scatter") == 1),
+        "two serves emit the same tokens": all(same),
+    })
+    del model, params
+    free_card()
+    return r
+
+
+def logit_hold(label, pairs):
+    """(got, want) logit vectors in f32: max|got - want| within
+    LONG_LOGIT_TOL of max|want| each, and a greedy choice that differs
+    only where want's top-2 margin is under that share (as
+    ``teacher_forced_check`` rules). Returns (worst share, choices under
+    the margin, choices that differ above it)."""
+    worst, under, differ = 0.0, 0, 0
+    for got, want in pairs:
+        scale = want.abs().max().item()
+        worst = max(worst, (got - want).abs().max().item() / scale)
+        top2 = want.topk(2).values
+        if (top2[0] - top2[1]).item() / scale <= LONG_LOGIT_TOL:
+            under += 1
+        elif int(got.argmax()) != int(want.argmax()):
+            differ += 1
+    log(f"[{label}] {len(pairs)} logit vectors: max|logit diff| "
+        f"{worst:.3e} of max|logit| (tol {LONG_LOGIT_TOL:g}); {under} with "
+        f"a top-2 margin under the tolerance; greedy choices that differ "
+        f"above it: {differ}")
+    check_all(label, {
+        f"logits within {LONG_LOGIT_TOL:g} of max|logit|":
+            worst <= LONG_LOGIT_TOL,
+        "no greedy choice differs above the margin": differ == 0})
+    return worst, under, differ
+
+
+def f32_model(arch, layers):
+    """(cfg, model, params): ``arch`` at its published width cut to
+    ``layers``, computing in f32 on f32 weights made on the card from
+    ``SERVE_LONG``'s seed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    cfg = configs.get(arch).replace(num_layers=layers, dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SERVE_LONG["seed"])
+    return cfg, model, model.init(gen, "cuda")
+
+
+def hold_long_granite(card):
+    """granite-20b at 2 of 52 layers in f32: the four requests of (a)
+    through the paged engine (prefix hits and all; its prefill and first
+    decode logits kept), then each prompt through the contiguous path (a
+    cold ``make_prefill_step`` of the whole prompt on a flat cache, then
+    ``make_decode_step`` fed the engine's first 8 tokens)."""
+    import torch
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    c, h = SERVE_LONG, SERVE_LONG["hold"]
+    cfg, model, params = f32_model("granite-20b", h["layers"])
+    reqs = long_requests(cfg.vocab_size, c["shared"])
+    eng = ContinuousEngine(model, params, batch_size=c["batch"],
+                           max_seq=c["max_seq"], telemetry=False)
+    ad = eng.adapter
+    slots, first, steps, kept = {}, {}, [], []
+    prefill, prefill_step, decode = ad.prefill, ad._prefill_slot, ad._decode
+
+    def on_prefill(slot_index, req):
+        out = prefill(slot_index, req)
+        slots[req.req_id], first[req.req_id] = slot_index, kept.pop()
+        return out
+
+    def on_prefill_step(*args):
+        out = prefill_step(*args)
+        kept.append(out[1][0, 0].float().clone())
+        return out
+
+    def on_decode(*args):
+        out = decode(*args)
+        if len(steps) < h["steps"]:
+            steps.append(out[1][:, 0].float().clone())
+        return out
+
+    ad.prefill, ad._prefill_slot, ad._decode = (on_prefill, on_prefill_step,
+                                                on_decode)
+    zero_flash_counts()
+    with torch.no_grad():
+        stats = eng.serve(reqs)
+    paged_flash = flash_counts()
+    del eng, ad
+    free_card()
+    prefill_c, decode_c = make_prefill_step(model), make_decode_step(model)
+    pairs = []
+    for q in reqs:
+        cache = model.init_cache(1, c["max_seq"], device="cuda")
+        with torch.no_grad():
+            lg, cache = prefill_c(params, {"tokens": torch.as_tensor(
+                q.prompt[None], device="cuda")}, cache)
+            pairs.append((first[q.req_id], lg[0, 0].float()))
+            for j in range(h["steps"]):
+                tok = torch.tensor([[q.output[j]]], dtype=torch.int32,
+                                   device="cuda")
+                _, lg, cache = decode_c(params, tok, len(q.prompt) + j,
+                                        cache)
+                pairs.append((steps[j][slots[q.req_id]], lg[0, 0].float()))
+        del cache
+    log(f"[hold_long_granite] {cfg.name} at {cfg.num_layers} of 52 layers "
+        f"in f32: the paged serve's prefix hits "
+        f"{stats['prefix_cache']['hits']}, cached "
+        f"{[q.cached_prompt_tokens for q in reqs]}, flash {paged_flash}; "
+        f"against the contiguous path, each prompt's last position and "
+        f"{h['steps']} teacher-forced decode steps; card: {card}")
+    check_all("hold_long_granite", {
+        "the paged serve took 3 prefix hits": (
+            stats["prefix_cache"]["hits"] == 3),
+        "every request decoded 8 steps in the first 8 batches": (
+            stats["completed"] == 4 and len(steps) == h["steps"]
+            and len(slots) == len(first) == 4)})
+    out = logit_hold("hold_long_granite", pairs)
+    del model, params, pairs, first, steps
+    free_card()
+    return out
+
+
+def hold_long_zamba2(card):
+    """zamba2-1.2b cut to its layers up to and including its first
+    shared-attention site, in f32: the engine's pow2-chunked prefill of one
+    32736-token prompt (``RecurrentStateAdapter``) and 8 greedy decode
+    steps, against the same prompt fed as 1024-token chunks and then its
+    pow2 remainder, decoded teacher-forced on the engine's tokens."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.serve.state import make_adapter
+    from repro_torch.serve.step import pow2_chunks
+    c, h = SERVE_LONG, SERVE_LONG["hold"]
+    cfg, model, params = f32_model("zamba2-1.2b",
+                                   configs.get("zamba2-1.2b").attn_every)
+    req = long_requests(cfg.vocab_size)[0]
+    n = len(req.prompt)
+
+    def adapter():
+        ad = make_adapter(model, params, batch_size=1, max_seq=c["max_seq"])
+        ad.ensure_ready()
+        return ad
+
+    def step(ad, tok, pos):
+        tok_t = torch.tensor([[tok]], dtype=torch.int32, device=ad.device)
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=ad.device)
+        nxt, logits, ad.caches = ad._decode(ad.params, tok_t, pos_t,
+                                            ad.caches)
+        return int(nxt[0, 0]), logits[0, 0].float()
+
+    with torch.no_grad():
+        ad = adapter()
+        chunk, last = ad._chunk, []
+
+        def kept(*args):
+            out = chunk(*args)
+            last[:] = [out[1][0, 0].float()]
+            return out
+
+        ad._chunk = kept
+        tok = ad.prefill(0, req).first_token
+        got, toks = list(last), []
+        for j in range(h["steps"]):
+            toks.append(tok)
+            tok, lg = step(ad, tok, n + j)
+            got.append(lg)
+        del ad, last
+        # a fresh adapter's carried state is its fresh template
+        ref = adapter()
+        sizes = [h["chunk"]] * (n // h["chunk"]) + pow2_chunks(n % h["chunk"])
+        tokens = torch.as_tensor(req.prompt[None], device="cuda")
+        off = 0
+        for size in sizes:
+            _, lg, _ = ref._chunk(ref.params, tokens[:, off:off + size], None,
+                                  off, ref._work)
+            off += size
+        ref.caches = ref._scatter(ref.caches, ref._work, 0)
+        want = [lg[0, 0].float()]
+        for j in range(h["steps"]):
+            want.append(step(ref, toks[j], n + j)[1])
+        del ref
+    log(f"[hold_long_zamba2] {cfg.name} at {cfg.num_layers} layers (sites "
+        f"{model.attn_sites}) in f32: a {n}-token prompt in pow2 chunks "
+        f"{pow2_chunks(n)} against {len(sizes)} chunks ({n // h['chunk']} x "
+        f"{h['chunk']}, then {pow2_chunks(n % h['chunk'])}), "
+        f"{h['steps']} decode steps; card: {card}")
+    out = logit_hold("hold_long_zamba2", list(zip(got, want)))
+    del model, params, got, want
+    free_card()
+    return out
+
+
+def phase_serve_long(card):
+    """The 32k cells: the dry-run's counts first, then granite-20b,
+    gemma3-27b and zamba2-1.2b whole at max_seq 32768, each freed before
+    the next, then the f32 holds."""
+    import torch
+    out = {}
+    for arch, part in (("granite-20b", serve_long_granite),
+                       ("gemma3-27b", serve_long_gemma3),
+                       ("zamba2-1.2b", serve_long_zamba2)):
+        batch, peaks = long_counts(arch)
+        out[arch] = part(card, batch)
+        out[arch]["counts"] = peaks
+        log(f"[serve_long] {arch}: peak max_memory_allocated "
+            f"{out[arch]['peak'] / 1e9:.2f} GB at batch {batch} (the count "
+            f"{peaks['serve_b4'] / 1e9:.2f} GB at batch 4); card: {card}")
+    # the f32 holds run with TF32 off, as ``main`` sets it for every phase
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("serve_long's f32 holds need TF32 off")
+    out["hold"] = {"granite-20b": hold_long_granite(card),
+                   "zamba2-1.2b": hold_long_zamba2(card)}
+    return out
 
 
 # deepseek-moe-16b at its published width and depth (28 layers: the first
@@ -1888,8 +2381,8 @@ def phase_serve_moe(card):
     cfg, model, params, eng, n_flash, shapes = serve_moe_model(
         SERVE_MOE["arch"], SERVE_MOE["seed"], card)
     with moe_drops() as seen:
-        b3_stats, _ = short_serve("serve_moe_b3", cfg, model, params, card,
-                                  MOE_B3)
+        b3_stats = short_serve("serve_moe_b3", cfg, model, params, card,
+                               MOE_B3)["stats"]
     drops = {key: (n, int(d)) for key, (n, d) in seen.items()}
     log("[serve_moe_b3] routed and dropped (token, expert) choices by "
         "routing shape (groups, tokens a group, capacity): " + "; ".join(
@@ -2288,8 +2781,8 @@ def phase_vlm(card):
         "flash at q [1,64,512,128], kv [1,8,512,128]": set(shapes) == {want_shape},
     })
     del logits, batch
-    _, n_serve = short_serve("vlm_serve", cfg, model, params, card,
-                             c["serve"])
+    n_serve = short_serve("vlm_serve", cfg, model, params, card,
+                          c["serve"])["flash"]
     del params, model
     return n_flash + n_serve, want_shape
 
@@ -3701,7 +4194,16 @@ DRYRUN = dict(
           ("deepseek-moe-16b", 4, "train_phase", True),
           ("internvl2-76b", None, "vlm_train", False),
           ("internvl2-76b", 2, "vlm_train", False),
-          ("internvl2-76b", 1, "vlm_train", True)),
+          ("internvl2-76b", 1, "vlm_train", True),
+          # the dense phase serves these two whole; serve_long's decode
+          # step at batch 4 x 32768 fits for its three models, and
+          # qwen3-32b's one-row 32768-token prefill does not
+          ("qwen3-32b", None, "serve_phase", True),
+          ("deepseek-coder-33b", None, "serve_phase", True),
+          ("granite-20b", None, "long_decode", True),
+          ("gemma3-27b", None, "long_decode", True),
+          ("zamba2-1.2b", None, "long_decode", True),
+          ("qwen3-32b", None, "long_prefill", False)),
     # one production cell of each family (the dense one also trains)
     cells=(("granite-20b", "train_4k"), ("granite-20b", "prefill_32k"),
            ("granite-20b", "decode_32k"), ("deepseek-moe-16b", "decode_32k"),
@@ -3722,8 +4224,9 @@ def phase_cells():
     """The card phases' shapes as dry-run cells: the train phase (batch 8
     x 512; whisper-small's 8 x 448 over its frames, internvl2-76b's 4 x
     256 after its 256 patches), the VLM phase's forward (256 patches + 256
-    tokens), the serve phase (batch 4, 512 positions) and its decode
-    step."""
+    tokens), the serve phase (batch 4, 512 positions), and serve_long's
+    decode step (batch 4 over 32768 positions), one-row 32768-token
+    prefill and zamba2-1.2b's largest chunk (16384 tokens)."""
     from repro_torch.configs.base import ShapeConfig
     fam = {c["arch"]: c for c in TRAIN_FAMILIES}
     return {
@@ -3738,58 +4241,72 @@ def phase_cells():
         "vlm_phase": ShapeConfig("vlm_phase", "prefill", 256, 1),
         "serve_phase": ShapeConfig("serve_phase", "prefill",
                                    SERVE["max_seq"], SERVE["batch"]),
-        "decode_phase": ShapeConfig("decode_phase", "decode",
-                                    DRYRUN["decode_seq"],
-                                    DRYRUN["decode_batch"]),
+        "long_decode": ShapeConfig("long_decode", "decode",
+                                   SERVE_LONG["max_seq"],
+                                   SERVE_LONG["batch"]),
+        "long_prefill": ShapeConfig("long_prefill", "prefill",
+                                    SERVE_LONG["max_seq"], 1),
+        "long_chunk": ShapeConfig("long_chunk", "prefill",
+                                  SERVE_LONG["max_seq"] // 2, 1),
     }
 
 
-def dryrun_decode(eng, profile, card):
-    """(b): granite-20b's decode_step (full width and depth, the serve
-    phase's bf16 weights) on a contiguous cache of batch 4 x 512 at
-    position 511: its FLOPs counted once on the meta device by the dry-run
-    and once on the card by the same counter must be equal. The memory
-    term is printed beside the profile phase's device-busy time of a
-    decode step (the paged pool's, at batch 4)."""
+def dryrun_decode(model, params, card, seq, batch, busy=None):
+    """(b): granite-20b's decode_step (full width and depth, bf16 weights
+    ``params`` already on the card) on a contiguous cache of ``batch`` x
+    ``seq`` at position ``seq - 1`` (the serve phase's 4 x 512, and
+    serve_long's 4 x 32768): its FLOPs counted once on the meta device by
+    the dry-run and once on the card by the same counter must be equal,
+    and the dry-run's peak, with the card's other allocations beside it,
+    within ``peak_rel`` of max_memory_allocated for the step. The memory
+    term is printed beside ``busy``, the profile phase's device-busy time
+    of a decode step (the paged pool's, at batch 4), where given."""
     import torch
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.perf import op_cost
-    c = DRYRUN
     t0 = time.perf_counter()
-    rec, meta = dryrun.analyze_cell("granite-20b",
-                                    phase_cells()["decode_phase"],
-                                    ONE_DEVICE)
+    rec, meta = dryrun.analyze_cell(
+        model.cfg.name, ShapeConfig(f"decode_{batch}x{seq}", "decode", seq,
+                                    batch), ONE_DEVICE)
     meta_s = time.perf_counter() - t0
-    model, params = eng.model, eng.params
-    cache = model.init_cache(c["decode_batch"], c["decode_seq"],
-                             device="cuda")
-    tok = torch.zeros((c["decode_batch"], 1), dtype=torch.int32,
-                      device="cuda")
-    with torch.no_grad(), op_cost.OpCounter() as on_card:
-        logits, _ = model.decode_step(params, tok, c["decode_seq"] - 1,
-                                      cache)
     torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - sum(
+        p.numel() * p.element_size() for p in _leaves(params))
+    cache = model.init_cache(batch, seq, device="cuda")
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), op_cost.OpCounter() as on_card:
+        logits, _ = model.decode_step(params, tok, seq - 1, cache)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(logits).all())
     del cache, logits
     rl = rec["roofline"]
-    busy = profile["decode step (4 rows)"]["device_ms"]
-    log(f"[dryrun] (b) {eng.model.cfg.name} decode_step, batch "
-        f"{c['decode_batch']} x {c['decode_seq']} at position "
-        f"{c['decode_seq'] - 1}: FLOPs meta {meta.flops:.6e} card "
+    dry_peak = rec["analysis"]["peak_bytes"]
+    log(f"[dryrun] (b) {model.cfg.name} decode_step, batch {batch} x {seq} "
+        f"at position {seq - 1}: FLOPs meta {meta.flops:.6e} card "
         f"{on_card.flops:.6e}; bytes meta {meta.bytes:.6e} card "
         f"{on_card.bytes:.6e}; compute term {rl['compute_s'] * 1e3:.3f} ms, "
-        f"memory term {rl['memory_s'] * 1e3:.3f} ms (bytes / 3.35 TB/s) "
-        f"beside the profile phase's decode step device-busy {busy:.3f} ms; "
-        f"dry-run peak {rec['peak_gb']:.2f} GB, fits {rec['fits']}; "
-        f"meta count in {meta_s:.1f} s; card: {card}")
+        f"memory term {rl['memory_s'] * 1e3:.3f} ms (bytes / 3.35 TB/s)"
+        + (f" beside the profile phase's decode step device-busy "
+           f"{busy:.3f} ms" if busy is not None else "")
+        + f"; dry-run peak {dry_peak / 1e9:.3f} GB, fits {rec['fits']}, "
+        f"card max_memory_allocated {peak / 1e9:.3f} GB "
+        f"({(dry_peak + other) / peak - 1:+.2%} with {other / 1e9:.3f} GB "
+        f"of other allocations); meta count in {meta_s:.1f} s; card: {card}")
     check_all("dryrun", {
-        "(b) decode: FLOPs on meta == FLOPs on the card": (
+        f"(b) decode {batch} x {seq}: FLOPs on meta == FLOPs on the card": (
             meta.flops == on_card.flops > 0),
-        "(b) decode: logits finite": finite,
+        f"(b) decode {batch} x {seq}: dry-run peak (with the other "
+        f"allocations) within {DRYRUN['peak_rel']:.0%} of "
+        f"max_memory_allocated": abs(dry_peak + other - peak)
+        <= DRYRUN["peak_rel"] * peak,
+        f"(b) decode {batch} x {seq}: logits finite": finite,
     })
     return dict(flops=meta.flops, memory_ms=rl["memory_s"] * 1e3,
                 compute_ms=rl["compute_s"] * 1e3, busy_ms=busy,
-                seconds=meta_s)
+                seconds=meta_s, peak=peak, dry_peak=dry_peak + other)
 
 
 def dryrun_train(card, train):
@@ -4034,16 +4551,16 @@ def dryrun_gate():
 
 def _profiled(fn, n=3, warm=True):
     """(host ms per call, device-busy ms per call, kernels per call,
-    {kernel name: device ms per call}) of ``fn`` on the card: host time
-    without the profiler, device time as the sum of the CUDA kernels'
-    durations under ``torch.profiler``, which records the kernels alone
-    (xlstm-1.3b's train step launches 560,000 kernels: with the host's
-    operators recorded too, reading the trace back took minutes).
-    ``warm`` False: ``fn`` has run at these shapes already (a train
-    step of xlstm-1.3b takes 15 s)."""
+    {kernel name: device ms per call}, whole) of ``fn`` on the card: host
+    time without the profiler, device time as the sum of the CUDA
+    kernels' durations under ``torch.profiler`` in one session
+    (``benchmarks.common.kernel_events``, the kernels alone: xlstm-1.3b's
+    train step launches 560,000 kernels); ``whole`` False where that
+    session lost its first or last kernels (a lower bound). ``warm``
+    False: ``fn`` has run at these shapes already (a train step of
+    xlstm-1.3b takes 15 s)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.benchmarks.common import kernel_events
     if warm:
         fn()
     torch.cuda.synchronize()
@@ -4052,25 +4569,18 @@ def _profiled(fn, n=3, warm=True):
         fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    count = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            count += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / n)
-    return host_ms, sum(by_name.values()), count / n, by_name
+    events, whole = kernel_events(fn, n, tries=1)
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / n
+    return host_ms, sum(by_name.values()), len(events) / n, by_name, whole
 
 
-def _device_ms(fn, n=10, sessions=3, by_kernel=False):
+def _device_ms(fn, by_kernel=False):
     """``repro_torch.benchmarks.common.device_ms``: one call's device time
-    under ``torch.profiler``, median over three sessions."""
+    under ``torch.profiler``, the median of 30 calls."""
     from repro_torch.benchmarks.common import device_ms
-    return device_ms(fn, n, sessions, by_kernel)
+    return device_ms(fn, by_kernel=by_kernel)
 
 
 def _names(by_kernel) -> str:
@@ -4137,7 +4647,7 @@ def kernel_class(name) -> str:
 def profile_steps(label, steps, n=3, **kw):
     out = {}
     for name, fn in steps.items():
-        host, dev, n_k, by_name = _profiled(fn, n, **kw)
+        host, dev, n_k, by_name, whole = _profiled(fn, n, **kw)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         by_class = {}
         for k, v in by_name.items():
@@ -4146,14 +4656,16 @@ def profile_steps(label, steps, n=3, **kw):
         flash = by_class.get("flash", 0.0)
         idle = 1.0 - dev / host if host > 0 else 0.0
         log(f"[{label}] {name}: host {host:.3f} ms, device busy "
-            f"{dev:.3f} ms (idle share {idle:.1%}), {n_k:.0f} kernels; "
+            f"{dev:.3f} ms (idle share {idle:.1%}), {n_k:.0f} kernels"
+            + ("" if whole else " (the profiler lost the session's first or "
+               "last kernels: a lower bound)") + "; "
             f"flash kernel {flash:.3f} ms; device ms by class: "
             + ", ".join(f"{c} {v:.3f}" for c, v in sorted(
                 by_class.items(), key=lambda kv: -kv[1]))
             + "; top: "
             + "; ".join(f"{k[:120]} {v:.3f} ms" for k, v in top))
         out[name] = dict(host_ms=host, device_ms=dev, kernels=n_k,
-                         flash_ms=flash, by_class=by_class)
+                         flash_ms=flash, by_class=by_class, whole=whole)
     return out
 
 
@@ -4189,7 +4701,7 @@ def flash_work(s, t, d, h, hkv, q_offset, itemsize, window=None,
     return n_bytes, 4 * d * h * pairs
 
 
-def flash_dispatch(q, k, v, causal, win, off, rounds=5):
+def flash_dispatch(q, k, v, causal, win, off, rounds=5, iters=20):
     """The flash op's host dispatch at one shape: CUDA events a call over
     back-to-back calls of the op (``torch.ops.repro_torch.flash_fwd``, as
     every path reaches the kernel) and of its CUDA implementation called
@@ -4208,8 +4720,8 @@ def flash_dispatch(q, k, v, causal, win, off, rounds=5):
                              "launch")
     a, b = [], []
     for _ in range(rounds):
-        a.append(cuda_timed(op))
-        b.append(cuda_timed(direct))
+        a.append(cuda_timed(op, iters))
+        b.append(cuda_timed(direct, iters))
     return statistics.median(a), statistics.median(b)
 
 
@@ -4375,8 +4887,31 @@ def timing_window(cfg):
             for s, win in WINDOW_TIMING}
 
 
-def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
-               plain_rows=None):
+def row_err(got, want) -> float:
+    """max over query rows of max|got - want| in the row / max|want| in
+    the row (``FLASH_ROW_TOL``)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def planted_tile(s, off) -> int:
+    """The first key of the 64-key V tile the planted fault zeroes at a
+    shape of ``s`` query rows from ``off``: key 16384 where some row lies
+    past that tile, else the tile at the middle of the keys the last row
+    sees (a kernel that skips a tile's load past some offset)."""
+    last = off + s - 1
+    if last >= 16384 + 2 * FLASH_TILE:
+        return 16384
+    return FLASH_TILE * (last // (2 * FLASH_TILE))
+
+
+def _calls_in(ms, budget_ms, most) -> int:
+    """How many calls of ``ms`` each fit ``budget_ms``: 1 to ``most``."""
+    return max(1, min(most, int(budget_ms // max(ms, 1e-6))))
+
+
+def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     """The planned flash call (wgmma) on bf16 q [b,h,s,d], kv [b,hkv,t,d]
     (causal from ``q_offset`` ``off``, with ``win`` a window; ``t`` None:
     s; ``causal`` False: every query sees every key) beside the plain
@@ -4385,9 +4920,13 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
     aligned at the top left: query i sees keys up to i, which is q_offset
     0 at any t), by CUDA events over back-to-back calls and by one call's
     device time under the profiler; the bound. The kernel and sdpa are
-    held against the plain version at the bf16 tolerance. ``plain_rows``:
-    the plain version runs ``plain_rows`` query rows at a time (the same
-    function; its whole f32 score matrix would not fit the card)."""
+    held against the plain version at the bf16 tolerance, the kernel also
+    row by row (``FLASH_ROW_TOL``), and that row check must fail the
+    plain version with one 64-key tile of V zeroed (``planted_tile``). The
+    plain version runs as many query rows at a time as keep their f32
+    scores within 4 GiB. The timed calls of each follow from one call's
+    time: the kernel's and sdpa's about 150 ms, the dispatch rounds and
+    the plain version's about a second."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -4405,22 +4944,30 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
         mask = mask & (qp - kp < win)
     call = lambda: ops.flash_attention(q, k, v, window=win,  # noqa: E731
                                        q_offset=off, causal=causal)
+    rows = 2 ** ((2 ** 32 // (4 * b * h * t)).bit_length() - 1)
 
-    def plain():
-        rows = plain_rows or s
+    def plain(v=v):
         return torch.cat([ref.attention(
             q[:, :, i:i + rows], k, v, window=win, q_offset=off + i,
             causal=causal) for i in range(0, s, rows)], dim=2)
 
+    one = cuda_timed(call, iters=1, warmup=1)
+    iters = _calls_in(one, 150, 20)
     before = dict(ops.route_launches)
-    ms = cuda_timed(call)
+    ms = cuda_timed(call, iters)
     taken = {r: c - before[r] for r, c in ops.route_launches.items()
              if c != before[r]}
-    if taken != {"wgmma": 23}:
+    if taken != {"wgmma": iters + 3}:
         raise AssertionError(f"the timed calls took routes {taken}")
-    op_ms, direct_ms = flash_dispatch(q, k, v, causal, win, off)
+    op_ms, direct_ms = flash_dispatch(
+        q, k, v, causal, win, off, _calls_in(2 * (iters + 3) * one, 1000, 5),
+        iters)
     device = _device_ms(call)
-    plain_ms = cuda_timed(plain, iters=5)
+    first = []
+    first_ms = cuda_timed(lambda: first.append(plain()), iters=1, warmup=0)
+    want = first.pop().float()
+    plain_ms = cuda_timed(plain, iters=_calls_in(first_ms, 1000, 5),
+                          warmup=0)
     if causal:
         lib = {"mask": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)}
@@ -4430,20 +4977,34 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
     else:
         lib = {"no mask": lambda: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True)}
-    want = plain().float()
-    err = (call().float() - want).abs().max().item()
+    got = call()
+    err = (got.float() - want).abs().max().item()
+    rel = row_err(got, want)
+    tile = planted_tile(s, off)
+    v_bad = v.clone()
+    v_bad[:, :, tile:tile + FLASH_TILE] = 0
+    planted = row_err(got, plain(v_bad))
+    del got, v_bad
     lib_err = {n: (fn().float() - want).abs().max().item()
                for n, fn in lib.items()}
-    if not (err <= tol and all(e <= tol for e in lib_err.values())):
+    if not (err <= tol and all(e <= tol for e in lib_err.values())
+            and rel <= FLASH_ROW_TOL):
         raise AssertionError(f"flash (or sdpa) disagrees at B {b} S {s} "
-                             f"window {win}: {err}, sdpa {lib_err}")
-    lib_ms = {n: (cuda_timed(fn), _device_ms(fn)) for n, fn in lib.items()}
+                             f"window {win}: {err}, row by row {rel}, sdpa "
+                             f"{lib_err}")
+    if not planted > FLASH_ROW_TOL:
+        raise AssertionError(f"the row check passes a plain version with V's "
+                             f"keys {tile}-{tile + FLASH_TILE - 1} zeroed at "
+                             f"B {b} S {s} window {win}: {planted}")
+    lib_ms = {n: (cuda_timed(fn, _calls_in(one, 150, 20)),
+                  _device_ms(fn)) for n, fn in lib.items()}
     first = next(iter(lib_ms))           # the mask, or no mask: the same
     n_bytes, n_ops = flash_work(s, t, d, h, hkv, off, 2, win, causal)
     row = dict(_row(ms, plain_ms, lib_ms[first][0], b * n_bytes,
                     b * n_ops, PEAK_OPS["bfloat16"], err),
-               device_ms=device, library_device_ms=lib_ms[first][1],
-               op_ms=op_ms, direct_ms=direct_ms,
+               row_rel_err=rel, device_ms=device,
+               library_device_ms=lib_ms[first][1], op_ms=op_ms,
+               direct_ms=direct_ms,
                timed_at=f"bf16 q[{b},{h},{s},{d}] kv[{b},{hkv},{t},{d}] "
                         f"q_offset {off}, "
                         + (f"window {win}" if causal else "non-causal")
@@ -4451,8 +5012,9 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
     if "is_causal" in lib_ms:
         row["is_causal_ms"], row["is_causal_device_ms"] = \
             lib_ms["is_causal"]
-    log(f"[timing] flash {row['timed_at']}: events {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, " + ", ".join(
+    log(f"[timing] flash {row['timed_at']}: events {ms:.4f} ms ({iters} "
+        f"calls), plain {plain_ms:.4f} ms ({min(rows, s)} query rows at a "
+        f"time), " + ", ".join(
             f"sdpa {n} {e:.4f} ms" for n, (e, _) in lib_ms.items())
         + f"; device time a call: wgmma {device:.4f} ms, " + ", ".join(
             f"sdpa {n} {dv:.4f} ms" for n, (_, dv) in lib_ms.items())
@@ -4461,15 +5023,59 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
         f"{b * n_ops / device / 1e9:.1f} TFLOP/s by device time; max|err| "
         f"{err:.3e}, sdpa "
         + ", ".join(f"{n} {e:.3e}" for n, e in lib_err.items())
-        + f" (tol {tol:g}); dispatch: the op {op_ms:.4f} ms, the direct "
-        f"launch {direct_ms:.4f} ms by events")
+        + f" (tol {tol:g}); row by row {rel:.3e} of the row's max|want| "
+        f"(tol {FLASH_ROW_TOL:g}), against V's keys {tile}-"
+        f"{tile + FLASH_TILE - 1} zeroed {planted:.3e}; dispatch: the op "
+        f"{op_ms:.4f} ms, the direct launch {direct_ms:.4f} ms by events")
     return row
+
+
+def timing_long(long):
+    """Flash at serve_long's shapes, bf16, each by ``time_flash``:
+    granite-20b's cold 32768-token prefill (q [1,48,32768,128] over 1 KV
+    head) and a prefix hit's tail (q [1,48,16384,128] at q_offset 16384),
+    gemma3-27b's global layer (causal, S = T = 32768, 32 q / 16 KV heads)
+    and local layer (the 1024 window), zamba2-1.2b's first and last chunk
+    ([1,32,16384,64] at q_offset 0, [1,32,32,64] at q_offset 32704), each
+    over the 32768 positions of its cache row but the local layer (over
+    its own keys). Returns {name: (launches in the serve that gave the
+    shape, row)}."""
+    from repro_torch import configs
+    t = SERVE_LONG["max_seq"]
+    g, m, z = (configs.get(a) for a in ("granite-20b", "gemma3-27b",
+                                        "zamba2-1.2b"))
+    specs = {
+        "granite_long_cold": ("granite-20b", g, t, None, 0,
+                              "granite-20b's cold 32768-token prefill"),
+        "granite_long_tail": ("granite-20b", g, t // 2, None, t // 2,
+                              "granite-20b's prefix-hit tail"),
+        "gemma3_long_global": ("gemma3-27b", m, t, None, 0,
+                               "gemma3-27b's global layer at 32768"),
+        "gemma3_long_window": ("gemma3-27b", m, t, m.sliding_window, 0,
+                               "gemma3-27b's local layer at 32768"),
+        "zamba2_long_first": ("zamba2-1.2b", z, t // 2, None, 0,
+                              "zamba2-1.2b's first chunk"),
+        "zamba2_long_last": ("zamba2-1.2b", z, 32, None, t - 64,
+                             "zamba2-1.2b's last chunk"),
+    }
+    rows = {}
+    for name, (arch, cfg, s, win, off, what) in specs.items():
+        keys = s if win is not None else t
+        shape = (1, cfg.num_heads, cfg.num_kv_heads, s, keys, cfg.head_dim,
+                 True, win, off)
+        rows[name] = (long[arch]["shapes"].get(shape, 0), time_flash(
+            1, cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim, win, what,
+            t=keys, off=off))
+        if not rows[name][0]:
+            raise AssertionError(f"serve_long gave flash no launch at "
+                                 f"{shape}: {long[arch]['shapes']}")
+    return rows
 
 
 #: a flash timing row's keys that go into the kernels line (the first five
 #: in every row)
 FLASH_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-              "device_ms", "library_device_ms", "is_causal_ms",
+              "row_rel_err", "device_ms", "library_device_ms", "is_causal_ms",
               "is_causal_device_ms", "op_ms", "direct_ms", "timed_at")
 
 
@@ -4843,7 +5449,10 @@ def main() -> int:
     mark("build, kernels, bench, small")
     cfg, eng, launches, shapes = phase_serve(card)
     launches.update(bench_launches)
-    dry_b = dryrun_decode(eng, phase_profile(eng), card)
+    dry_b = dryrun_decode(
+        eng.model, eng.params, card, DRYRUN["decode_seq"],
+        DRYRUN["decode_batch"],
+        phase_profile(eng)["decode step (4 rows)"]["device_ms"])
     serve_sharded_one_rank(eng.model, eng.params, card)
     del eng                                    # frees the 56 GB of weights
     free_card()
@@ -4859,6 +5468,9 @@ def main() -> int:
     mark("serve, serve_window")
     phase_serve_dense(card)
     free_card()
+    mark("dense (qwen3-32b, deepseek-coder-33b whole)")
+    long_serves = phase_serve_long(card)
+    mark("serve_long")
     mcfg, mmodel, mparams, meng, moe_launches, mshapes = phase_serve_moe(
         card)
     phase_profile(meng, "profile_moe")
@@ -4914,7 +5526,7 @@ def main() -> int:
     tp_serve_row = time_flash(
         TP_SERVE["prefill_rows"], ts_cfg.q_heads // TP_SERVE["model"], 1,
         TP_SERVE["prefill_seq"]["bfloat16"], ts_cfg.head_dim, None,
-        "qwen3-32b's prefill_32k rank, model axis 16", plain_rows=4096)
+        "qwen3-32b's prefill_32k rank, model axis 16")
     # zamba2-1.2b's tensor-parallel rank on the model axis of 16 (2 of 32
     # heads over their 2 KV heads, causal): train_4k's [1, 4096] and
     # prefill_32k's [2, 32768]; the parallel phase's tp_recurrent (e) in
@@ -4924,7 +5536,7 @@ def main() -> int:
     z_rows = {(b, s): time_flash(
         b, z_h, z_h, s, z_cfg.head_dim, None,
         f"zamba2-1.2b's {'train_4k' if b == 1 else 'prefill_32k'} rank, "
-        f"model axis 16", plain_rows=4096)
+        f"model axis 16")
         for b, s, _ in TP_RECURRENT["prefill"]}
     # deepseek-moe-16b's largest serve prefill (the 256 bucket, cold, over
     # the 512-position cache view) and internvl2-76b's forward
@@ -4972,6 +5584,7 @@ def main() -> int:
                            256, zamba_cfg.head_dim, None,
                            "zamba2-1.2b's shared attention, a cold "
                            "256-token chunk", t=SERVE_RECURRENT["max_seq"])
+    long_rows = timing_long(long_serves)
     ffma_row = timing_flash_f32(f32_shape)
     stream_rows = timing_stream(errs)
     dpa_rows = timing_dpa(errs)
@@ -5159,6 +5772,20 @@ def main() -> int:
     for name, (n, row) in train_rows.items():
         kernels.append({
             "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:22",
+            "launches": n,
+            "max_abs_err": max(flash_errs["wgmma"], row["max_abs_err"]),
+            **flash_keys(row),
+        })
+    # the same wgmma route on serve_long's 32k serves: each shape timed
+    # and held (absolutely and row by row) and counted over the serve that
+    # gave it
+    for name, (n, row) in long_rows.items():
+        kernels.append({
+            "name": f"flash_attention/wgmma/{name}",
             "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"

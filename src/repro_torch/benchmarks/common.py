@@ -86,44 +86,73 @@ class BenchRows:
                 json.dump(self.rows, f, indent=2, sort_keys=True)
 
 
-def device_ms(fn, n=10, sessions=3, by_kernel=False):
-    """Device time of one call of ``fn`` under ``torch.profiler``: in each
-    of ``sessions`` profiled runs of ``n`` calls, the median duration of
-    each CUDA kernel it launches, summed over its kernels; then the median
-    over the sessions that recorded any kernel. (The profiler has been seen
-    to drop one call's events, a whole session's, once three sessions' in
-    a row, and once to read a session wrong: so no total over the calls is
-    divided by their count, no single session is trusted, and a session
-    that records no kernel is run again, up to ``3 * sessions`` sessions
-    in all.) ``by_kernel``: also {kernel name: its median over the
-    sessions}."""
+#: the marker kernel ``kernel_events`` brackets a session with
+#: (``torch.cuda._sleep``'s kernel), its length in clock cycles, and how
+#: many markers lead a session
+MARKER, MARKER_CYCLES, LEAD = "spin_kernel", 1000, 32
+
+
+def kernel_events(fn, n, tries=8, accept=None):
+    """(events, ok): (name, us) of every CUDA kernel of ``n`` calls of
+    ``fn`` under ``torch.profiler``. On an H100 (NVIDIA H100 80GB HBM3,
+    700 W), after long serves, the profiler dropped the first kernel
+    records of some sessions (kineto's log: "Out-of-range = 10"; up to 14
+    records in the probes), whatever the session waited before or after
+    its kernels. So a session launches ``LEAD`` marker kernels before the
+    calls and one after them; it is whole when its first and last kept
+    kernels are markers. ``ok``: the session is whole, or its last kernel
+    is the marker and ``accept`` (a test of its kept kernels) holds; it is
+    run again, up to ``tries`` sessions, until ``ok``. Not ok: the last
+    session's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    readings, kernels = [], {}
-    for _ in range(3 * sessions):
-        if len(readings) == sessions:
-            break
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD):
+                torch.cuda._sleep(MARKER_CYCLES)
             for _ in range(n):
                 fn()
+            torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(
-                    e.time_range.elapsed_us())
-        if by_name:
-            readings.append(sum(statistics.median(v)
-                                for v in by_name.values()) / 1e3)
-            for name, v in by_name.items():
-                kernels.setdefault(name, []).append(
-                    statistics.median(v) / 1e3)
-    if not readings:
-        raise AssertionError("the profiler recorded no kernel in "
-                             f"{3 * sessions} sessions")
-    total = statistics.median(readings)
-    if not by_kernel:
-        return total
-    return total, {k: statistics.median(v) for k, v in kernels.items()}
+        # the raw kineto events, not the FunctionEvents the profiler builds
+        # from them, a Python object each (xlstm-1.3b's train step has
+        # 560,000 kernels)
+        events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e3)
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA)
+        kept = [(name, us) for _, name, us in events if MARKER not in name]
+        tail = bool(events) and MARKER in events[-1][1]
+        ok = tail and (MARKER in events[0][1]
+                       or (accept is not None and accept(kept)))
+        if ok:
+            break
+    return kept, ok
+
+
+def device_ms(fn, n=30, by_kernel=False):
+    """Device time of one call of ``fn`` under ``torch.profiler``: over
+    one profiled run of ``n`` calls (``kernel_events``), the median
+    duration of each CUDA kernel it launches, summed over its kernels. A
+    run whose first records the profiler dropped counts where its last
+    kernel is the trailing marker and each kernel it kept ran in at least
+    half the calls (so no kernel of a call is missing, and each median is
+    over n/2 calls or more). A run of no kernel, or no such run in 8,
+    fails. ``by_kernel``: also {kernel name: its median}."""
+    fn()
+    torch.cuda.synchronize()
+
+    def counts(events):
+        by = {}
+        for name, us in events:
+            by.setdefault(name, []).append(us / 1e3)
+        return by
+
+    events, ok = kernel_events(fn, n, accept=lambda ev: bool(ev) and all(
+        len(v) >= n / 2 for v in counts(ev).values()))
+    if not (ok and events):
+        raise AssertionError("the profiler recorded no kernel of the calls, "
+                             "or lost the first or last kernels of 8 "
+                             "sessions")
+    kernels = {k: statistics.median(v) for k, v in counts(events).items()}
+    total = sum(kernels.values())
+    return (total, kernels) if by_kernel else total

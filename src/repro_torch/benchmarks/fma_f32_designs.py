@@ -9,7 +9,7 @@ in f32 (TF32 off), which must stay below 1e-4 of max|C| (a sanity
 check, not the port's limit: ``chip_smoke.py`` holds the kernel to
 that), CUDA-events ms per call over back-to-back calls
 (median of 5 rounds), and device ms per call under ``torch.profiler``
-(the median kernel duration). The designs run in the order first, kernel,
+(``common.device_ms``). The designs run in the order first, kernel,
 kernel, first, and each reading is the mean of its two turns. Prints the
 card's name and power limit, one line per reading, and a JSON line.
 
@@ -25,6 +25,7 @@ import subprocess
 
 import torch
 
+from repro_torch.benchmarks.common import device_ms
 from repro_torch.kernels import build
 from repro_torch.kernels.dpa_matmul import dpa_matmul as dk
 
@@ -65,20 +66,6 @@ def _events_ms(fn, n):
     return statistics.median(rounds)
 
 
-def _device_ms(fn, n=10):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return statistics.median(times) / 1e3 if times else float("nan")
-
-
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,7 +100,7 @@ def main():
                                          f"max|err| {err}")
                 readings[name].append((
                     err, _events_ms(lambda: fn(a, b, tile), calls),
-                    _device_ms(lambda: fn(a, b, tile))))
+                    device_ms(lambda: fn(a, b, tile))))
             for name, turns in readings.items():
                 row = dict(size=size, tile=tile, design=name,
                            max_abs_err=max(t[0] for t in turns),

@@ -5,8 +5,8 @@ the PyTorch call that computes the same function (``clone``, ``mul``,
 ``add``, ``add`` with alpha, ``full``), on one card.
 
 Per (op, size, design): the device time of one call
-(``common.device_ms``: the median kernel duration over 10 calls, median of
-three ``torch.profiler`` sessions), f32 at 16 MiB (in the 50 MB L2) and
+(``common.device_ms``: the median kernel duration over 30 calls in one
+``torch.profiler`` session), f32 at 16 MiB (in the 50 MB L2) and
 128 MiB (past it). Every design's output is held equal to the plain
 version first. Prints the card's name and power limit, one line per
 reading, and a JSON line.

@@ -357,17 +357,32 @@ class RadixPrefixCache:
 
     # -- eviction ------------------------------------------------------------
 
+    def _post_order(self, node: _TrieNode):
+        """``node``'s subtree, each node after its children (in insertion
+        order), by an explicit stack: a 32768-token prompt is a chain of
+        1024 blocks, past Python's recursion limit."""
+        stack = [(node, False)]
+        while stack:
+            n, expanded = stack.pop()
+            if expanded:
+                yield n
+            else:
+                stack.append((n, True))
+                stack.extend((c, False) for c in reversed(n.children.values()))
+
     def _evictable(self, node: _TrieNode, out: List[_TrieNode]) -> bool:
         """Post-order: a node is evictable iff nobody but the trie
         references its block AND its whole subtree is evictable (children
         pin their ancestors — a matched chain needs every link)."""
-        ok = all([self._evictable(c, out) for c in node.children.values()])
-        if node is self.root:
-            return ok
-        ok = ok and self.pool.refcount[node.block] == 1
-        if ok:
-            out.append(node)
-        return ok
+        ok = {}
+        for n in self._post_order(node):
+            good = all([ok.pop(id(c)) for c in n.children.values()])
+            if n is not self.root:
+                good = good and self.pool.refcount[n.block] == 1
+                if good:
+                    out.append(n)
+            ok[id(n)] = good
+        return ok[id(node)]
 
     def evictable_blocks(self) -> int:
         out: List[_TrieNode] = []
@@ -395,11 +410,9 @@ class RadixPrefixCache:
     def clear(self):
         """Drop every cached entry (benchmark cold-start): all trie-held
         references return to the pool."""
-        def drop(node):
-            for c in node.children.values():
-                drop(c)
-                self.pool.free(c.block)
-        drop(self.root)
+        for node in self._post_order(self.root):
+            if node is not self.root:
+                self.pool.free(node.block)
         self.root = _TrieNode()
         self.stats = PrefixCacheStats()
 

@@ -1035,3 +1035,22 @@ def test_trainer_on_two_cards_under_torchrun(tmp_path):
     history = json.loads((tmp_path / "log.json").read_text())["history"]
     assert len(history) == 2 and all(np.isfinite(r["loss"])
                                      for r in history)
+
+
+@pytest.mark.cuda
+def test_kernel_events_returns_every_kernel_of_the_calls_and_no_marker():
+    """``benchmarks.common.kernel_events`` brackets its profiler session
+    with marker kernels and returns the calls' kernels alone: five calls
+    of one flash launch give five flash kernels, the session whole."""
+    _need_cuda()
+    from repro_torch.benchmarks.common import MARKER, device_ms, kernel_events
+    q, k, v = (torch.randn(1, 4, 128, 64, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    fn = lambda: ops.flash_attention(q, k, v)              # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    events, whole = kernel_events(fn, 5)
+    assert whole and len(events) == 5
+    assert all("flash_fwd" in name and MARKER not in name
+               for name, _ in events)
+    assert device_ms(fn, n=5) > 0

@@ -231,10 +231,14 @@ def _leaves(tree):
 
 # the depth cuts of PERF.md §4, at the card phases' shapes: the train
 # phase (batch 8 x 512, 2 microbatches), the VLM phase's forward (256
-# patches + 256 tokens) and the serve phase (batch 4, 512 positions)
+# patches + 256 tokens), the serve phase (batch 4, 512 positions), and the
+# serve_long phase's decode step (batch 4 over 32768 positions) and a
+# one-row 32768-token prefill
 TRAIN_PHASE = ShapeConfig("train_phase", "train", 512, 8)
 VLM_PHASE = ShapeConfig("vlm_phase", "prefill", 256, 1)
 SERVE_PHASE = ShapeConfig("serve_phase", "prefill", 512, 4)
+LONG_PHASE = ShapeConfig("long_phase", "decode", 32768, 4)
+LONG_PREFILL = ShapeConfig("long_prefill", "prefill", 32768, 1)
 
 
 @pytest.mark.parametrize("arch,layers,shape,fits", [
@@ -243,6 +247,15 @@ SERVE_PHASE = ShapeConfig("serve_phase", "prefill", 512, 4)
     ("internvl2-76b", None, VLM_PHASE, False),
     ("internvl2-76b", 32, VLM_PHASE, True),
     ("deepseek-moe-16b", None, SERVE_PHASE, True),
+    # whole, the dense phase's serve (65.5 and 66.7 GB of bf16 weights)
+    ("qwen3-32b", None, SERVE_PHASE, True),
+    ("deepseek-coder-33b", None, SERVE_PHASE, True),
+    ("granite-20b", None, LONG_PHASE, True),
+    ("gemma3-27b", None, LONG_PHASE, True),
+    ("zamba2-1.2b", None, LONG_PHASE, True),
+    # a row of 32768 positions: 74.1 GB of weights and cache before the
+    # prefill's activations
+    ("qwen3-32b", None, LONG_PREFILL, False),
 ])
 def test_the_depth_cuts_of_perf_md(arch, layers, shape, fits):
     cfg = tconfigs.get(arch)

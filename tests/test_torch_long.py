@@ -1,0 +1,277 @@
+"""The port at long positions against the reference, on the host.
+
+The serve parity tests elsewhere stop at 32-64 positions; these run the
+smoke models of the three families the card serves at 32768 positions
+(granite-20b paged with a shared prefix, gemma3-27b on window rings,
+zamba2-1.2b in pow2 chunks) at max_seq 4096, in f32, with the weights
+drawn from a numpy seed (``torch_weights``), against the reference's
+``ContinuousEngine`` and models; and RoPE at positions near 32767 and
+524287 against the reference's ``rope``. A fault that shows only at long
+positions (the rope angle, block tables 128 blocks long, the last bucket
+at max_seq, a state carried over a dozen pow2 chunks) fails here.
+
+The smoke models are cut so that each test runs in under 20 s alone on a
+host CPU (the port's plain attention builds every 4096 x 4096 score):
+granite-20b's to 2 of 4 layers, gemma3-27b's to one local and one global
+layer (``local_global_period`` 2), zamba2-1.2b's to its first
+shared-attention site (3 of 6 layers).
+
+Tolerances: the engines emit equal greedy tokens and finish reasons, and
+the logits of every prefill step (a prefix hit's tail, a ring prefill, a
+pow2 chunk) agree within 1e-4 of max|logit|. RoPE: an f32 angle near
+position p is good to ~p x 2^-23 rad (the rounding of the frequencies'
+exponent, carried through ``exp``), so both packages are held within p x
+2^-22 rad of the exact rotation (f64 angles) and of each other
+(``_rope_bound``); at position 524287 that is 0.125 rad, where the two
+read up to 1.6e-2 apart.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core import hw as jhw
+from repro.models import build_model as jbuild
+from repro.models import common as jcommon
+from repro.serve import paging as jpaging
+from repro.serve.engine import ContinuousEngine as JEngine
+from repro.serve.queue import Request as JRequest
+from repro_torch import configs as tconfigs
+from repro_torch.core.hw import H100_SXM
+from repro_torch.models import build_model as tbuild
+from repro_torch.models import common as tcommon
+from repro_torch.serve import paging as tpaging
+from repro_torch.serve.engine import ContinuousEngine, Request
+from repro_torch.serve.step import pow2_chunks
+from torch_weights import both_trees
+
+MAX_SEQ = 4096
+REL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def four_torch_threads():
+    """The plain attention over 4096 x 4096 scores is the port's host
+    time: four intra-op threads (restored after the test)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, rel=REL, what=""):
+    """max|got - want| <= rel * max|want| (and the same shape)."""
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    scale = max(float(np.abs(w).max()), 1e-30)
+    err = float(np.abs(g - w).max())
+    assert err <= rel * scale, f"{what}: max|err| {err} > {rel} x {scale}"
+
+
+@pytest.mark.parametrize("top", [32767, 524287])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_rope_at_long_positions(top, d, theta):
+    """The last 64 positions up to ``top`` (and position 0), 4 heads, in
+    f32: the port's ``rope`` and the reference's, each against the exact
+    rotation (f64 angles) and against each other, within
+    ``_rope_bound``."""
+    rng = np.random.default_rng(top + d)
+    pos = np.concatenate([[0], np.arange(top - 63, top + 1)]).astype(
+        np.int32)
+    x = rng.standard_normal((2, len(pos), 4, d)).astype(np.float32)
+    want = _np(jcommon.rope(jnp.asarray(x), jnp.asarray(pos), theta))
+    got = _np(tcommon.rope(torch.from_numpy(x), torch.from_numpy(pos),
+                           theta))
+    half = d // 2
+    ang = pos[:, None].astype(np.float64) * np.exp(
+        -np.log(theta) * np.arange(half) / half)
+    cos, sin = np.cos(ang)[:, None], np.sin(ang)[:, None]
+    x1, x2 = x[..., :half].astype(np.float64), x[..., half:]
+    exact = np.concatenate([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    bound = _rope_bound(x, pos)
+    assert (np.abs(want - exact) <= bound).all()
+    assert (np.abs(got - exact) <= bound).all()
+    assert (np.abs(got - want) <= bound).all()
+    # near position 0 the two agree to f32 rounding
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=0, atol=1e-6)
+
+
+def _rope_bound(x, pos):
+    """How far an f32 RoPE may sit from the exact rotation at ``pos``: the
+    f32 angle ``pos * freq`` carries the rounding of ``-log(theta) * i /
+    half`` through ``exp`` (a relative error of up to ~|log freq| x 2^-23,
+    so an angle error of up to ~0.37 x pos x 2^-23 rad) and of the
+    product (2^-24 x pos): 2^-22 x pos rad bounds both with room. The
+    reference's exp and the port's differ by one ulp in 0-10 of the 32-64
+    frequencies, so at 524287 the two packages' rotations part by up to
+    ~1.6e-2 of |x|: each stays within this bound of the exact one."""
+    half = x.shape[-1] // 2
+    mag = np.abs(x[..., :half]) + np.abs(x[..., half:])
+    mag = np.concatenate([mag, mag], -1)
+    return mag * (pos[None, :, None, None] * 2.0 ** -22) + 1e-6
+
+
+def _capture(adapter, name):
+    """Wrap ``adapter.<name>`` (a step returning (token, logits, state)) so
+    that every call's logits are kept, in call order."""
+    seen = []
+    step = getattr(adapter, name)
+
+    def spy(*args):
+        out = step(*args)
+        seen.append(_np(out[1]).copy())
+        return out
+
+    setattr(adapter, name, spy)
+    return seen
+
+
+def _jdev():
+    return jhw.DeviceSpec(**dataclasses.asdict(H100_SXM))
+
+
+def _serve_both(name, cut, prompts, batch, max_new, seed):
+    """The port's engine and the reference's on the same requests and
+    numpy-seeded f32 weights (bf16 caches on both sides, as each engine
+    makes them): tokens, finish reasons and counts equal, and the logits
+    of every prefill step (a recurrent prompt's last chunk: its first
+    step) within ``REL`` of max|logit|. Returns (the port's requests, its
+    stats, its prefill steps' logits)."""
+    jcfg = jconfigs.get_smoke(name).replace(dtype="float32", **cut)
+    tcfg = tconfigs.get_smoke(name).replace(dtype="float32", **cut)
+    jp, tp = both_trees(tcfg, seed)
+    jreqs = [JRequest(i, p.copy(), max_new_tokens=max_new)
+             for i, p in enumerate(prompts)]
+    treqs = [Request(i, p.copy(), max_new_tokens=max_new)
+             for i, p in enumerate(prompts)]
+    jeng = JEngine(jbuild(jcfg), jp, batch_size=batch, max_seq=MAX_SEQ,
+                   dev=_jdev())
+    eng = ContinuousEngine(tbuild(tcfg), tp, batch_size=batch,
+                           max_seq=MAX_SEQ, telemetry=False)
+    step = "_chunk" if eng.adapter.kind == "recurrent" else "_prefill_slot"
+    want = _capture(jeng.adapter, step)
+    got = _capture(eng.adapter, step)
+    jst = jeng.serve(jreqs)
+    with torch.no_grad():
+        tst = eng.serve(treqs)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    assert [r.finish_reason for r in treqs] == \
+        [r.finish_reason for r in jreqs]
+    for key in ("completed", "prefills", "decode_steps", "tokens_decoded",
+                "prefill_compiles", "decode_compiles", "adapter"):
+        assert tst[key] == jst[key], key
+    assert len(got) == len(want) > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, what=f"prefill step {i} logits")
+    return treqs, tst, got
+
+
+def _prompts(vocab, lens, seed, shared=0):
+    """Prompts of ``lens`` tokens; with ``shared`` all but the first begin
+    with the first one's ``shared`` tokens."""
+    rng = np.random.default_rng(seed)
+    out = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    for p in out[1:]:
+        p[:shared] = out[0][:shared]
+    return out
+
+
+def test_granite_paged_engine_at_4096_with_a_shared_prefix():
+    """3 prompts of ~4000 tokens at batch 4, the last two sharing the
+    first's 2048 tokens: the paged engine (block 32, 128-block tables)
+    takes two prefix hits and prefills their tails in the 2048 bucket at
+    q_offset 2048, the cold prompt in the 4096 bucket (max_seq)."""
+    prompts = _prompts(512, (4000, 4020, 3990), 0, shared=2048)
+    treqs, tst, _ = _serve_both("granite-20b", dict(num_layers=2), prompts,
+                                  4, 4, 0)
+    assert tst["kv_block_size"] == 32
+    assert tst["prefix_cache"]["hits"] == 2
+    assert [r.cached_prompt_tokens for r in treqs] == [0, 2048, 2048]
+    assert tst["prefill_buckets"][-1] == MAX_SEQ
+
+
+def test_gemma3_window_rings_at_4096():
+    """2 prompts of ~4000 tokens (each past 100 windows of 32) at batch 1
+    on the window rings, the second waiting for the slot the first frees
+    (its ring rows reset)."""
+    prompts = _prompts(512, (4000, 4050), 1)
+    treqs, tst, _ = _serve_both("gemma3-27b", dict(
+        num_layers=2, local_global_period=2), prompts, 1, 4, 1)
+    assert tst["adapter"] == "window-ring"
+    assert tst["slots_recycled"] >= 1
+    assert min(len(p) for p in prompts) > 100 * 32
+
+
+def test_zamba2_twelve_pow2_chunks_at_4096():
+    """A 4095-token prompt (12 pow2 chunks, 2048 down to 1) at max_seq
+    4096, the state carried over every chunk: each chunk's logits as the
+    reference's, the last one's the first step's."""
+    (prompt,) = _prompts(512, (4095,), 2)
+    assert len(pow2_chunks(len(prompt))) == 12
+    _, tst, logits = _serve_both("zamba2-1.2b", dict(num_layers=3),
+                                 [prompt], 1, 4, 2)
+    assert tst["adapter"] == "recurrent" and len(logits) == 12
+
+
+def _trie(mod, depth, branches, bs, seed=3):
+    """A pool and radix prefix cache of ``mod`` (either package's
+    ``serve.paging``) holding ``branches`` prompts of ``depth`` blocks,
+    each past the first sharing the first one's first half: each matched,
+    backed, inserted from slot 0 and released, as the paged adapter does,
+    so the trie holds the only reference to every block."""
+    rng = np.random.default_rng(seed)
+    n = depth * bs
+    pool = mod.PagePool(1, depth, branches * depth + 1, bs)
+    cache = mod.RadixPrefixCache(bs, pool)
+    base = rng.integers(0, 512, n).astype(np.int32)
+    for _ in range(branches):
+        prompt = base.copy()
+        prompt[n // 2:] = rng.integers(0, 512, n - n // 2)
+        matched = cache.match(prompt)
+        if matched:
+            pool.map_shared(0, matched)
+        assert pool.ensure_capacity(0, n)
+        cache.insert(prompt, pool.table_row(0))
+        pool.release_slot(0)
+    return pool, cache
+
+
+def test_prefix_trie_eviction_as_the_reference():
+    """A branching trie below the recursion limit (3 prompts of 64 blocks):
+    the evictable count, each round of LRU evictions (the pool's free list
+    and scrub queue after it) and ``clear`` as the reference's."""
+    (tp, tc), (jp, jc) = (_trie(m, 64, 3, 4) for m in (tpaging, jpaging))
+    assert tc.evictable_blocks() == jc.evictable_blocks() == 64 + 2 * 32
+    for n in (1, 5, 40):
+        assert tc.evict(n) == jc.evict(n) == n
+        assert tp._free == jp._free
+        assert tp.drain_pending_zero() == jp.drain_pending_zero()
+        assert tc.evictable_blocks() == jc.evictable_blocks()
+    tc.clear()
+    jc.clear()
+    assert tp._free == jp._free and len(tc) == len(jc) == 0
+
+
+def test_prefix_trie_of_a_32k_prompt():
+    """Two 32768-token prompts at block 16 (a chain of 2048 blocks, the
+    second sharing the first 1024): the trie is walked with a stack, not
+    by recursion, so admission (``evictable_blocks``), eviction and
+    ``clear`` run at that depth; the reference's recursive walk passes
+    Python's recursion limit at ~1000 blocks (ROADMAP Queue 3)."""
+    pool, cache = _trie(tpaging, 2048, 2, 16)
+    assert len(cache) == cache.evictable_blocks() == 2048 + 1024
+    assert cache.probe(np.zeros(16, np.int32)) == 0
+    free = pool.free_blocks()
+    assert cache.evict(3) == 3 and pool.free_blocks() == free + 3
+    cache.clear()
+    assert len(cache) == 0 and pool.free_blocks() == pool.n_blocks - 1
