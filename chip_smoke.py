@@ -1808,7 +1808,8 @@ def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
                 warm=0):
     """``reqs`` (None: ``c["n"]`` requests of ``c["lens"]`` tokens from
     seed ``c["seed"]``, ``c["max_new"]`` new each) through ContinuousEngine
-    at batch ``c["batch"]`` x ``c["max_seq"]``, the flash counts and shapes
+    at batch ``c["batch"]`` x ``c["max_seq"]`` (with ``c["max_chunk"]``
+    where given), the flash counts and shapes
     read around the serve, the peak memory reset before it: every request
     complete at its budget, one decode compile, one host sync a prefill and
     a decode step, every prefill launch on flash's wgmma route (``flash``:
@@ -1829,6 +1830,8 @@ def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
             rng.integers(*c["lens"]))).astype(np.int32),
             max_new_tokens=c["max_new"]) for i in range(c["n"])]
     kw = dict(batch_size=c["batch"], max_seq=c["max_seq"])
+    if c.get("max_chunk"):
+        kw["max_chunk"] = c["max_chunk"]
     if warm:
         ContinuousEngine(model, params, telemetry=False, **kw).serve([
             Request(r.req_id, r.prompt[:warm].copy(), max_new_tokens=2)
@@ -1878,9 +1881,11 @@ def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
 # tokens each from numpy seed 0; on granite-20b's paged path requests 1-3
 # share request 0's first 16384 tokens: 3 prefix hits, each tail 16352
 # tokens in the 16384 bucket at q_offset 16384, so the bucket ends on the
-# view's last position and no bucketed tail runs past it
+# view's last position and no bucketed tail runs past it. gemma3-27b (at
+# batch 2 by its count) serves the first ``gemma3_n`` prompts, one wave:
+# the script's time budget
 SERVE_LONG = dict(max_seq=32768, prompt=32736, shared=16384, n=4,
-                  max_new=32, batch=4, seed=0, warm=64,
+                  max_new=32, batch=4, seed=0, warm=64, gemma3_n=2,
                   # the dry-run's count must leave this share of 80 GB free
                   # for a serve at batch 4 (else batch 2)
                   free_share=0.05,
@@ -1910,22 +1915,36 @@ def long_requests(vocab, shared=0):
 def long_counts(arch):
     """The dry-run's counts (one device, the meta device) of ``arch``'s 32k
     serve and the batch they allow: the decode step at batch 4 over 32768
-    positions, a one-row 32768-token prefill (zamba2-1.2b's largest chunk,
-    16384 tokens, too); the serve's peak at batch b is the larger of the
-    decode step's and the one-row prefill's with b - 1 more rows of cache
-    beside it. Batch 4 where that leaves ``free_share`` of 80 GB free, else
-    batch 2. Returns (batch, {count: peak bytes})."""
+    positions and a one-row 32768-token prefill; the serve's peak at batch
+    b is the larger of the decode step's and the one-row prefill's with
+    b - 1 more rows of cache beside it. zamba2-1.2b's serve is counted as
+    its adapter runs it (``dryrun.recurrent_serve_count``: the batch's
+    rows and the adapter's working state live, its largest chunk, 16384
+    tokens, and the decode step). Batch 4 where that leaves
+    ``free_share`` of 80 GB free, else batch 2. Returns (batch, {count:
+    peak bytes})."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
     c = SERVE_LONG
-    cells = phase_cells()
-    names = ["long_decode", "long_prefill"]
+    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
     if arch == "zamba2-1.2b":
-        names.append("long_chunk")
+        n = dryrun.recurrent_serve_count(
+            configs.get(arch), batch=c["batch"], max_seq=c["max_seq"],
+            prompt=c["prompt"])
+        peaks = {"long_decode": n["decode"], "serve_b4": n["serve"][None]}
+        batch = 4 if peaks["serve_b4"] <= limit else 2
+        log(f"[serve_long] {arch} dry-run count of the adapter's serve at "
+            f"batch 4 x {c['max_seq']}: decode step {n['decode'] / 1e9:.2f} "
+            f"GB, the serve (its largest chunk, 16384 tokens) "
+            f"{peaks['serve_b4'] / 1e9:.2f} GB with {n['state'] / 1e9:.3f} "
+            f"GB of state (4 rows and the working tree) against "
+            f"{limit / 1e9:.1f} GB: batch {batch}")
+        return batch, peaks
+    cells = phase_cells()
     peaks = {}
-    for name in names:
+    for name in ("long_decode", "long_prefill"):
         rec, _ = dryrun.analyze_cell(arch, cells[name], ONE_DEVICE)
         peaks[name] = rec["analysis"]["peak_bytes"]
     sizes = []
@@ -1933,17 +1952,13 @@ def long_counts(arch):
              build_model(configs.get(arch)).init_cache(1, c["max_seq"],
                                                        device="meta"))
     row = sum(sizes)
-    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
     peaks["serve_b4"] = max(peaks["long_decode"],
                             peaks["long_prefill"] + 3 * row)
     batch = 4 if peaks["serve_b4"] <= limit else 2
     log(f"[serve_long] {arch} dry-run counts: decode step at batch 4 x "
         f"{c['max_seq']} {peaks['long_decode'] / 1e9:.2f} GB, one-row "
         f"{c['max_seq']}-token prefill {peaks['long_prefill'] / 1e9:.2f} GB"
-        + (f", its largest chunk (16384 tokens) "
-           f"{peaks['long_chunk'] / 1e9:.2f} GB" if "long_chunk" in peaks
-           else "")
-        + f", a row of cache {row / 1e9:.3f} GB; the serve at batch 4 "
+        f", a row of cache {row / 1e9:.3f} GB; the serve at batch 4 "
         f"{peaks['serve_b4'] / 1e9:.2f} GB against {limit / 1e9:.1f} GB "
         f"(80 GB less {c['free_share']:.0%}): batch {batch}")
     return batch, peaks
@@ -2001,11 +2016,12 @@ def serve_long_granite(card, batch):
 
 def serve_long_gemma3(card, batch):
     """(b) gemma3-27b whole on its window rings (no prefix cache: rings
-    cannot resume mid-stream), the 4 prompts unshared."""
+    cannot resume mid-stream), the first ``gemma3_n`` of the prompts,
+    unshared (one wave at batch 2: the script's time budget)."""
     from repro_torch.models.transformer import layer_flags as flags
     c = SERVE_LONG
     cfg, model, params = make_model("gemma3-27b", c["seed"])
-    reqs = long_requests(cfg.vocab_size)
+    reqs = long_requests(cfg.vocab_size)[:c["gemma3_n"]]
     n_local = int((~flags(cfg)).sum())
     # 62 launches a prefill, the 52 local layers' windowed
     r = short_serve("serve_long_gemma3", cfg, model, params, card,
@@ -2030,9 +2046,9 @@ def serve_long_gemma3(card, batch):
 
 def serve_long_zamba2(card, batch):
     """(c) zamba2-1.2b whole through the recurrent-state adapter: each
-    32736-token prompt in 10 pow2 chunks (16384 down to 32), then the same
-    requests on a fresh engine."""
-    from repro_torch.serve.engine import ContinuousEngine
+    32736-token prompt in 10 pow2 chunks (16384 down to 32). Two serves'
+    tokens are held equal in serve_recurrent (512 positions), not here:
+    the script's time budget."""
     from repro_torch.serve.step import pow2_chunks
     c = SERVE_LONG
     cfg, model, params = make_model("zamba2-1.2b", c["seed"])
@@ -2047,15 +2063,8 @@ def serve_long_zamba2(card, batch):
                     flash=lambda st: (want_flash, 0))
     stats = r["stats"]
     del r["eng"]
-    free_card()
-    again = long_requests(cfg.vocab_size)
-    ContinuousEngine(model, params, telemetry=False, batch_size=batch,
-                     max_seq=c["max_seq"]).serve(again)
-    same = [a.output == b.output for a, b in zip(reqs, again)]
     log(f"[serve_long_zamba2] pow2 chunks {chunks[0]}; flash launches "
-        f"{r['flash']} (want {want_flash}); signatures {stats['compiles']};"
-        f" a second serve on a fresh engine: {sum(same)} of {len(same)} "
-        f"requests emit the same tokens")
+        f"{r['flash']} (want {want_flash}); signatures {stats['compiles']}")
     check_all("serve_long_zamba2", {
         "adapter recurrent": stats["adapter"] == "recurrent",
         "each prompt 10 pow2 chunks": all(len(ch) == 10 for ch in chunks),
@@ -2063,9 +2072,97 @@ def serve_long_zamba2(card, batch):
             0 < stats["prefill_compiles"] <= bound),
         "state_scatter signatures == 1": (
             stats["compiles"].get("state_scatter") == 1),
-        "two serves emit the same tokens": all(same),
     })
     del model, params
+    free_card()
+    return r
+
+
+# the reference grid's long_500k cell (``configs.base.SHAPES``: decode at
+# 524288 positions, batch 1) served whole on zamba2-1.2b (38 layers, 6
+# shared-attention sites, 32:32 heads of 64, 1.02 B bf16 params): one
+# prompt of 524256 tokens from numpy seed 0 and 32 new tokens, so the
+# decode steps run at positions 524256-524287. The prefill's chunk cap is
+# the largest power of two whose dry-run count leaves ``free_share`` of
+# 80 GB free; the peak must read within ``peak_rel`` of that count
+SERVE_500K = dict(arch="zamba2-1.2b", max_seq=524288, prompt=524256,
+                  max_new=32, batch=1, seed=0, free_share=0.05,
+                  peak_rel=0.10)
+
+
+def serve_long500k_zamba2(card):
+    """(d) zamba2-1.2b's long_500k cell through ContinuousEngine and the
+    recurrent-state adapter at batch 1 x 524288: the dry-run's count
+    first (``dryrun.recurrent_serve_count``: the uncapped chunking, then
+    caps halving until the serve fits), then the serve with the cap it
+    chose and every gate of (c), the peak within ``peak_rel`` of the
+    count, then the profile of one decode step at position 524287
+    (kernels only)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.step import capped_chunks
+    c = SERVE_500K
+    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
+    t0 = time.perf_counter()
+    count = dryrun.recurrent_serve_count(
+        configs.get(c["arch"]), batch=c["batch"], max_seq=c["max_seq"],
+        prompt=c["prompt"], limit=limit)
+    cap = count["cap"]
+    log(f"[serve_long500k] {c['arch']} dry-run counts at batch "
+        f"{c['batch']} x {c['max_seq']} (in {time.perf_counter() - t0:.1f} "
+        f"s): decode step {count['decode'] / 1e9:.2f} GB; the serve by "
+        f"chunk cap " + ", ".join(
+            f"{k or 'none (pow2)'} {v / 1e9:.2f} GB"
+            for k, v in count["serve"].items())
+        + f"; state {count['state'] / 1e9:.3f} GB (a row and the working "
+        f"tree); against {limit / 1e9:.1f} GB: cap {cap}")
+    cfg, model, params = make_model(c["arch"], c["seed"])
+    rng = np.random.default_rng(c["seed"])
+    reqs = [Request(0, rng.integers(0, cfg.vocab_size, c["prompt"]).astype(
+        np.int32), max_new_tokens=c["max_new"])]
+    chunks = capped_chunks(c["prompt"], cap)
+    sites, _ = recurrent_flash_sites(model)
+    want_flash = sites * sum(x >= 2 for x in chunks)
+    r = short_serve("serve_long500k_zamba2", cfg, model, params, card,
+                    dict(c, max_chunk=cap), reqs,
+                    flash=lambda st: (want_flash, 0))
+    stats, eng = r["stats"], r["eng"]
+    want_peak = count["serve"][cap]
+    sizes = {sh[3] for sh in r["shapes"]}
+    log(f"[serve_long500k_zamba2] chunks (cap {cap}): {chunks}; flash "
+        f"launches {r['flash']} (want {want_flash}); signatures "
+        f"{stats['compiles']}; peak max_memory_allocated "
+        f"{r['peak'] / 1e9:.2f} GB against the count's "
+        f"{want_peak / 1e9:.2f} GB ({r['peak'] / want_peak - 1:+.2%}); "
+        f"card: {card}")
+    check_all("serve_long500k_zamba2", {
+        "adapter recurrent": stats["adapter"] == "recurrent",
+        f"the prompt in {len(chunks)} chunks of at most {cap}": (
+            sizes == {x for x in chunks if x >= 2}
+            and all(sh[4] == c["max_seq"] for sh in r["shapes"])),
+        f"prefill signatures <= {len(set(chunks))} (the chunk sizes)": (
+            0 < stats["prefill_compiles"] <= len(set(chunks))),
+        "state_scatter signatures == 1": (
+            stats["compiles"].get("state_scatter") == 1),
+        f"peak within {c['peak_rel']:.0%} of the count": (
+            abs(r["peak"] - want_peak) <= c["peak_rel"] * r["peak"]),
+        f"peak under {limit / 1e9:.0f} GB": r["peak"] <= limit,
+    })
+    # slot 0 is free after the serve: a decode step at the cell's last
+    # position over the whole 524288-position cache row
+    ad = eng.adapter
+    tokens = torch.zeros((1, 1), dtype=torch.int32, device=ad.device)
+    pos = torch.full((1,), c["max_seq"] - 1, dtype=torch.int32,
+                     device=ad.device)
+    r["profile"] = profile_steps("profile_long500k", {
+        f"decode step (1 row at {c['max_seq'] - 1})":
+            lambda: ad.decode_step(tokens, pos)})
+    r["count"], r["chunks"] = count, chunks
+    del eng, ad, tokens, pos, model, params
+    r.pop("eng")
     free_card()
     return r
 
@@ -2230,7 +2327,7 @@ def hold_long_zamba2(card):
             tok, lg = step(ad, tok, n + j)
             got.append(lg)
         del ad, last
-        # a fresh adapter's carried state is its fresh template
+        # a fresh adapter's working tree holds init_cache's values
         ref = adapter()
         sizes = [h["chunk"]] * (n // h["chunk"]) + pow2_chunks(n % h["chunk"])
         tokens = torch.as_tensor(req.prompt[None], device="cuda")
@@ -2258,7 +2355,7 @@ def hold_long_zamba2(card):
 def phase_serve_long(card):
     """The 32k cells: the dry-run's counts first, then granite-20b,
     gemma3-27b and zamba2-1.2b whole at max_seq 32768, each freed before
-    the next, then the f32 holds."""
+    the next, zamba2-1.2b's long_500k cell, then the f32 holds."""
     import torch
     out = {}
     for arch, part in (("granite-20b", serve_long_granite),
@@ -2270,6 +2367,7 @@ def phase_serve_long(card):
         log(f"[serve_long] {arch}: peak max_memory_allocated "
             f"{out[arch]['peak'] / 1e9:.2f} GB at batch {batch} (the count "
             f"{peaks['serve_b4'] / 1e9:.2f} GB at batch 4); card: {card}")
+    out["zamba2-1.2b-500k"] = serve_long500k_zamba2(card)
     # the f32 holds run with TF32 off, as ``main`` sets it for every phase
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("serve_long's f32 holds need TF32 off")
@@ -4225,8 +4323,8 @@ def phase_cells():
     x 512; whisper-small's 8 x 448 over its frames, internvl2-76b's 4 x
     256 after its 256 patches), the VLM phase's forward (256 patches + 256
     tokens), the serve phase (batch 4, 512 positions), and serve_long's
-    decode step (batch 4 over 32768 positions), one-row 32768-token
-    prefill and zamba2-1.2b's largest chunk (16384 tokens)."""
+    decode step (batch 4 over 32768 positions) and one-row 32768-token
+    prefill."""
     from repro_torch.configs.base import ShapeConfig
     fam = {c["arch"]: c for c in TRAIN_FAMILIES}
     return {
@@ -4246,8 +4344,6 @@ def phase_cells():
                                    SERVE_LONG["batch"]),
         "long_prefill": ShapeConfig("long_prefill", "prefill",
                                     SERVE_LONG["max_seq"], 1),
-        "long_chunk": ShapeConfig("long_chunk", "prefill",
-                                  SERVE_LONG["max_seq"] // 2, 1),
     }
 
 
@@ -4911,7 +5007,8 @@ def _calls_in(ms, budget_ms, most) -> int:
     return max(1, min(most, int(budget_ms // max(ms, 1e-6))))
 
 
-def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
+def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
+               hold=None):
     """The planned flash call (wgmma) on bf16 q [b,h,s,d], kv [b,hkv,t,d]
     (causal from ``q_offset`` ``off``, with ``win`` a window; ``t`` None:
     s; ``causal`` False: every query sees every key) beside the plain
@@ -4922,11 +5019,14 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     device time under the profiler; the bound. The kernel and sdpa are
     held against the plain version at the bf16 tolerance, the kernel also
     row by row (``FLASH_ROW_TOL``), and that row check must fail the
-    plain version with one 64-key tile of V zeroed (``planted_tile``). The
-    plain version runs as many query rows at a time as keep their f32
-    scores within 4 GiB. The timed calls of each follow from one call's
-    time: the kernel's and sdpa's about 150 ms, the dispatch rounds and
-    the plain version's about a second."""
+    plain version with one 64-key tile of V zeroed (``planted_tile``);
+    ``hold`` (None: every query row) holds only the first and the last
+    ``hold`` query rows (rows are independent), where the plain version
+    over every row takes seconds. The plain version runs as many query
+    rows at a time as keep their f32 scores within 4 GiB. The timed calls
+    of each follow from one call's time: the kernel's and sdpa's about
+    150 ms, the dispatch rounds and the plain version's about a
+    second."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
@@ -4945,11 +5045,16 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     call = lambda: ops.flash_attention(q, k, v, window=win,  # noqa: E731
                                        q_offset=off, causal=causal)
     rows = 2 ** ((2 ** 32 // (4 * b * h * t)).bit_length() - 1)
+    spans = ((0, s),) if hold is None else ((0, hold), (s - hold, s))
 
-    def plain(v=v):
+    def plain(v=v, spans=((0, s),)):
         return torch.cat([ref.attention(
-            q[:, :, i:i + rows], k, v, window=win, q_offset=off + i,
-            causal=causal) for i in range(0, s, rows)], dim=2)
+            q[:, :, i:min(i + rows, hi)], k, v, window=win,
+            q_offset=off + i, causal=causal)
+            for lo, hi in spans for i in range(lo, hi, rows)], dim=2)
+
+    def held(x):
+        return torch.cat([x[:, :, lo:hi] for lo, hi in spans], dim=2)
 
     one = cuda_timed(call, iters=1, warmup=1)
     iters = _calls_in(one, 150, 20)
@@ -4964,10 +5069,11 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
         iters)
     device = _device_ms(call)
     first = []
-    first_ms = cuda_timed(lambda: first.append(plain()), iters=1, warmup=0)
-    want = first.pop().float()
-    plain_ms = cuda_timed(plain, iters=_calls_in(first_ms, 1000, 5),
+    first_ms = cuda_timed(lambda: first.append(plain(spans=spans)), iters=1,
                           warmup=0)
+    want = first.pop().float()
+    plain_ms = cuda_timed(plain, iters=_calls_in(
+        first_ms * s / want.shape[2], 1000, 5), warmup=0)
     if causal:
         lib = {"mask": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)}
@@ -4977,15 +5083,15 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
     else:
         lib = {"no mask": lambda: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True)}
-    got = call()
+    got = held(call())
     err = (got.float() - want).abs().max().item()
     rel = row_err(got, want)
     tile = planted_tile(s, off)
     v_bad = v.clone()
     v_bad[:, :, tile:tile + FLASH_TILE] = 0
-    planted = row_err(got, plain(v_bad))
+    planted = row_err(got, plain(v_bad, spans))
     del got, v_bad
-    lib_err = {n: (fn().float() - want).abs().max().item()
+    lib_err = {n: (held(fn()).float() - want).abs().max().item()
                for n, fn in lib.items()}
     if not (err <= tol and all(e <= tol for e in lib_err.values())
             and rel <= FLASH_ROW_TOL):
@@ -5008,13 +5114,16 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True):
                timed_at=f"bf16 q[{b},{h},{s},{d}] kv[{b},{hkv},{t},{d}] "
                         f"q_offset {off}, "
                         + (f"window {win}" if causal else "non-causal")
-                        + f" ({what})")
+                        + f" ({what})"
+                        + ("" if hold is None else
+                           f"; held at query rows 0-{hold - 1} and "
+                           f"{s - hold}-{s - 1}"))
     if "is_causal" in lib_ms:
         row["is_causal_ms"], row["is_causal_device_ms"] = \
             lib_ms["is_causal"]
     log(f"[timing] flash {row['timed_at']}: events {ms:.4f} ms ({iters} "
         f"calls), plain {plain_ms:.4f} ms ({min(rows, s)} query rows at a "
-        f"time), " + ", ".join(
+        f"time, every row), " + ", ".join(
             f"sdpa {n} {e:.4f} ms" for n, (e, _) in lib_ms.items())
         + f"; device time a call: wgmma {device:.4f} ms, " + ", ".join(
             f"sdpa {n} {dv:.4f} ms" for n, (_, dv) in lib_ms.items())
@@ -5038,34 +5147,51 @@ def timing_long(long):
     and local layer (the 1024 window), zamba2-1.2b's first and last chunk
     ([1,32,16384,64] at q_offset 0, [1,32,32,64] at q_offset 32704), each
     over the 32768 positions of its cache row but the local layer (over
-    its own keys). Returns {name: (launches in the serve that gave the
-    shape, row)}."""
+    its own keys); and zamba2-1.2b's long_500k serve, over its 524288
+    positions: the 4096-token chunk at its offset (held at its first and
+    last 64 query rows: the plain version over all 4096 takes seconds)
+    and the last chunk (32 tokens at q_offset 524224). Returns {name:
+    (launches in the serve that gave the shape, row)}."""
     from repro_torch import configs
     t = SERVE_LONG["max_seq"]
     g, m, z = (configs.get(a) for a in ("granite-20b", "gemma3-27b",
                                         "zamba2-1.2b"))
+    big = long["zamba2-1.2b-500k"]
+    chunks, t5 = big["chunks"], SERVE_500K["max_seq"]
+    at = {}
+    for i, size in enumerate(chunks):
+        at.setdefault(size, sum(chunks[:i]))
     specs = {
-        "granite_long_cold": ("granite-20b", g, t, None, 0,
+        "granite_long_cold": ("granite-20b", g, t, t, None, 0,
                               "granite-20b's cold 32768-token prefill"),
-        "granite_long_tail": ("granite-20b", g, t // 2, None, t // 2,
+        "granite_long_tail": ("granite-20b", g, t // 2, t, None, t // 2,
                               "granite-20b's prefix-hit tail"),
-        "gemma3_long_global": ("gemma3-27b", m, t, None, 0,
+        "gemma3_long_global": ("gemma3-27b", m, t, t, None, 0,
                                "gemma3-27b's global layer at 32768"),
-        "gemma3_long_window": ("gemma3-27b", m, t, m.sliding_window, 0,
+        "gemma3_long_window": ("gemma3-27b", m, t, t, m.sliding_window, 0,
                                "gemma3-27b's local layer at 32768"),
-        "zamba2_long_first": ("zamba2-1.2b", z, t // 2, None, 0,
+        "zamba2_long_first": ("zamba2-1.2b", z, t // 2, t, None, 0,
                               "zamba2-1.2b's first chunk"),
-        "zamba2_long_last": ("zamba2-1.2b", z, 32, None, t - 64,
+        "zamba2_long_last": ("zamba2-1.2b", z, 32, t, None, t - 64,
                              "zamba2-1.2b's last chunk"),
+        "zamba2_500k_chunk4096": ("zamba2-1.2b-500k", z, 4096, t5, None,
+                                  at[4096], "zamba2-1.2b's long_500k "
+                                  "4096-token chunk"),
+        "zamba2_500k_last": ("zamba2-1.2b-500k", z, chunks[-1], t5, None,
+                             at[chunks[-1]], "zamba2-1.2b's long_500k "
+                             "last chunk"),
     }
+    # the query rows held at each end where the plain version over every
+    # row takes seconds
+    held = {"zamba2_500k_chunk4096": 64}
     rows = {}
-    for name, (arch, cfg, s, win, off, what) in specs.items():
-        keys = s if win is not None else t
+    for name, (arch, cfg, s, keys, win, off, what) in specs.items():
+        keys = s if win is not None else keys
         shape = (1, cfg.num_heads, cfg.num_kv_heads, s, keys, cfg.head_dim,
                  True, win, off)
         rows[name] = (long[arch]["shapes"].get(shape, 0), time_flash(
             1, cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim, win, what,
-            t=keys, off=off))
+            t=keys, off=off, hold=held.get(name)))
         if not rows[name][0]:
             raise AssertionError(f"serve_long gave flash no launch at "
                                  f"{shape}: {long[arch]['shapes']}")

@@ -88,42 +88,62 @@ class BenchRows:
 
 #: the marker kernel ``kernel_events`` brackets a session with
 #: (``torch.cuda._sleep``'s kernel), its length in clock cycles, and how
-#: many markers lead a session
-MARKER, MARKER_CYCLES, LEAD = "spin_kernel", 1000, 32
+#: many markers lead and end a session. On an H100 (NVIDIA H100 80GB
+#: HBM3, 700 W) kineto drops a session's first records as out of its
+#: window, more of them the older the process, whatever the session waits
+#: first (``benchmarks.profiler_probe``, PERF.md §7): the leading markers
+#: are what it drops
+MARKER, MARKER_CYCLES, LEAD, TAIL = "spin_kernel", 1000, 1024, 8
 
 
-def kernel_events(fn, n, tries=8, accept=None):
-    """(events, ok): (name, us) of every CUDA kernel of ``n`` calls of
-    ``fn`` under ``torch.profiler``. On an H100 (NVIDIA H100 80GB HBM3,
-    700 W), after long serves, the profiler dropped the first kernel
-    records of some sessions (kineto's log: "Out-of-range = 10"; up to 14
-    records in the probes), whatever the session waited before or after
-    its kernels. So a session launches ``LEAD`` marker kernels before the
-    calls and one after them; it is whole when its first and last kept
-    kernels are markers. ``ok``: the session is whole, or its last kernel
-    is the marker and ``accept`` (a test of its kept kernels) holds; it is
-    run again, up to ``tries`` sessions, until ``ok``. Not ok: the last
-    session's kernels."""
+def profiler_session(fn, n, settle=0.0):
+    """(start ns, name, us) of every CUDA kernel kineto kept of one
+    ``torch.profiler`` session: a ``settle`` s wait on the host, ``LEAD``
+    markers, ``n`` calls of ``fn``, ``TAIL`` markers, in time order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(LEAD):
-                torch.cuda._sleep(MARKER_CYCLES)
-            for _ in range(n):
-                fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if settle:
+            time.sleep(settle)
+        for _ in range(LEAD):
             torch.cuda._sleep(MARKER_CYCLES)
-            torch.cuda.synchronize()
-        # the raw kineto events, not the FunctionEvents the profiler builds
-        # from them, a Python object each (xlstm-1.3b's train step has
-        # 560,000 kernels)
-        events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e3)
-                        for e in prof.profiler.kineto_results.events()
-                        if e.device_type() == DeviceType.CUDA)
-        kept = [(name, us) for _, name, us in events if MARKER not in name]
-        tail = bool(events) and MARKER in events[-1][1]
-        ok = tail and (MARKER in events[0][1]
-                       or (accept is not None and accept(kept)))
+        for _ in range(n):
+            fn()
+        for _ in range(TAIL):
+            torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+    # the raw kineto events, not the FunctionEvents the profiler builds
+    # from them, a Python object each (xlstm-1.3b's train step has 560,000
+    # kernels)
+    return sorted((e.start_ns(), e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
+
+
+def kernel_events(fn, n, tries=8, accept=None, sessions=None):
+    """(events, ok): (name, us) of every CUDA kernel of ``n`` calls of
+    ``fn`` under ``torch.profiler`` (``profiler_session``). A session is
+    whole when it kept a leading marker, the calls' kernels and every
+    trailing marker (every marker where the calls launch none). ``ok``:
+    the session is whole, or its last kernel is a marker and ``accept`` (a
+    test of its kept kernels) holds; it is run again, up to ``tries``
+    sessions, until ``ok``. Not ok: the last session's kernels.
+    ``sessions``: a list that gets (kernels, leading markers kept,
+    trailing markers kept) of every session run."""
+    for _ in range(tries):
+        events = profiler_session(fn, n)
+        marks = [MARKER in name for _, name, _ in events]
+        kept = [(name, us) for (_, name, us), m in zip(events, marks)
+                if not m]
+        head = next((i for i, m in enumerate(marks) if not m), len(marks))
+        tail = next((i for i, m in enumerate(marks[::-1]) if not m),
+                    len(marks))
+        if sessions is not None:
+            sessions.append((len(events), head, tail))
+        whole = (head >= 1 and tail == TAIL if kept
+                 else len(marks) == LEAD + TAIL)
+        ok = whole or (bool(events) and marks[-1] and accept is not None
+                       and accept(kept))
         if ok:
             break
     return kept, ok
@@ -147,12 +167,14 @@ def device_ms(fn, n=30, by_kernel=False):
             by.setdefault(name, []).append(us / 1e3)
         return by
 
+    sessions = []
     events, ok = kernel_events(fn, n, accept=lambda ev: bool(ev) and all(
-        len(v) >= n / 2 for v in counts(ev).values()))
+        len(v) >= n / 2 for v in counts(ev).values()), sessions=sessions)
     if not (ok and events):
-        raise AssertionError("the profiler recorded no kernel of the calls, "
-                             "or lost the first or last kernels of 8 "
-                             "sessions")
+        raise AssertionError(
+            f"the profiler recorded no kernel of the calls, or lost the "
+            f"first or last kernels of 8 sessions (kernels, markers kept "
+            f"of {LEAD} leading and {TAIL} trailing: {sessions})")
     kernels = {k: statistics.median(v) for k, v in counts(events).items()}
     total = sum(kernels.values())
     return (total, kernels) if by_kernel else total

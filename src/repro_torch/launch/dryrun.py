@@ -36,6 +36,10 @@ Records land in build/dryrun/<mesh>/<arch>__<shape>.json and are read by
 the port's roofline report (``repro_torch.benchmarks.bench_roofline``).
 Each holds the reference's keys, ``peak_gb`` (decimal GB) and ``fits``:
 the rank's peak live bytes at most ``H100_SXM.mem_gb``.
+
+``recurrent_serve_count`` counts a recurrent family's serve on one
+device as its adapter runs it (the batch's rows and the working state
+live) and finds the prefill chunk cap that fits a limit.
 """
 from __future__ import annotations
 
@@ -53,10 +57,12 @@ from repro_torch.core.hw import H100_SXM
 from repro_torch.core.tracing import TraceStats, counting_call
 from repro_torch.launch.mesh import RankMesh, make_production_mesh
 from repro_torch.models import abstract_params, build_model, token_batch_specs
+from repro_torch.models.registry import serving_caps
 from repro_torch.parallel.sharding import NamedSharding, mesh_shape
 from repro_torch.perf import op_cost, roofline, step_analysis
+from repro_torch.serve.state import make_adapter
 from repro_torch.serve.step import (ShardedServeStep, abstract_cache,
-                                    cell_rules)
+                                    capped_chunks, cell_rules)
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import OptConfig, tree_map
 from repro_torch.train.step import (ShardedTrainStep, StepConfig, TrainState,
@@ -248,6 +254,67 @@ def count_cell(fn, args):
         out = fn(*args)
         del out
     return counter
+
+
+def recurrent_serve_count(cfg, *, batch: int, max_seq: int, prompt: int,
+                          limit=None) -> dict:
+    """The peak live bytes (one device, the meta device) of serving
+    ``prompt``-token requests through ``RecurrentStateAdapter`` at
+    ``batch`` x ``max_seq``, and the chunk cap that fits ``limit`` bytes.
+
+    The bf16 parameters, the batch's rows of state and the adapter's
+    batch-1 working tree are live throughout. A serve's count is the
+    larger of the decode step of the whole batch and the prompt's largest
+    chunk at that size's last offset (its attention reads the working
+    tree's whole cache whatever the offset; a smaller chunk's transients
+    are a share of the largest's). The uncapped chunking (``max_chunk``
+    None, the reference's) is counted first; while a count passes
+    ``limit``, the cap halves below the largest chunk. A text request
+    only: an audio request's first chunk also encodes its frames.
+
+    Returns dict(cap: the first ``max_chunk`` that fits (None, uncapped,
+    where ``limit`` is None), serve={cap: peak bytes}, decode: the decode
+    step's, state: bytes of the adapter's trees)."""
+    if serving_caps(cfg).needs_frames:
+        raise ValueError(f"{cfg.name}'s requests carry frames: the count "
+                         f"covers text requests only")
+    scfg = cfg.replace(param_dtype="bfloat16")
+    model = build_model(scfg)
+    shapes, _ = abstract_params(model)
+    params = _meta(shapes, torch.bfloat16)
+    ad = make_adapter(model, params, batch_size=batch, max_seq=max_seq)
+    ad.ensure_ready()
+
+    def peak(fn, *args):
+        counter = op_cost.OpCounter(scale_loops=True, track_memory=True)
+        with torch.no_grad(), counter:
+            counter.track((params, ad.caches, ad._work, args))
+            out = fn(*args)
+            del out
+        return counter.peak_bytes
+
+    def meta_tokens(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    decode = peak(lambda t, p: ad._decode(params, t, p, ad.caches),
+                  meta_tokens(batch, 1), meta_tokens(batch))
+    out = dict(cap=None, serve={}, decode=decode,
+               state=sum(t.numel() * t.element_size() for t in
+                         op_cost._tensors((ad.caches, ad._work))))
+    cap = None
+    while True:
+        chunks = capped_chunks(prompt, cap)
+        top = chunks[0]                  # the largest, first and repeated
+        off = top * (chunks.count(top) - 1)
+        out["serve"][cap] = max(decode, peak(
+            lambda t: ad._chunk(params, t, None, off, ad._work),
+            meta_tokens(1, top)))
+        out["cap"] = cap
+        if limit is None or out["serve"][cap] <= limit:
+            return out
+        if top == 1:
+            raise ValueError(f"no chunk cap fits {limit} bytes")
+        cap = top // 2
 
 
 def analyze_cell(arch, shape_name, mesh, variant=None, cfg=None):

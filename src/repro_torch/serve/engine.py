@@ -352,7 +352,9 @@ class ContinuousEngine:
     rings, recurrent carried state) lives behind ``self.adapter``
     (``serve.state.CacheAdapter``), selected by the model family's declared
     ``ServingCaps`` — the engine body is family-agnostic. ``greedy`` changes
-    nothing (``serve.step``'s docstring).
+    nothing (``serve.step``'s docstring). ``max_chunk`` caps a recurrent
+    prefill's chunks (``serve.state.make_adapter``; None: the reference's
+    chunking).
     """
 
     def __init__(self, model, params, *, batch_size: int, max_seq: int,
@@ -361,7 +363,7 @@ class ContinuousEngine:
                  prefill_buckets="auto", kv_block_size="auto",
                  prefix_cache: bool = True,
                  kv_pool_blocks: Optional[int] = None,
-                 tracing: bool = True):
+                 tracing: bool = True, max_chunk: Optional[int] = None):
         self.model = model
         self.params = params
         self.batch_size = batch_size
@@ -376,7 +378,7 @@ class ContinuousEngine:
             prefill_buckets=prefill_buckets, kv_block_size=kv_block_size,
             prefix_cache=prefix_cache, kv_pool_blocks=kv_pool_blocks,
             trace_stats=self.trace_stats,
-            on_compile=self._on_compile)
+            on_compile=self._on_compile, max_chunk=max_chunk)
         self.family = model.cfg.family
         self.pm = ServePowerModel(
             _count_params(params), dev=dev,

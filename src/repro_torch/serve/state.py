@@ -12,7 +12,8 @@
                      backend of the flat families when paging is off.
 ``RecurrentStateAdapter`` per-slot recurrent state (xlstm/zamba2/whisper):
                      a prompt is fed through the model in power-of-two
-                     chunks carrying state between them (no right-pad ever
+                     chunks (at most ``max_chunk`` tokens, where given)
+                     carrying state between them (no right-pad ever
                      touches the state), and the finished batch-1 state is
                      scattered into the slot's row of the shared batch tree.
                      Its leaves put the batch on different axes (xlstm's
@@ -42,12 +43,12 @@ from repro_torch.models.registry import ServingCaps, serving_caps
 from repro_torch.serve.paging import (PagePool, RadixPrefixCache,
                                       resolve_kv_block_size)
 from repro_torch.serve.queue import Request
-from repro_torch.serve.step import (TraceStats, counting_call, make_block_ops,
+from repro_torch.serve.step import (TraceStats, capped_chunks,
+                                    counting_call, make_block_ops,
                                     make_decode_step, make_paged_decode_step,
                                     make_paged_slot_prefill,
                                     make_recurrent_chunk_prefill,
-                                    make_slot_prefill, pad_to_bucket,
-                                    pow2_chunks)
+                                    make_slot_prefill, pad_to_bucket)
 from repro_torch.serve.step import prefill_buckets as auto_prefill_buckets
 
 __all__ = ["PrefillOutcome", "CacheAdapter", "PagedKVAdapter",
@@ -407,15 +408,24 @@ class RecurrentStateAdapter(CacheAdapter):
     continuous batcher.
 
     Prefill never right-pads: the prompt is decomposed into power-of-two
-    chunks (largest first — its binary representation) and fed left to
-    right through ``model.prefill``, the state carried between chunks in a
-    batch-1 tree that starts each prefill as a copy of a freshly
-    initialised template. The finished state is scattered wholesale into
+    chunks (largest first — its binary representation; with ``max_chunk``
+    no chunk is larger, ``step.capped_chunks``) and fed left to right
+    through ``model.prefill``, the state carried between chunks in one
+    batch-1 working tree. The finished state is scattered wholesale into
     the slot's row of the shared batch tree — which doubles as the reset:
     every leaf row is overwritten, so no state of a prior occupant
     survives. Signatures are bounded by the distinct chunk sizes
     (<= log2(max_seq), plus the frames variant for audio's first chunk),
     never by the request count; one host sync a prefill, the first token.
+
+    Where the reference keeps a freshly initialised batch-1 template and
+    starts each prefill from it (and scatters it into a freed row), the
+    adapter keeps no template: it fills the working tree, and a freed
+    row, in place with each leaf's initial value (``init_cache``'s: zeros,
+    and xlstm's sLSTM stabiliser at -1e30). The values are the same, so
+    every state dump is the reference's after the same traffic; the
+    memory is not: a zamba2-1.2b row at max_seq 524288 is 25.8 GB, and the
+    adapter holds the batch's rows and one batch-1 tree, not two.
 
     Decode reuses the ordinary fused step: the recurrent models take the
     whole state tree and a [B] position vector (the position-free families
@@ -426,9 +436,12 @@ class RecurrentStateAdapter(CacheAdapter):
 
     kind = "recurrent"
 
-    def __init__(self, model, params, **kw):
+    def __init__(self, model, params, *, max_chunk: Optional[int] = None,
+                 **kw):
         super().__init__(model, params, **kw)
         assert not self.buckets, "recurrent prefill cannot right-pad"
+        capped_chunks(1, max_chunk)          # refuses a cap not a power of 2
+        self.max_chunk = max_chunk
         # per-leaf batch axis: recurrent trees mix [L, B, ...] and [B, ...]
         # leaves — diff two shapes on the meta device to find the batch axis
         s2 = model.init_cache(2, self.max_seq, device="meta")
@@ -437,7 +450,8 @@ class RecurrentStateAdapter(CacheAdapter):
             lambda a, b: next(i for i, (x, y) in
                               enumerate(zip(a.shape, b.shape)) if x != y),
             s2, s3)
-        self._fresh = None    # batch-1 freshly initialised state template
+        self._init = tree_map(_initial_value,
+                              model.init_cache(1, 1, device="cpu"))
         self._work = None     # batch-1 state a prefill's chunks carry
         self._decode = counting_call(make_decode_step(model), "decode",
                                      self.trace_stats,
@@ -452,18 +466,18 @@ class RecurrentStateAdapter(CacheAdapter):
 
     def ensure_ready(self):
         if self.caches is None:
-            self.caches, self._fresh, self._work = (
+            self.caches, self._work = (
                 self.model.init_cache(b, self.max_seq, device=self.device)
-                for b in (self.batch_size, 1, 1))
+                for b in (self.batch_size, 1))
 
     def prefill(self, slot_index: int, req: Request) -> PrefillOutcome:
         prompt = np.asarray(req.prompt, np.int32)
-        tree_map(lambda w, f: w.copy_(f), self._work, self._fresh)
+        tree_map(lambda w, v: w.fill_(v), self._work, self._init)
         frames = (None if req.frames is None
                   else to_device(np.asarray(req.frames)[None], self.device))
         offset = 0
         next_tok = None
-        for size in pow2_chunks(len(prompt)):
+        for size in capped_chunks(len(prompt), self.max_chunk):
             tokens = to_device(prompt[None, offset:offset + size],
                                self.device)
             next_tok, _, _ = self._chunk(
@@ -483,26 +497,38 @@ class RecurrentStateAdapter(CacheAdapter):
         return next_tok
 
     def free_slot(self, slot_index: int):
-        # scatter the fresh template into the freed row (the prefill
-        # scatter's signature): the next prefill overwrites the row anyway,
-        # but a zeroed row keeps state dumps reproducible whatever the
-        # traffic order
+        # fill the freed row with the initial values: the next prefill
+        # overwrites the row anyway, but a reset row keeps state dumps
+        # reproducible whatever the traffic order
         if self.caches is not None:
-            self.caches = self._scatter(self.caches, self._fresh,
-                                        slot_index)
+            tree_map(lambda c, v, ax: c.narrow(ax, slot_index, 1).fill_(v),
+                     self.caches, self._init, self._axes)
+
+
+def _initial_value(leaf) -> float:
+    """The one value every element of an ``init_cache`` leaf starts at
+    (the adapter resets a state by filling each leaf with it)."""
+    v = leaf.reshape(-1)[0].item()
+    if not bool((leaf == v).all()):
+        raise ValueError("a recurrent state leaf starts at more than one "
+                         "value: the adapter resets each leaf to one")
+    return v
 
 
 def make_adapter(model, params, *, batch_size: int, max_seq: int,
                  prefill_buckets="auto", kv_block_size="auto",
                  prefix_cache: bool = True,
                  kv_pool_blocks: Optional[int] = None, greedy: bool = True,
-                 trace_stats: Optional[TraceStats] = None, on_compile=None):
+                 trace_stats: Optional[TraceStats] = None, on_compile=None,
+                 max_chunk: Optional[int] = None):
     """Select and build the backend for ``model``'s declared capabilities.
 
     ``"auto"`` arguments degrade where the family can't honor them
     (paging and bucketing off for the recurrent families, paging off for
     window rings); explicit requests on an incapable family raise.
-    ``greedy`` changes nothing (``serve.step``'s docstring)."""
+    ``greedy`` changes nothing (``serve.step``'s docstring).
+    ``max_chunk`` (the recurrent families only; None: the reference's
+    ``pow2_chunks``) caps a prefill chunk, a power of two."""
     caps = serving_caps(model.cfg)
     buckets = resolve_buckets(prefill_buckets, max_seq, model)
     trace_stats = trace_stats if trace_stats is not None else TraceStats()
@@ -510,7 +536,11 @@ def make_adapter(model, params, *, batch_size: int, max_seq: int,
                   caps=caps, trace_stats=trace_stats, on_compile=on_compile)
     block_size = resolve_kv_block_size(kv_block_size, max_seq, caps.paged_kv)
     if caps.kind == "recurrent":
-        return RecurrentStateAdapter(model, params, **common)
+        return RecurrentStateAdapter(model, params, max_chunk=max_chunk,
+                                     **common)
+    if max_chunk is not None:
+        raise ValueError(f"max_chunk caps a recurrent prefill's chunks; "
+                         f"{model.cfg.name} serves on {caps.kind}")
     if block_size:
         return PagedKVAdapter(model, params, block_size=block_size,
                               prefix_cache=prefix_cache,

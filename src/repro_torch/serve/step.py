@@ -223,6 +223,26 @@ def pow2_chunks(n: int) -> List[int]:
     return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n & (1 << b)]
 
 
+def capped_chunks(n: int, max_chunk: Optional[int] = None) -> List[int]:
+    """``pow2_chunks(n)`` with no chunk larger than ``max_chunk``.
+
+    None keeps ``pow2_chunks`` exactly (the reference's chunking). A cap
+    ``c`` (a power of two) feeds ``n // c`` chunks of ``c`` and then
+    ``pow2_chunks(n % c)``: every chunk is still a power of two, the
+    distinct sizes stay <= log2(c) + 1, and a chunk's transient memory
+    stays that of ``c`` tokens however long the prompt. The boundary does
+    not change what a chunked prefill computes (the state is carried)."""
+    if max_chunk is None:
+        return pow2_chunks(n)
+    if max_chunk < 1 or max_chunk & (max_chunk - 1):
+        raise ValueError(f"max_chunk must be a power of two, got {max_chunk}")
+    if n < 1:
+        raise ValueError(f"prompt length must be >= 1, got {n}")
+    rest = n % max_chunk
+    return [max_chunk] * (n // max_chunk) + (pow2_chunks(rest) if rest
+                                             else [])
+
+
 def make_recurrent_chunk_prefill(model):
     """One chunk of a left-to-right recurrent prefill.
 

@@ -186,3 +186,34 @@ def test_host_cpu_names_a_masked_processor_by_family_and_model(tmp_path):
     info.write_text(block.format(i=0, name="Xeon, Platinum 8480+"))
     assert host_cpu(str(info)).startswith("Xeon Platinum 8480+ (")
     assert "," not in host_cpu()
+
+
+@pytest.mark.parametrize("drop, whole", [(0, True), (1000, True),
+                                         (1024, False), (1031, False)])
+def test_kernel_events_whole_session(monkeypatch, drop, whole):
+    """``kernel_events`` on sessions whose first ``drop`` records kineto
+    dropped (a stand-in session: ``LEAD`` leading markers, 3 calls of 2
+    kernels, ``TAIL`` trailing markers): whole, with every kernel of the
+    calls, while a leading marker is left; past that not ok, and run
+    again up to ``tries`` sessions, whatever is left (7 trailing markers
+    alone are not a whole session)."""
+    from repro_torch.benchmarks import common
+    names = ([common.MARKER] * common.LEAD + ["a", "b"] * 3
+             + [common.MARKER] * common.TAIL)
+    runs = []
+
+    def session(fn, n):
+        runs.append(n)
+        return [(i, name, 1.0) for i, name in enumerate(names)][drop:]
+
+    monkeypatch.setattr(common, "profiler_session", session)
+    sessions = []
+    kept, ok = common.kernel_events(lambda: None, 3, tries=3,
+                                    sessions=sessions)
+    assert ok is whole
+    if whole:
+        assert kept == [("a", 1.0), ("b", 1.0)] * 3 and runs == [3]
+        assert sessions == [(len(names) - drop, common.LEAD - drop,
+                             common.TAIL)]
+    else:
+        assert runs == [3, 3, 3]

@@ -8,7 +8,10 @@ drawn from a numpy seed (``torch_weights``), against the reference's
 ``ContinuousEngine`` and models; and RoPE at positions near 32767 and
 524287 against the reference's ``rope``. A fault that shows only at long
 positions (the rope angle, block tables 128 blocks long, the last bucket
-at max_seq, a state carried over a dozen pow2 chunks) fails here.
+at max_seq, a state carried over a dozen pow2 chunks) fails here. The
+port's chunk cap (``max_chunk``, which the card's 524288-position serve
+of zamba2-1.2b needs: the dry-run's count here says why) serves each
+recurrent family as the reference's uncapped chunking does.
 
 The smoke models are cut so that each test runs in under 20 s alone on a
 host CPU (the port's plain attention builds every 4096 x 4096 score):
@@ -45,7 +48,9 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models import common as tcommon
 from repro_torch.serve import paging as tpaging
 from repro_torch.serve.engine import ContinuousEngine, Request
-from repro_torch.serve.step import pow2_chunks
+from repro_torch.models.registry import serving_caps
+from repro_torch.serve.step import capped_chunks, pow2_chunks
+from repro.serve.step import pow2_chunks as jpow2_chunks
 from torch_weights import both_trees
 
 MAX_SEQ = 4096
@@ -221,6 +226,94 @@ def test_zamba2_twelve_pow2_chunks_at_4096():
     _, tst, logits = _serve_both("zamba2-1.2b", dict(num_layers=3),
                                  [prompt], 1, 4, 2)
     assert tst["adapter"] == "recurrent" and len(logits) == 12
+
+
+def test_capped_chunks():
+    """No cap: ``pow2_chunks`` exactly (the reference's chunking). A cap
+    ``c``: ``n // c`` chunks of ``c``, then ``pow2_chunks(n % c)``."""
+    for n in list(range(1, 70)) + [255, 256, 4095, 32736, 524256]:
+        assert capped_chunks(n) == pow2_chunks(n) == jpow2_chunks(n)
+        for cap in (1, 4, 256):
+            got = capped_chunks(n, cap)
+            assert sum(got) == n and max(got) <= cap
+            assert got == [cap] * (n // cap) + (pow2_chunks(n % cap)
+                                                 if n % cap else [])
+    assert capped_chunks(4095, 256) == [256] * 15 + pow2_chunks(255)
+    assert len(capped_chunks(524256, 131072)) == 15
+    for bad in (0, 3, 100):
+        with pytest.raises(ValueError):
+            capped_chunks(8, bad)
+
+
+#: the recurrent smoke models, cut for the 4096-position serve: zamba2-1.2b
+#: to its first shared-attention site, whisper-small to one layer each side
+RECURRENT_CUTS = {"zamba2-1.2b": dict(num_layers=3), "xlstm-1.3b": {},
+                  "whisper-small": dict(num_layers=1, enc_layers=1)}
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENT_CUTS))
+def test_capped_chunks_serve_as_the_reference_at_4096(name):
+    """A 4095-token prompt at max_seq 4096 through the port's engine with
+    ``max_chunk`` 256 (15 x 256, then the 8 pow2 chunks of 255) against
+    the reference's engine in its 12 pow2 chunks, 2 new tokens (the
+    decode step at position 4095 fills the cache); whisper's frames go
+    with the first chunk only. Tokens and finish reasons equal; the last
+    chunk's logits (the first token's) and the decode step's within
+    ``REL`` of max|logit|."""
+    cut = RECURRENT_CUTS[name]
+    jcfg = jconfigs.get_smoke(name).replace(dtype="float32", **cut)
+    tcfg = tconfigs.get_smoke(name).replace(dtype="float32", **cut)
+    jp, tp = both_trees(tcfg, 4)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, tcfg.vocab_size, 4095).astype(np.int32)
+    frames = (rng.standard_normal((tcfg.enc_seq, tcfg.d_model)).astype(
+        np.float32) if serving_caps(tcfg).needs_frames else None)
+    jreq = JRequest(0, prompt.copy(), max_new_tokens=2, frames=frames)
+    treq = Request(0, prompt.copy(), max_new_tokens=2, frames=frames)
+    jeng = JEngine(jbuild(jcfg), jp, batch_size=1, max_seq=MAX_SEQ,
+                   dev=_jdev())
+    eng = ContinuousEngine(tbuild(tcfg), tp, batch_size=1, max_seq=MAX_SEQ,
+                           telemetry=False, max_chunk=256)
+    with_frames = []
+    chunk = eng.adapter._chunk
+
+    def spy(params, tokens, fr, offset, state):
+        with_frames.append(fr is not None)
+        return chunk(params, tokens, fr, offset, state)
+
+    eng.adapter._chunk = spy
+    want, got = (_capture(e.adapter, "_chunk") for e in (jeng, eng))
+    jdec, tdec = (_capture(e.adapter, "_decode") for e in (jeng, eng))
+    jeng.serve([jreq])
+    with torch.no_grad():
+        eng.serve([treq])
+    assert len(want) == len(pow2_chunks(4095)) == 12
+    assert len(got) == len(capped_chunks(4095, 256)) == 23
+    assert with_frames == [frames is not None] + [False] * 22
+    assert treq.output == jreq.output and len(treq.output) == 2
+    assert treq.finish_reason == jreq.finish_reason == "length"
+    _close(got[-1], want[-1], what="the last chunk's logits")
+    assert len(tdec) == len(jdec) == 1
+    for i, (g, w) in enumerate(zip(tdec, jdec)):
+        _close(g, w, what=f"decode step {i} logits")
+
+
+def test_long_500k_serve_needs_a_chunk_cap():
+    """The dry-run's count of zamba2-1.2b's long_500k serve (one 524256-
+    token prompt at batch 1 x 524288, bf16 weights, the adapter's row and
+    working tree live; the meta device): uncapped its 262144-token chunk
+    does not fit the 76 GB (95 % of 80) the card's serve allows, and the
+    cap the count takes, 131072, does; the state is a row and the
+    working tree, 2 x 25.8 GB."""
+    from repro_torch.launch.dryrun import recurrent_serve_count
+    limit = 0.95 * H100_SXM.mem_gb * 1e9
+    n = recurrent_serve_count(tconfigs.get("zamba2-1.2b"), batch=1,
+                              max_seq=524288, prompt=524256, limit=limit)
+    assert n["serve"][None] > limit
+    assert n["cap"] == 131072 and n["serve"][131072] <= limit
+    assert list(n["serve"]) == [None, 131072]
+    assert 51e9 < n["state"] < 52e9
+    assert n["decode"] < n["serve"][131072]
 
 
 def _trie(mod, depth, branches, bs, seed=3):

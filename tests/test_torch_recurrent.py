@@ -705,6 +705,113 @@ def test_slot_reuse_does_not_leak_state(name):
     assert first[0].output == again[0].output
 
 
+def _dump(tree):
+    """A copy of every leaf of a state tree of either package as f32
+    numpy, in order."""
+    return [x.detach().float().numpy().copy() if isinstance(x, torch.Tensor)
+            else np.asarray(x, np.float32)
+            for x in jax.tree.leaves(tree, is_leaf=lambda x: isinstance(
+                x, torch.Tensor))]
+
+
+@pytest.mark.parametrize("name", ARCHES)
+def test_adapter_resets_rows_to_init_cache_as_the_reference(name):
+    """The adapter keeps no fresh template: it fills its working tree and
+    a freed row with each leaf's initial value. After the same traffic
+    (batch 3, recycling) the port's state tree is the reference adapter's
+    dump, and the rows freed after the last decode step are
+    ``init_cache``'s exactly (xlstm's sLSTM stabiliser at -1e30); then two
+    prefills into rows 0 and 1 of a fresh engine of each package and
+    ``free_slot`` of row 1: row 1 is ``init_cache``'s again on both sides,
+    rows 0 and 2 as they were, and the port's row 1 before it was freed
+    is what its prompt alone gives (each prefill starts from the initial
+    values, whatever the working tree held)."""
+    jcfg, jm, jp, tcfg, tm, tp = _models(name)
+    dev = jhw.DeviceSpec(**dataclasses.asdict(H100_SXM))
+    jeng = JEngine(jm, jp, batch_size=3, max_seq=MAX_SEQ, dev=dev)
+    eng = ContinuousEngine(tm, tp, batch_size=3, max_seq=MAX_SEQ,
+                           telemetry=False)
+    jeng.serve(_mk_reqs(jcfg, (5, 3, 6, 2, 7), 1, max_new=4, cls=JRequest))
+    eng.serve(_mk_reqs(tcfg, (5, 3, 6, 2, 7), 1, max_new=4))
+    init = _dump(tm.init_cache(3, MAX_SEQ, device="cpu"))
+    got, want = _dump(eng.adapter.caches), _dump(jeng.adapter.caches)
+    assert len(got) == len(want) == len(init)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _close(g, w, what=f"state leaf {i} after the serve")
+    axes = jax.tree.leaves(eng.adapter._axes)
+    # a row freed after the last decode step holds init_cache's values in
+    # the reference's dump, and exactly those in the port's
+    reset = [r for r in range(3) if all(
+        np.array_equal(np.take(w, [r], ax), np.take(z, [r], ax))
+        for w, z, ax in zip(want, init, axes))]
+    assert reset
+    for g, z, ax in zip(got, init, axes):
+        np.testing.assert_array_equal(np.take(g, reset, ax),
+                                      np.take(z, reset, ax))
+    if name == "xlstm-1.3b":
+        assert any((z == -1e30).all() and z.size for z in init)
+    for fresh, cls in (
+            (lambda: JEngine(jm, jp, batch_size=3, max_seq=MAX_SEQ,
+                             dev=dev), JRequest),
+            (lambda: ContinuousEngine(tm, tp, batch_size=3, max_seq=MAX_SEQ,
+                                      telemetry=False), Request)):
+        ad = fresh().adapter
+        ad.ensure_ready()
+        for slot, req in enumerate(_mk_reqs(tcfg, (6, 5), 9, cls=cls)):
+            ad.prefill(slot, req)
+        held = _dump(ad.caches)
+        assert any(not np.array_equal(np.take(h, [1], ax),
+                                      np.take(z, [1], ax))
+                   for h, z, ax in zip(held, init, axes))
+        ad.free_slot(1)
+        for h, a, z, ax in zip(held, _dump(ad.caches), init, axes):
+            np.testing.assert_array_equal(np.take(a, [1], ax),
+                                          np.take(z, [1], ax))
+            np.testing.assert_array_equal(np.take(a, [0, 2], ax),
+                                          np.take(h, [0, 2], ax))
+    # the working tree starts each prefill at init_cache's values: row 1
+    # (prefilled after row 0) is what the same prompt alone gives
+    alone = ContinuousEngine(tm, tp, batch_size=3, max_seq=MAX_SEQ,
+                             telemetry=False).adapter
+    alone.ensure_ready()
+    alone.prefill(0, _mk_reqs(tcfg, (6, 5), 9)[1])
+    for h, a, ax in zip(held, _dump(alone.caches), axes):
+        np.testing.assert_array_equal(np.take(h, [1], ax),
+                                      np.take(a, [0], ax))
+
+
+@pytest.mark.parametrize("name", ARCHES)
+def test_adapter_holds_the_rows_and_one_working_tree(name):
+    """Counted on the meta device (the op counter's live bytes), the
+    adapter allocates the batch's rows and one batch-1 tree at max_seq:
+    what ``init_cache(3)`` and ``init_cache(1)`` allocate, nothing more
+    (no template). The per-leaf fill values are Python numbers."""
+    from repro_torch.launch.dryrun import _meta
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.perf import op_cost
+    from repro_torch.serve.state import make_adapter
+    _, _, _, tcfg, tm, _ = _models(name)
+    shapes, _ = abstract_params(tm)
+    params = _meta(shapes, torch.float32)
+
+    def live(fn):
+        counter = op_cost.OpCounter(track_memory=True)
+        with counter:
+            out = fn()
+        return out, counter.live_bytes
+
+    def adapter():
+        ad = make_adapter(tm, params, batch_size=3, max_seq=4096)
+        ad.ensure_ready()
+        return ad
+
+    ad, held = live(adapter)
+    _, rows = live(lambda: tm.init_cache(3, 4096, device="meta"))
+    _, one = live(lambda: tm.init_cache(1, 4096, device="meta"))
+    assert held == rows + one > 0
+    assert all(isinstance(v, float) for v in jax.tree.leaves(ad._init))
+
+
 def test_audio_requires_frames():
     _, _, _, tcfg, tm, tp = _models("whisper-small")
     eng = ContinuousEngine(tm, tp, batch_size=1, max_seq=MAX_SEQ,
