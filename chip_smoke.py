@@ -1805,7 +1805,7 @@ def phase_serve_dense(card):
 
 
 def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
-                warm=0):
+                warm=0, watch=None):
     """``reqs`` (None: ``c["n"]`` requests of ``c["lens"]`` tokens from
     seed ``c["seed"]``, ``c["max_new"]`` new each) through ContinuousEngine
     at batch ``c["batch"]`` x ``c["max_seq"]`` (with ``c["max_chunk"]``
@@ -1817,8 +1817,9 @@ def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
     windowed), joules partitioned, every request's energy above 0, tokens
     in vocab. ``warm``: first serve each request's first ``warm`` prompt
     tokens (2 new) on an engine of the same shape, freed before the serve.
-    Returns dict(eng, stats, syncs, flash, routes, windowed, shapes,
-    peak)."""
+    ``watch``: a context manager entered around the serve alone (not the
+    warm one), what it yields returned as ``watched``. Returns dict(eng,
+    stats, syncs, flash, routes, windowed, shapes, peak, watched)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -1839,7 +1840,8 @@ def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
         free_card()
     eng = ContinuousEngine(model, params, **kw)
     torch.cuda.reset_peak_memory_stats()
-    with flash_shapes() as shapes:
+    with flash_shapes() as shapes, (watch or contextlib.nullcontext)() as \
+            watched:
         stats, wall, n_syncs, (n_flash, routes, windowed) = counted_path(
             lambda: eng.serve(reqs))
     peak = torch.cuda.max_memory_allocated()
@@ -1871,7 +1873,7 @@ def short_serve(label, cfg, model, params, card, c, reqs=None, flash=None,
     })
     return dict(eng=eng, stats=stats, syncs=n_syncs, flash=n_flash,
                 routes=routes, windowed=windowed, shapes=dict(shapes),
-                peak=peak)
+                peak=peak, watched=watched)
 
 
 # the reference grid's 32k cells served whole on the card
@@ -1914,54 +1916,74 @@ def long_requests(vocab, shared=0):
 
 def long_counts(arch):
     """The dry-run's counts (one device, the meta device) of ``arch``'s 32k
-    serve and the batch they allow: the decode step at batch 4 over 32768
-    positions and a one-row 32768-token prefill; the serve's peak at batch
-    b is the larger of the decode step's and the one-row prefill's with
-    b - 1 more rows of cache beside it. zamba2-1.2b's serve is counted as
-    its adapter runs it (``dryrun.recurrent_serve_count``: the batch's
-    rows and the adapter's working state live, its largest chunk, 16384
-    tokens, and the decode step). Batch 4 where that leaves
-    ``free_share`` of 80 GB free, else batch 2. Returns (batch, {count:
-    peak bytes})."""
+    serve and the batch they allow: a flat family's by
+    ``dryrun.long_serve_count`` (the decode step at batch b over 32768
+    positions and a one-row 32768-token prefill with b - 1 more rows of
+    cache beside it; the largest of 4, 2 and 1 that leaves
+    ``free_share`` of 80 GB free, None where none does), beside the
+    paged adapter's own count at that batch (``dryrun.paged_serve_count``:
+    its decode step and its cold prefill with the pool live) where it
+    serves on the paged path. zamba2-1.2b's serve is counted as its
+    adapter runs it (``dryrun.recurrent_serve_count``: the batch's rows
+    and the adapter's working state live, its largest chunk, 16384
+    tokens, and the decode step), batch 4 where that fits, else 2.
+    Returns (batch, {count: peak bytes}): "serve" the count at the batch
+    taken (at 4 where none fits), "paged" the paged adapter's (its peak
+    of the two) where it was counted."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
-    from repro_torch.models import build_model
-    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import serving_caps
     c = SERVE_LONG
+    cfg = configs.get(arch)
     limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
     if arch == "zamba2-1.2b":
         n = dryrun.recurrent_serve_count(
-            configs.get(arch), batch=c["batch"], max_seq=c["max_seq"],
-            prompt=c["prompt"])
-        peaks = {"long_decode": n["decode"], "serve_b4": n["serve"][None]}
-        batch = 4 if peaks["serve_b4"] <= limit else 2
+            cfg, batch=c["batch"], max_seq=c["max_seq"], prompt=c["prompt"])
+        peaks = {"long_decode": n["decode"], "serve": n["serve"][None]}
+        batch = 4 if peaks["serve"] <= limit else 2
         log(f"[serve_long] {arch} dry-run count of the adapter's serve at "
             f"batch 4 x {c['max_seq']}: decode step {n['decode'] / 1e9:.2f} "
             f"GB, the serve (its largest chunk, 16384 tokens) "
-            f"{peaks['serve_b4'] / 1e9:.2f} GB with {n['state'] / 1e9:.3f} "
+            f"{peaks['serve'] / 1e9:.2f} GB with {n['state'] / 1e9:.3f} "
             f"GB of state (4 rows and the working tree) against "
             f"{limit / 1e9:.1f} GB: batch {batch}")
         return batch, peaks
-    cells = phase_cells()
-    peaks = {}
-    for name in ("long_decode", "long_prefill"):
-        rec, _ = dryrun.analyze_cell(arch, cells[name], ONE_DEVICE)
-        peaks[name] = rec["analysis"]["peak_bytes"]
-    sizes = []
-    tree_map(lambda t: sizes.append(t.numel() * t.element_size()),
-             build_model(configs.get(arch)).init_cache(1, c["max_seq"],
-                                                       device="meta"))
-    row = sum(sizes)
-    peaks["serve_b4"] = max(peaks["long_decode"],
-                            peaks["long_prefill"] + 3 * row)
-    batch = 4 if peaks["serve_b4"] <= limit else 2
-    log(f"[serve_long] {arch} dry-run counts: decode step at batch 4 x "
-        f"{c['max_seq']} {peaks['long_decode'] / 1e9:.2f} GB, one-row "
-        f"{c['max_seq']}-token prefill {peaks['long_prefill'] / 1e9:.2f} GB"
-        f", a row of cache {row / 1e9:.3f} GB; the serve at batch 4 "
-        f"{peaks['serve_b4'] / 1e9:.2f} GB against {limit / 1e9:.1f} GB "
-        f"(80 GB less {c['free_share']:.0%}): batch {batch}")
+    n = dryrun.long_serve_count(cfg, max_seq=c["max_seq"], limit=limit)
+    batch = n["batch"]
+    peaks = {"long_prefill": n["prefill"], "row": n["row"],
+             "serve": n["serve"][batch or 4]}
+    peaks |= {f"long_decode_b{b}": v for b, v in n["decode"].items()}
+    peaks |= {f"serve_b{b}": v for b, v in n["serve"].items()}
+    paged = ""
+    if batch and serving_caps(cfg).paged_kv:
+        pn = dryrun.paged_serve_count(cfg, batch=batch, max_seq=c["max_seq"],
+                                      prompt=c["prompt"])
+        peaks |= {"paged_decode": pn["decode"], "paged_prefill": pn["prefill"],
+                  "paged": pn["serve"]}
+        paged = (f"; the paged adapter's own count at batch {batch}: decode "
+                 f"step {pn['decode'] / 1e9:.2f} GB, cold prefill "
+                 f"{pn['prefill'] / 1e9:.2f} GB, pool {pn['pool'] / 1e9:.2f}"
+                 f" GB")
+    log(f"[serve_long] {arch} dry-run counts at max_seq {c['max_seq']}: "
+        f"one-row prefill {n['prefill'] / 1e9:.2f} GB, a row of cache "
+        f"{n['row'] / 1e9:.3f} GB; " + ", ".join(
+            f"batch {b}: decode step {n['decode'][b] / 1e9:.2f} GB, serve "
+            f"{n['serve'][b] / 1e9:.2f} GB" for b in n["serve"])
+        + f" against {limit / 1e9:.1f} GB (80 GB less "
+        f"{c['free_share']:.0%}): "
+        + (f"batch {batch}" if batch else "does not fit at one row")
+        + paged)
     return batch, peaks
+
+
+def paged_peak_checks(arch, peak, peaks):
+    """A paged 32k serve's peak max_memory_allocated within
+    ``SERVE_LONG_MOE["peak_rel"]`` of the paged adapter's own count
+    (``long_counts``' "paged")."""
+    rel = SERVE_LONG_MOE["peak_rel"]
+    return {f"{arch}: peak within {rel:.0%} of the paged adapter's count "
+            f"({peaks['paged'] / 1e9:.2f} GB)":
+            abs(peak - peaks["paged"]) <= rel * peak}
 
 
 def serve_long_granite(card, batch):
@@ -1970,41 +1992,16 @@ def serve_long_granite(card, batch):
     the dry-run's count of a decode step at position 32767 held against
     the card's."""
     import torch
-    from repro_torch.serve.step import bucket_for
     c = SERVE_LONG
     cfg, model, params = make_model("granite-20b", c["seed"])
     reqs = long_requests(cfg.vocab_size, c["shared"])
     r = short_serve("serve_long_granite", cfg, model, params, card,
                     dict(c, batch=batch), reqs, warm=c["warm"])
-    stats, eng = r["stats"], r["eng"]
-    want_shapes = {(1, cfg.num_heads, cfg.num_kv_heads,
-                    bucket_for(len(q.prompt) - q.cached_prompt_tokens,
-                               eng.buckets), c["max_seq"], cfg.head_dim,
-                    True, None, q.cached_prompt_tokens) for q in reqs}
-    check_all("serve_long_granite", {
-        "prefix hits == 3": stats["prefix_cache"]["hits"] == 3,
-        "requests 1-3 served 16384 prompt tokens from the prefix cache": (
-            [q.cached_prompt_tokens for q in reqs]
-            == [0] + [c["shared"]] * 3),
-        "flash shapes == the cold bucket's and the tails' (q_offset "
-        "16384)": set(r["shapes"]) == want_shapes,
-    })
-    # every slot is free after the serve: the table row of null blocks
-    ad = eng.adapter
-    prompt = torch.zeros((1, c["max_seq"]), dtype=torch.int32,
-                         device=ad.device)
-    null_row = torch.zeros(ad.n_slot_blocks, dtype=torch.int32,
-                           device=ad.device)
-    prof = profile_steps("profile_long", {
-        "prefill (32768 tokens, cold)": lambda: ad._prefill_slot(
-            ad.params, prompt, c["max_seq"], 0, null_row, ad.caches)},
-        n=1, warm=False)
-    p = prof["prefill (32768 tokens, cold)"]
-    log(f"[profile_long] flash {p['flash_ms']:.3f} of {p['device_ms']:.3f} "
-        f"device ms: {p['flash_ms'] / p['device_ms']:.1%} of the cold "
-        f"32768-token prefill; card: {card}")
-    r["profile"] = prof
-    del eng, ad, prompt, null_row
+    eng = r["eng"]
+    check_all("serve_long_granite", prefix_checks(cfg, reqs, r))
+    r["profile"] = profile_cold_prefill("profile_long", eng, torch.zeros(
+        (1, c["max_seq"]), dtype=torch.int32, device="cuda"), card)
+    del eng
     r.pop("eng")
     free_card()
     r["dryrun"] = dryrun_decode(model, params, card, c["max_seq"],
@@ -2012,6 +2009,50 @@ def serve_long_granite(card, batch):
     del model, params
     free_card()
     return r
+
+
+def prefix_checks(cfg, reqs, r):
+    """serve_long's gates of a paged serve ``r`` (``short_serve``'s) of
+    ``long_requests(..., shared)``: a prefix hit for each request past
+    the first, each served ``shared`` prompt tokens from the cache, and
+    flash launched at exactly the cold bucket's shape and the tails' (at
+    q_offset ``shared``, each over the whole cache view)."""
+    from repro_torch.serve.step import bucket_for
+    c, n = SERVE_LONG, len(reqs)
+    want_shapes = {(1, cfg.num_heads, cfg.num_kv_heads,
+                    bucket_for(len(q.prompt) - q.cached_prompt_tokens,
+                               r["eng"].buckets), c["max_seq"],
+                    cfg.head_dim, True, None, q.cached_prompt_tokens)
+                   for q in reqs}
+    return {
+        f"prefix hits == {n - 1}": r["stats"]["prefix_cache"]["hits"]
+        == n - 1,
+        f"requests 1-{n - 1} served {c['shared']} prompt tokens from the "
+        f"prefix cache": ([q.cached_prompt_tokens for q in reqs]
+                          == [0] + [c["shared"]] * (n - 1)),
+        f"flash shapes == the cold bucket's and the tails' (q_offset "
+        f"{c['shared']})": set(r["shapes"]) == want_shapes,
+    }
+
+
+def profile_cold_prefill(label, eng, tokens, card):
+    """One cold prefill of ``tokens`` ([1, S] on the card, every position
+    real) through ``eng``'s paged slot-prefill step into the row of null
+    blocks (every slot is free after the serve), kernels only, by class,
+    with flash's share of the device time."""
+    import torch
+    ad = eng.adapter
+    n = tokens.shape[1]
+    null_row = torch.zeros(ad.n_slot_blocks, dtype=torch.int32,
+                           device=ad.device)
+    what = f"prefill ({n} tokens, cold)"
+    prof = profile_steps(label, {what: lambda: ad._prefill_slot(
+        ad.params, tokens, n, 0, null_row, ad.caches)}, n=1, warm=False)
+    p = prof[what]
+    log(f"[{label}] flash {p['flash_ms']:.3f} of {p['device_ms']:.3f} "
+        f"device ms: {p['flash_ms'] / p['device_ms']:.1%} of the cold "
+        f"{n}-token prefill; card: {card}")
+    return prof
 
 
 def serve_long_gemma3(card, batch):
@@ -2207,21 +2248,29 @@ def f32_model(arch, layers):
     return cfg, model, model.init(gen, "cuda")
 
 
-def hold_long_granite(card):
-    """granite-20b at 2 of 52 layers in f32: the four requests of (a)
+def hold_long_paged(card, arch, label, same_chunks=False):
+    """``arch`` at 2 layers in f32 (``f32_model``; an MoE model's dense
+    first layer and its first MoE layer): the four requests of (a)
     through the paged engine (prefix hits and all; its prefill and first
-    decode logits kept), then each prompt through the contiguous path (a
-    cold ``make_prefill_step`` of the whole prompt on a flat cache, then
-    ``make_decode_step`` fed the engine's first 8 tokens)."""
+    decode logits kept), then each prompt through the contiguous path
+    (``model.prefill`` on a flat cache, then ``make_decode_step`` fed the
+    engine's first 8 tokens): with ``same_chunks`` False the whole prompt
+    cold; with it the engine's own chunks, as an MoE layer's group-local
+    routing needs (a group's tokens compete for capacity): the prompt's
+    uncached tail right-padded to its bucket at start_pos
+    ``cached_prompt_tokens``, over request 0's cache below it."""
     import torch
+    from repro_torch import configs
+    from repro_torch.models.common import mask_cache_tail
     from repro_torch.serve.engine import ContinuousEngine
-    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    from repro_torch.serve.step import make_decode_step, pad_to_bucket
     c, h = SERVE_LONG, SERVE_LONG["hold"]
-    cfg, model, params = f32_model("granite-20b", h["layers"])
+    cfg, model, params = f32_model(arch, h["layers"])
+    dev = params["embedding"].device
     reqs = long_requests(cfg.vocab_size, c["shared"])
     eng = ContinuousEngine(model, params, batch_size=c["batch"],
                            max_seq=c["max_seq"], telemetry=False)
-    ad = eng.adapter
+    ad, buckets = eng.adapter, eng.buckets
     slots, first, steps, kept = {}, {}, [], []
     prefill, prefill_step, decode = ad.prefill, ad._prefill_slot, ad._decode
 
@@ -2249,35 +2298,48 @@ def hold_long_granite(card):
     paged_flash = flash_counts()
     del eng, ad
     free_card()
-    prefill_c, decode_c = make_prefill_step(model), make_decode_step(model)
-    pairs = []
+    decode_c = make_decode_step(model)
+    pairs, base = [], None
     for q in reqs:
-        cache = model.init_cache(1, c["max_seq"], device="cuda")
+        cache = model.init_cache(1, c["max_seq"], device=dev)
+        start = q.cached_prompt_tokens if same_chunks else 0
+        tokens, n = (pad_to_bucket(q.prompt[start:], buckets) if same_chunks
+                     else (q.prompt, len(q.prompt)))
         with torch.no_grad():
-            lg, cache = prefill_c(params, {"tokens": torch.as_tensor(
-                q.prompt[None], device="cuda")}, cache)
+            if start:
+                for got, was in zip(cache, base):
+                    got[:, :, :start] = was[:, :, :start]
+            lg, cache = model.prefill(
+                params, {"tokens": torch.as_tensor(tokens[None], device=dev)},
+                cache, true_len=n if same_chunks else None,
+                start_pos=start or None)
+            mask_cache_tail(cache, start + n)
             pairs.append((first[q.req_id], lg[0, 0].float()))
             for j in range(h["steps"]):
                 tok = torch.tensor([[q.output[j]]], dtype=torch.int32,
-                                   device="cuda")
+                                   device=dev)
                 _, lg, cache = decode_c(params, tok, len(q.prompt) + j,
                                         cache)
                 pairs.append((steps[j][slots[q.req_id]], lg[0, 0].float()))
+        if base is None:
+            base = cache
         del cache
-    log(f"[hold_long_granite] {cfg.name} at {cfg.num_layers} of 52 layers "
-        f"in f32: the paged serve's prefix hits "
-        f"{stats['prefix_cache']['hits']}, cached "
+    log(f"[{label}] {cfg.name} at {cfg.num_layers} of "
+        f"{configs.get(arch).num_layers} layers in f32: the paged serve's prefix "
+        f"hits {stats['prefix_cache']['hits']}, cached "
         f"{[q.cached_prompt_tokens for q in reqs]}, flash {paged_flash}; "
-        f"against the contiguous path, each prompt's last position and "
-        f"{h['steps']} teacher-forced decode steps; card: {card}")
-    check_all("hold_long_granite", {
+        f"against the contiguous path ("
+        + ("the engine's chunks" if same_chunks else "each prompt cold")
+        + f"), each prefill's last position and {h['steps']} "
+        f"teacher-forced decode steps; card: {card}")
+    check_all(label, {
         "the paged serve took 3 prefix hits": (
             stats["prefix_cache"]["hits"] == 3),
         "every request decoded 8 steps in the first 8 batches": (
             stats["completed"] == 4 and len(steps) == h["steps"]
             and len(slots) == len(first) == 4)})
-    out = logit_hold("hold_long_granite", pairs)
-    del model, params, pairs, first, steps
+    out = logit_hold(label, pairs)
+    del model, params, pairs, first, steps, base
     free_card()
     return out
 
@@ -2366,13 +2428,18 @@ def phase_serve_long(card):
         out[arch]["counts"] = peaks
         log(f"[serve_long] {arch}: peak max_memory_allocated "
             f"{out[arch]['peak'] / 1e9:.2f} GB at batch {batch} (the count "
-            f"{peaks['serve_b4'] / 1e9:.2f} GB at batch 4); card: {card}")
+            f"{peaks['serve'] / 1e9:.2f} GB); card: {card}")
+        if "paged" in peaks:
+            check_all("serve_long", paged_peak_checks(arch, out[arch]["peak"],
+                                                      peaks))
     out["zamba2-1.2b-500k"] = serve_long500k_zamba2(card)
     # the f32 holds run with TF32 off, as ``main`` sets it for every phase
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("serve_long's f32 holds need TF32 off")
-    out["hold"] = {"granite-20b": hold_long_granite(card),
-                   "zamba2-1.2b": hold_long_zamba2(card)}
+    out["hold"] = {
+        "granite-20b": hold_long_paged(card, "granite-20b",
+                                       "hold_long_granite"),
+        "zamba2-1.2b": hold_long_zamba2(card)}
     return out
 
 
@@ -2390,10 +2457,24 @@ SERVE_MOE = dict(arch="deepseek-moe-16b", seed=0)
 SERVE_MOONSHOT = dict(arch="moonshot-v1-16b-a3b", seed=0)
 MOE_B3 = dict(batch=3, max_seq=512, max_new=8, seed=1, lens=(30, 300), n=4)
 # one full-width MoE layer held on the card against the host in f32: a
-# 256-token prefill group (capacity 30) and a 3-token decode group
-# (capacity 1); a routing disagreement is allowed only at a token whose
-# router probabilities at the top-k cut differ by less than MOE_MARGIN
-MOE_HOLD = dict(groups=((1, 256), (3, 1)), seed=0)
+# 256-token prefill group (capacity 30), a 3-token decode group (capacity
+# 1), and serve_long's two prefill groups: a cold 32768-token bucket
+# (capacity 3840) and a prefix hit's 16384-token tail (capacity 1920); a
+# routing disagreement is allowed only at a token whose router
+# probabilities at the top-k cut differ by less than MOE_MARGIN. The
+# output is held at every group but ``route_only``: the host's expert
+# products at 32768 tokens took 14.9 s of a whole run that read 1,137 s
+# against the 1,050 s it keeps (an NVIDIA H100 80GB HBM3 at 700 W)
+MOE_HOLD = dict(groups=((1, 256), (3, 1), (1, 32768), (1, 16384)),
+                route_only=((1, 32768),), seed=0)
+# serve_long's MoE cells on the MoE phase's served weights: how many of
+# ``long_requests(vocab, shared)`` each model serves at the batch its
+# count allows (moonshot-v1-16b-a3b the first 2, one prefix hit: the
+# script's time budget; a decode step of it took 159-213 ms of wall at
+# 512 positions on an NVIDIA H100 80GB HBM3 at 700 W), and how near the
+# count the serve's peak must read
+SERVE_LONG_MOE = dict(n={"deepseek-moe-16b": 4, "moonshot-v1-16b-a3b": 2},
+                      peak_rel=0.10)
 MOE_MARGIN = 1e-5
 MOE_REL_TOL = 1e-4
 
@@ -2501,11 +2582,12 @@ def phase_serve_moe(card):
 def hold_moe_layer(cfg, params):
     """The first MoE layer of the served weights, cast to f32, on the card
     and on the host (TF32 off): ``moe.route``'s expert ids, slots and keep
-    mask equal for a 256-token prefill group and a 3-token decode group
-    (a token whose ids differ is reported with its router-probability
-    margin at the top-k cut, allowed only below MOE_MARGIN), and
+    mask equal for each of ``MOE_HOLD``'s groups (a token whose ids differ
+    is reported with its router-probability margin at the top-k cut,
+    allowed only below MOE_MARGIN), and at every group but ``route_only``
     ``moe_apply``'s output within MOE_REL_TOL of max|host| on the tokens
-    routed alike. Returns the largest relative error."""
+    routed alike; each side's seconds logged. Returns the largest
+    relative error."""
     import torch
     from repro_torch.models import moe
     k, d = cfg.experts_per_token, cfg.d_model
@@ -2525,9 +2607,10 @@ def hold_moe_layer(cfg, params):
         groups = moe.n_groups(b)
         tg = b * s // groups
         cap = moe.capacity_for(cfg, tg)
-        sides = {}
-        t0 = time.perf_counter()
+        sides, secs = {}, {}
+        held_y = (b, s) not in MOE_HOLD["route_only"]
         for side, p, xs in (("card", dev, x.cuda()), ("host", host, x)):
+            t0 = time.perf_counter()
             xf = xs.reshape(groups, tg, d)
             logits = xf @ p["router"]
             probs = torch.softmax(logits, dim=-1)
@@ -2535,9 +2618,9 @@ def hold_moe_layer(cfg, params):
             _, (slot, tok, order), _, keep, aux = moe.route(xf, logits, cfg,
                                                             cap)
             kept = torch.empty_like(keep).scatter_(1, order, keep)
-            y, _ = moe.moe_apply(xs, p, cfg)
+            y = moe.moe_apply(xs, p, cfg)[0] if held_y else xs
             sides[side] = [v.cpu() for v in (probs, ids, slot, keep, kept, y)]
-        t_hold = time.perf_counter() - t0
+            secs[side] = time.perf_counter() - t0
         (_, ids_c, slot_c, keep_c, kept_c, y_c) = sides["card"]
         (probs_h, ids_h, slot_h, keep_h, kept_h, y_h) = sides["host"]
         # a token routed alike: the same experts, each kept or dropped alike
@@ -2550,7 +2633,7 @@ def hold_moe_layer(cfg, params):
         margins = margin[differ].tolist()
         rows = alike.reshape(b, s)
         err = (y_c - y_h).abs()[rows].max().item() if rows.any() else 0.0
-        rel = err / y_h.abs().max().item()
+        rel = err / y_h.abs().max().item() if held_y else 0.0
         worst = max(worst, rel)
         n_drop = int((~keep_h).sum())
         log(f"[hold_moe] {cfg.name} layer 1 (first MoE) f32, x [{b},{s},"
@@ -2560,19 +2643,134 @@ def hold_moe_layer(cfg, params):
             f"{bool((slot_c == slot_h).all())}, keep equal "
             f"{bool((keep_c == keep_h).all())}; tokens routed differently "
             f"{int(differ.sum())} (their router-probability margins "
-            f"{margins}, limit {MOE_MARGIN:g}); max|y card - y host| "
-            f"{err:.3e} over {int(rows.sum())} tokens routed alike, "
-            f"{rel:.3e} of max|y| (tol {MOE_REL_TOL:g}); {t_hold:.1f} s")
+            f"{margins}, limit {MOE_MARGIN:g}); "
+            + (f"max|y card - y host| {err:.3e} over {int(rows.sum())} "
+               f"tokens routed alike, {rel:.3e} of max|y| (tol "
+               f"{MOE_REL_TOL:g})" if held_y else "routing only")
+            + f"; card {secs['card']:.1f} s, host {secs['host']:.1f} s")
         routing_equal = bool((ids_c == ids_h).all() and (slot_c == slot_h)
                              .all() and (keep_c == keep_h).all())
-        check_all("hold_moe", {
+        checks = {
             f"[{b},{s}]: routing equal, or differs only below the margin": (
-                routing_equal or all(m < MOE_MARGIN for m in margins)),
-            f"[{b},{s}]: output within {MOE_REL_TOL:g} relative": (
-                rel <= MOE_REL_TOL and bool(torch.isfinite(y_c).all())),
-        })
+                routing_equal or all(m < MOE_MARGIN for m in margins))}
+        if held_y:
+            checks[f"[{b},{s}]: output within {MOE_REL_TOL:g} relative"] = (
+                rel <= MOE_REL_TOL and bool(torch.isfinite(y_c).all()))
+        check_all("hold_moe", checks)
     del dev, host
     return worst
+
+
+def serve_long_moe(card, cfg, model, params, label, profile=False):
+    """(e), (f): an MoE model at its published width and depth, on the
+    weights the MoE phase served, through serve_long's 32k cell on the
+    paged path. The dry-run's count first (``long_counts``: the largest of
+    batch 4, 2 and 1 that leaves ``free_share`` free); a model it finds
+    no batch for does not serve, and is gated as the count reads it. Then
+    ``SERVE_LONG_MOE["n"]`` of ``long_requests(vocab, shared)`` through
+    ``short_serve`` at that batch with (a)'s gates and the routing watched
+    (``moe_drops``): one group a prefill of its bucket's tokens (the cold
+    32768 with capacity 3840, a tail's 16384 with 1920) and b groups of
+    one token a decode step (capacity 1), every MoE layer routing each;
+    the peak within ``peak_rel`` of the count and under the limit. With
+    ``profile``: one cold 32768-token prefill of request 0's bucket and
+    a decode step at position 32767 (kernels only, by class), then the
+    dry-run's count of a decode step
+    at position 32767 on a contiguous cache of b x 32768 against the
+    card's. Returns ``short_serve``'s dict without the engine, with
+    ``batch``, ``counts`` and ``routing`` ({(G, T, capacity): (choices,
+    dropped)}); dict(batch=None, counts) where the count fits no
+    batch."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe
+    from repro_torch.serve.step import bucket_for, pad_to_bucket
+    c, m = SERVE_LONG, SERVE_LONG_MOE
+    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
+    batch, peaks = long_counts(cfg.name)
+    if batch is None:
+        check_all(label, {
+            f"{cfg.name}: the count fits no batch (one row: "
+            f"{peaks['serve_b1'] / 1e9:.2f} GB)": peaks["serve_b1"] > limit})
+        return dict(batch=None, counts=peaks)
+    reqs = long_requests(cfg.vocab_size, c["shared"])[:m["n"][cfg.name]]
+    r = short_serve(label, cfg, model, params, card, dict(c, batch=batch),
+                    reqs, warm=c["warm"], watch=moe_drops)
+    stats, eng = r["stats"], r["eng"]
+    seen = {key: (n, int(dropped))
+            for key, (n, dropped) in r.pop("watched").items()}
+    buckets = {bucket_for(len(q.prompt) - q.cached_prompt_tokens,
+                          eng.buckets) for q in reqs}
+    step_key = (moe.n_groups(batch), batch // moe.n_groups(batch),
+                moe.capacity_for(cfg, batch // moe.n_groups(batch)))
+    want = {(1, t, moe.capacity_for(cfg, t)) for t in buckets} | {step_key}
+    routed = (cfg.num_layers - cfg.first_k_dense) * cfg.experts_per_token
+    log(f"[{label}] routed and dropped (token, expert) choices by routing "
+        f"shape (groups, tokens a group, capacity): " + "; ".join(
+            f"{key}: {d} of {n} dropped ({d / n:.1%})"
+            for key, (n, d) in sorted(seen.items()))
+        + f"; peak max_memory_allocated {r['peak'] / 1e9:.2f} GB against the "
+        f"count's {peaks['serve'] / 1e9:.2f} GB at batch {batch} "
+        f"({r['peak'] / peaks['serve'] - 1:+.2%}); card: {card}")
+    check_all(label, prefix_checks(cfg, reqs, r) | {
+        f"routing shapes == {sorted(want)}": set(seen) == want,
+        "every MoE layer routed every decode row": seen.get(
+            step_key, (0, 0))[0] == stats["decode_steps"] * batch * routed,
+        "every MoE layer routed every prefill's bucket": sum(
+            n for key, (n, _) in seen.items() if key != step_key)
+        == routed * sum(bucket_for(len(q.prompt) - q.cached_prompt_tokens,
+                                   eng.buckets) for q in reqs),
+        f"peak within {m['peak_rel']:.0%} of the count": (
+            abs(r["peak"] - peaks["serve"]) <= m["peak_rel"] * r["peak"]),
+        f"peak under {limit / 1e9:.0f} GB": r["peak"] <= limit,
+    } | paged_peak_checks(cfg.name, r["peak"], peaks))
+    if profile:
+        padded, _ = pad_to_bucket(reqs[0].prompt, eng.buckets)
+        r["profile"] = profile_cold_prefill(
+            f"profile_{label}", eng,
+            torch.as_tensor(padded[None], device="cuda"), card)
+        # every slot is free: a decode step of the batch's null rows at
+        # the cell's last position, over whole 32768-position views
+        tokens = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+        pos = torch.full((batch,), c["max_seq"] - 1, dtype=torch.int32,
+                         device="cuda")
+        r["profile"] |= profile_steps(f"profile_{label}", {
+            f"decode step ({batch} rows at {c['max_seq'] - 1})":
+                lambda: eng.adapter.decode_step(tokens, pos)})
+        del tokens, pos
+    del eng
+    r.pop("eng")
+    free_card()
+    if profile:
+        r["dryrun"] = dryrun_decode(model, params, card, c["max_seq"], batch)
+    r.update(batch=batch, counts=peaks, routing=seen)
+    return r
+
+
+def phase_serve_long_moe(card):
+    """serve_long's MoE part alone, as ``main`` runs it on the MoE phase's
+    served weights but with each model made here from seed 0 and freed
+    before the next: deepseek-moe-16b's first MoE layer held card
+    against host (``hold_moe_layer``), its 32k serve (e) with the
+    profile and the dry-run's decode count, its f32 hold at 2 layers,
+    moonshot-v1-16b-a3b's 32k serve (f), then the two flash rows at their
+    shapes (``timing_long``). Returns ({arch: serve, "hold": ...}, rows)."""
+    c = SERVE_LONG
+    cfg, model, params = make_model(SERVE_MOE["arch"], c["seed"])
+    hold_moe_layer(cfg, params)
+    free_card()
+    out = {cfg.name: serve_long_moe(card, cfg, model, params,
+                                    "serve_long_moe", profile=True)}
+    del model, params
+    free_card()
+    out["hold"] = hold_long_paged(card, cfg.name, "hold_long_moe",
+                                  same_chunks=True)
+    cfg, model, params = make_model(SERVE_MOONSHOT["arch"], c["seed"])
+    out[cfg.name] = serve_long_moe(card, cfg, model, params,
+                                   "serve_long_moonshot", profile=True)
+    del model, params
+    free_card()
+    return out, time_long_rows(out, moe_long_specs())
 
 
 # the recurrent families at their published widths and full depth, bf16
@@ -4348,23 +4546,30 @@ def phase_cells():
 
 
 def dryrun_decode(model, params, card, seq, batch, busy=None):
-    """(b): granite-20b's decode_step (full width and depth, bf16 weights
-    ``params`` already on the card) on a contiguous cache of ``batch`` x
-    ``seq`` at position ``seq - 1`` (the serve phase's 4 x 512, and
-    serve_long's 4 x 32768): its FLOPs counted once on the meta device by
-    the dry-run and once on the card by the same counter must be equal,
-    and the dry-run's peak, with the card's other allocations beside it,
-    within ``peak_rel`` of max_memory_allocated for the step. The memory
-    term is printed beside ``busy``, the profile phase's device-busy time
-    of a decode step (the paged pool's, at batch 4), where given."""
+    """(b): a served model's decode_step (full width and depth, bf16
+    weights ``params`` already on the card) on a contiguous cache of
+    ``batch`` x ``seq`` at position ``seq - 1`` (granite-20b at the serve
+    phase's 4 x 512 and serve_long's 4 x 32768, deepseek-moe-16b at
+    serve_long's batch x 32768): its FLOPs counted once on the meta device by
+    the dry-run (``dryrun.engine_decode_count``: the model as the engine
+    runs it, with no mesh) and once on the card by the same counter must
+    be equal, and so must the decode cell's on a one-device mesh
+    (``analyze_cell``) but for an MoE model's (on a mesh it routes one
+    group of all rows, the engine a group a row: a batch of b makes b
+    times the expert products); the dry-run's peak, with the card's
+    other allocations beside it, within ``peak_rel`` of
+    max_memory_allocated for the step. The cell's memory term is printed
+    beside ``busy``, the profile phase's device-busy time of a decode
+    step (the paged pool's, at batch 4), where given."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.perf import op_cost
     t0 = time.perf_counter()
-    rec, meta = dryrun.analyze_cell(
+    rec, cell = dryrun.analyze_cell(
         model.cfg.name, ShapeConfig(f"decode_{batch}x{seq}", "decode", seq,
                                     batch), ONE_DEVICE)
+    meta = dryrun.engine_decode_count(model.cfg, batch=batch, max_seq=seq)
     meta_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     other = torch.cuda.memory_allocated() - sum(
@@ -4379,21 +4584,28 @@ def dryrun_decode(model, params, card, seq, batch, busy=None):
     finite = bool(torch.isfinite(logits).all())
     del cache, logits
     rl = rec["roofline"]
-    dry_peak = rec["analysis"]["peak_bytes"]
+    dry_peak = meta.peak_bytes
     log(f"[dryrun] (b) {model.cfg.name} decode_step, batch {batch} x {seq} "
         f"at position {seq - 1}: FLOPs meta {meta.flops:.6e} card "
-        f"{on_card.flops:.6e}; bytes meta {meta.bytes:.6e} card "
+        f"{on_card.flops:.6e}, the one-device cell {cell.flops:.6e}; "
+        f"bytes meta {meta.bytes:.6e} card "
         f"{on_card.bytes:.6e}; compute term {rl['compute_s'] * 1e3:.3f} ms, "
         f"memory term {rl['memory_s'] * 1e3:.3f} ms (bytes / 3.35 TB/s)"
         + (f" beside the profile phase's decode step device-busy "
            f"{busy:.3f} ms" if busy is not None else "")
-        + f"; dry-run peak {dry_peak / 1e9:.3f} GB, fits {rec['fits']}, "
+        + f"; dry-run peak {dry_peak / 1e9:.3f} GB (the cell's "
+        f"{rec['analysis']['peak_bytes'] / 1e9:.3f}), fits {rec['fits']}, "
         f"card max_memory_allocated {peak / 1e9:.3f} GB "
         f"({(dry_peak + other) / peak - 1:+.2%} with {other / 1e9:.3f} GB "
         f"of other allocations); meta count in {meta_s:.1f} s; card: {card}")
     check_all("dryrun", {
         f"(b) decode {batch} x {seq}: FLOPs on meta == FLOPs on the card": (
             meta.flops == on_card.flops > 0),
+        f"(b) decode {batch} x {seq}: the one-device cell's FLOPs == the "
+        f"engine's" + (" (but an MoE's routing: fewer)" if model.cfg.is_moe
+                       else ""): (cell.flops < meta.flops if model.cfg.is_moe
+                                  and batch > 1 else
+                                  cell.flops == meta.flops),
         f"(b) decode {batch} x {seq}: dry-run peak (with the other "
         f"allocations) within {DRYRUN['peak_rel']:.0%} of "
         f"max_memory_allocated": abs(dry_peak + other - peak)
@@ -5139,25 +5351,62 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
     return row
 
 
+def moe_long_specs():
+    """The MoE models' (MHA 16:16, D 128, the same shapes on both) flash
+    rows at serve_long's shapes, as ``time_long_rows`` takes them: the
+    cold 32768-token prefill and a prefix hit's tail, counted over both
+    MoE serves (one that did not fit launched none)."""
+    from repro_torch import configs
+    t, e = SERVE_LONG["max_seq"], configs.get("deepseek-moe-16b")
+    archs = ("deepseek-moe-16b", "moonshot-v1-16b-a3b")
+    return {"moe_long_cold": (archs, e, t, t, None, 0,
+                              "the MoE models' cold 32768-token prefill"),
+            "moe_long_tail": (archs, e, t // 2, t, None, t // 2,
+                              "the MoE models' prefix-hit tail")}
+
+
+def time_long_rows(long, specs, held=None):
+    """Flash by ``time_flash`` at each of ``specs`` ({name: (arch or archs,
+    cfg, query rows, keys, window, q_offset, what)}), bf16, each with the
+    launches the serves in ``long`` made at that shape (it fails where
+    they made none); ``held``: {name: the query rows held at each end}.
+    Returns {name: (launches, row)}."""
+    rows = {}
+    for name, (arch, cfg, s, keys, win, off, what) in specs.items():
+        keys = s if win is not None else keys
+        shape = (1, cfg.num_heads, cfg.num_kv_heads, s, keys, cfg.head_dim,
+                 True, win, off)
+        archs = arch if isinstance(arch, tuple) else (arch,)
+        n = sum(long[a].get("shapes", {}).get(shape, 0) for a in archs)
+        if not n:
+            raise AssertionError(f"serve_long gave flash no launch at "
+                                 f"{shape}: " + "; ".join(
+                                     str(long[a].get("shapes"))
+                                     for a in archs))
+        rows[name] = (n, time_flash(
+            1, cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim, win, what,
+            t=keys, off=off, hold=(held or {}).get(name)))
+    return rows
+
+
 def timing_long(long):
-    """Flash at serve_long's shapes, bf16, each by ``time_flash``:
-    granite-20b's cold 32768-token prefill (q [1,48,32768,128] over 1 KV
-    head) and a prefix hit's tail (q [1,48,16384,128] at q_offset 16384),
-    gemma3-27b's global layer (causal, S = T = 32768, 32 q / 16 KV heads)
-    and local layer (the 1024 window), zamba2-1.2b's first and last chunk
+    """Flash at serve_long's shapes (``time_long_rows``): granite-20b's
+    cold 32768-token prefill (q [1,48,32768,128] over 1 KV head) and a
+    prefix hit's tail (q [1,48,16384,128] at q_offset 16384), gemma3-27b's
+    global layer (causal, S = T = 32768, 32 q / 16 KV heads) and local
+    layer (the 1024 window), zamba2-1.2b's first and last chunk
     ([1,32,16384,64] at q_offset 0, [1,32,32,64] at q_offset 32704), each
     over the 32768 positions of its cache row but the local layer (over
-    its own keys); and zamba2-1.2b's long_500k serve, over its 524288
+    its own keys); zamba2-1.2b's long_500k serve, over its 524288
     positions: the 4096-token chunk at its offset (held at its first and
     last 64 query rows: the plain version over all 4096 takes seconds)
-    and the last chunk (32 tokens at q_offset 524224). Returns {name:
-    (launches in the serve that gave the shape, row)}."""
+    and the last chunk (32 tokens at q_offset 524224); and the MoE
+    models' rows (``moe_long_specs``)."""
     from repro_torch import configs
     t = SERVE_LONG["max_seq"]
     g, m, z = (configs.get(a) for a in ("granite-20b", "gemma3-27b",
                                         "zamba2-1.2b"))
-    big = long["zamba2-1.2b-500k"]
-    chunks, t5 = big["chunks"], SERVE_500K["max_seq"]
+    chunks, t5 = long["zamba2-1.2b-500k"]["chunks"], SERVE_500K["max_seq"]
     at = {}
     for i, size in enumerate(chunks):
         at.setdefault(size, sum(chunks[:i]))
@@ -5178,24 +5427,10 @@ def timing_long(long):
                                   at[4096], "zamba2-1.2b's long_500k "
                                   "4096-token chunk"),
         "zamba2_500k_last": ("zamba2-1.2b-500k", z, chunks[-1], t5, None,
-                             at[chunks[-1]], "zamba2-1.2b's long_500k "
-                             "last chunk"),
-    }
-    # the query rows held at each end where the plain version over every
-    # row takes seconds
-    held = {"zamba2_500k_chunk4096": 64}
-    rows = {}
-    for name, (arch, cfg, s, keys, win, off, what) in specs.items():
-        keys = s if win is not None else keys
-        shape = (1, cfg.num_heads, cfg.num_kv_heads, s, keys, cfg.head_dim,
-                 True, win, off)
-        rows[name] = (long[arch]["shapes"].get(shape, 0), time_flash(
-            1, cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim, win, what,
-            t=keys, off=off, hold=held.get(name)))
-        if not rows[name][0]:
-            raise AssertionError(f"serve_long gave flash no launch at "
-                                 f"{shape}: {long[arch]['shapes']}")
-    return rows
+                             at[chunks[-1]], "zamba2-1.2b's long_500k last "
+                             "chunk"),
+    } | moe_long_specs()
+    return time_long_rows(long, specs, held={"zamba2_500k_chunk4096": 64})
 
 
 #: a flash timing row's keys that go into the kernels line (the first five
@@ -5602,16 +5837,29 @@ def main() -> int:
     phase_profile(meng, "profile_moe")
     del meng
     hold_moe_layer(mcfg, mparams)
+    free_card()
+    mark("serve_moe (deepseek-moe-16b)")
+    # serve_long's MoE cells on the served weights: (e) deepseek-moe-16b,
+    # then, after its f32 hold, (f) moonshot-v1-16b-a3b
+    long_moe = {mcfg.name: serve_long_moe(card, mcfg, mmodel, mparams,
+                                          "serve_long_moe", profile=True)}
     del mmodel, mparams                        # frees deepseek-moe's 32.8 GB
     free_card()
+    mark("serve_long (e) deepseek-moe-16b")
     moe_held_err = hold_window_shapes(mshapes, "hold_moe_flash")
-    ocfg, *moon, moon_launches, oshapes = serve_moe_model(
+    hold_long_paged(card, mcfg.name, "hold_long_moe", same_chunks=True)
+    mark("hold_long_moe")
+    ocfg, omodel, oparams, oeng, moon_launches, oshapes = serve_moe_model(
         SERVE_MOONSHOT["arch"], SERVE_MOONSHOT["seed"], card,
         "serve_moonshot")
-    del moon                                   # frees moonshot's 56.8 GB
+    del oeng
+    free_card()
+    long_moe[ocfg.name] = serve_long_moe(card, ocfg, omodel, oparams,
+                                         "serve_long_moonshot", profile=True)
+    del omodel, oparams                        # frees moonshot's 56.8 GB
     free_card()
     moon_held_err = hold_window_shapes(oshapes, "hold_moonshot_flash")
-    mark("dense, serve_moe (deepseek-moe-16b, moonshot-v1-16b-a3b)")
+    mark("serve_moe, serve_long (f) (moonshot-v1-16b-a3b)")
     rec = phase_serve_recurrent(card)
     rec_held_err = hold_window_shapes(
         set().union(*(r["shapes"] for r in rec.values())),
@@ -5710,7 +5958,7 @@ def main() -> int:
                            256, zamba_cfg.head_dim, None,
                            "zamba2-1.2b's shared attention, a cold "
                            "256-token chunk", t=SERVE_RECURRENT["max_seq"])
-    long_rows = timing_long(long_serves)
+    long_rows = timing_long(long_serves | long_moe)
     ffma_row = timing_flash_f32(f32_shape)
     stream_rows = timing_stream(errs)
     dpa_rows = timing_dpa(errs)

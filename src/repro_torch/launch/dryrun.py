@@ -39,7 +39,10 @@ the rank's peak live bytes at most ``H100_SXM.mem_gb``.
 
 ``recurrent_serve_count`` counts a recurrent family's serve on one
 device as its adapter runs it (the batch's rows and the working state
-live) and finds the prefill chunk cap that fits a limit.
+live) and finds the prefill chunk cap that fits a limit;
+``long_serve_count`` finds the batch at which a flat family serves long
+positions by the cells' counts, and ``paged_serve_count`` counts that
+serve through the paged pool as its adapter runs it.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ from repro_torch.parallel.sharding import NamedSharding, mesh_shape
 from repro_torch.perf import op_cost, roofline, step_analysis
 from repro_torch.serve.state import make_adapter
 from repro_torch.serve.step import (ShardedServeStep, abstract_cache,
-                                    capped_chunks, cell_rules)
+                                    bucket_for, capped_chunks, cell_rules)
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import OptConfig, tree_map
 from repro_torch.train.step import (ShardedTrainStep, StepConfig, TrainState,
@@ -256,6 +259,29 @@ def count_cell(fn, args):
     return counter
 
 
+def engine_decode_count(cfg, *, batch: int, max_seq: int):
+    """The op counter of one device's engine decode step (bf16 weights,
+    the meta device): ``decode_step`` of the model built without a mesh
+    on a contiguous cache of ``batch`` x ``max_seq`` at position
+    ``max_seq - 1``. It differs from the decode cell on a one-device mesh
+    (``analyze_cell``) only where the mesh changes what runs: an MoE
+    layer routes one group a batch shard on a mesh (one group of every
+    row on one device) and ``gcd(B, 32)`` groups without one, as the
+    reference's ``_moe_apply_gspmd`` does."""
+    scfg = cfg.replace(param_dtype="bfloat16")
+    model = build_model(scfg)
+    shapes, _ = abstract_params(model)
+    params = _meta(shapes, torch.bfloat16)
+    cache = model.init_cache(batch, max_seq, device="meta")
+    tok = torch.empty((batch, 1), dtype=torch.int32, device="meta")
+
+    def fn(p, t, c):
+        with torch.no_grad():
+            return model.decode_step(p, t, max_seq - 1, c)
+
+    return count_cell(fn, (params, tok, cache))
+
+
 def recurrent_serve_count(cfg, *, batch: int, max_seq: int, prompt: int,
                           limit=None) -> dict:
     """The peak live bytes (one device, the meta device) of serving
@@ -315,6 +341,79 @@ def recurrent_serve_count(cfg, *, batch: int, max_seq: int, prompt: int,
         if top == 1:
             raise ValueError(f"no chunk cap fits {limit} bytes")
         cap = top // 2
+
+
+#: the batches a flat family's long serve is counted at, largest first
+LONG_BATCHES = (4, 2, 1)
+
+
+def long_serve_count(cfg, *, max_seq: int, limit=None) -> dict:
+    """The largest of ``LONG_BATCHES`` at which a flat family serves
+    ``max_seq`` positions within ``limit`` bytes, by the cells' counts (one
+    device): the decode step at batch b over ``max_seq`` positions, and a
+    one-row ``max_seq``-token prefill with b - 1 more rows of cache beside
+    it (the serve's peak at b is the larger). Batches are counted from the
+    first until one fits (all of them with ``limit`` None). Returns
+    dict(batch: the first that fits, None where none does or ``limit`` is
+    None; decode={b: bytes}, prefill: bytes, row: a row of cache's bytes,
+    serve={b: bytes})."""
+    mesh = {"data": 1, "model": 1}
+    rec, _ = analyze_cell(cfg.name, ShapeConfig("long_prefill", "prefill",
+                                                max_seq, 1), mesh, cfg=cfg)
+    row = sum(t.numel() * t.element_size() for t in op_cost._tensors(
+        build_model(cfg).init_cache(1, max_seq, device="meta")))
+    out = dict(batch=None, decode={}, prefill=rec["analysis"]["peak_bytes"],
+               row=row, serve={})
+    for b in LONG_BATCHES:
+        rec, _ = analyze_cell(cfg.name, ShapeConfig(
+            "long_decode", "decode", max_seq, b), mesh, cfg=cfg)
+        out["decode"][b] = rec["analysis"]["peak_bytes"]
+        out["serve"][b] = max(out["decode"][b],
+                              out["prefill"] + (b - 1) * row)
+        if limit is not None and out["serve"][b] <= limit:
+            out["batch"] = b
+            return out
+    return out
+
+
+def paged_serve_count(cfg, *, batch: int, max_seq: int, prompt: int) -> dict:
+    """The peak live bytes (one device, the meta device) of serving
+    ``prompt``-token requests through ``PagedKVAdapter`` at ``batch`` x
+    ``max_seq``: the bf16 parameters and the pool (``batch`` rows of
+    blocks and the null block) live throughout, the decode step of the
+    whole batch and a cold prefill of the prompt's bucket into one row.
+    A prefix hit's tail is a smaller bucket over the same row. Returns
+    dict(decode, prefill, serve: the larger, pool: the pool's bytes)."""
+    scfg = cfg.replace(param_dtype="bfloat16")
+    model = build_model(scfg)
+    shapes, _ = abstract_params(model)
+    params = _meta(shapes, torch.bfloat16)
+    ad = make_adapter(model, params, batch_size=batch, max_seq=max_seq)
+    if ad.kind != "paged-kv":
+        raise ValueError(f"{cfg.name} serves on {ad.kind}, not paged-kv")
+    ad.ensure_ready()
+
+    def peak(fn, *args):
+        counter = op_cost.OpCounter(track_memory=True)
+        with torch.no_grad(), counter:
+            counter.track((params, ad.caches, args))
+            out = fn(*args)
+            del out
+        return counter.peak_bytes
+
+    def meta_ints(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    bucket = bucket_for(prompt, ad.buckets)
+    decode = peak(lambda t, p, tb: ad._decode(params, t, p, tb, ad.caches),
+                  meta_ints(batch, 1), meta_ints(batch),
+                  meta_ints(batch, ad.n_slot_blocks))
+    prefill = peak(lambda t, row: ad._prefill_slot(params, t, prompt, 0, row,
+                                                   ad.caches),
+                   meta_ints(1, bucket), meta_ints(ad.n_slot_blocks))
+    return dict(decode=decode, prefill=prefill, serve=max(decode, prefill),
+                pool=sum(t.numel() * t.element_size()
+                         for t in op_cost._tensors(ad.caches)))
 
 
 def analyze_cell(arch, shape_name, mesh, variant=None, cfg=None):

@@ -498,6 +498,51 @@ def paged_scatter_slot(pool, view, table_row):
     return pool
 
 
+class PagedLayers:
+    """A paged pool seen through block tables one layer at a time, as a
+    step's ``caches``: the layer stack takes layer ``i``'s logical views
+    [B, NB*block, kvh, dh] from ``layer(i)`` (a copy, as ``paged_gather``
+    makes of every layer) and hands them back to ``put(i, kv)`` once the
+    layer has written them, which writes back what the step changed: with
+    ``pos`` ([B], a decode step) each row's block holding it (as
+    ``paged_scatter_block``), else (one row's prefill, ``tables`` [1,
+    NB]) the row's every block after zeroing its positions from ``keep``
+    on (as ``mask_cache_tail`` and ``paged_scatter_slot``). The pool and
+    the values are those of gathering every layer at once, but only one
+    layer's views are live beside the pool, not the whole stack's: at
+    32768 positions of MHA that whole copy is a row of cache (7.5 GB on
+    deepseek-moe-16b) beside a prefill and the batch's whole cache beside
+    a decode step. The block ids (and a decode step's touched blocks) are
+    indexed once a step, not once a layer."""
+
+    def __init__(self, pool, tables, pos=None, keep=None):
+        self.pool, self.keep = pool, keep
+        self.ids = tables.long()                             # [B, NB]
+        self.n = tables.shape[0] * tables.shape[1]           # B * NB
+        if pos is not None:
+            # the touched block of each row: its id in the pool, and its
+            # index in the row-major [B * NB] blocks of the views
+            blk = pos.long() // pool[0].shape[2]
+            at = torch.arange(tables.shape[0], device=tables.device)
+            self.touched = self.ids[at, blk]
+            self.at = at * tables.shape[1] + blk
+        self.decode = pos is not None
+
+    def layer(self, i):
+        b = self.ids.shape[0]
+        return tuple(c[i][self.ids].reshape(b, -1, *c.shape[3:])
+                     for c in self.pool)
+
+    def put(self, i, kv):
+        for c, v in zip(self.pool, kv):
+            v = v.reshape(self.n, *c.shape[2:])        # [B * NB, block, ..]
+            if self.decode:
+                c[i][self.touched] = v[self.at]
+            else:
+                v.view(-1, *c.shape[3:])[self.keep:] = 0
+                c[i][self.ids[0]] = v
+
+
 def reset_cache_blocks(pool, blocks):
     """Zero a batch of pool blocks (``blocks`` [K], padded with the null
     block id 0)."""

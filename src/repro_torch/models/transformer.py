@@ -200,8 +200,9 @@ class DecoderLM:
                    cache_pos=None, true_len=None):
         """Run the layer stack: the dense prefix, then the stacked layers
         (MoE with ``cfg.is_moe``). Returns (x, caches, aux): caches (a flat
-        (k_all, v_all) [L,B,T,kvh,dh] pair, or gemma3's dict of global
-        stacks and local rings) are written in place, layer by layer, the
+        (k_all, v_all) [L,B,T,kvh,dh] pair, a paged pool's
+        ``common.PagedLayers``, or gemma3's dict of global stacks and
+        local rings) are written in place, layer by layer, the
         prefix on cache rows ``0..first_k_dense-1``; aux sums the stacked
         MoE layers' load-balance terms (0.0 without them)."""
         if isinstance(caches, dict):
@@ -219,8 +220,10 @@ class DecoderLM:
         layers += [(p, cfg.is_moe, ("layers",), True)
                    for p in common.layers_of(params["layers"], self.n_scan)]
         aux = 0.0
+        paged = isinstance(caches, common.PagedLayers)
         for i, (p, is_moe, path, stacked) in enumerate(layers):
-            c = None if caches is None else (caches[0][i], caches[1][i])
+            c = (None if caches is None else caches.layer(i) if paged
+                 else (caches[0][i], caches[1][i]))
             layer = functools.partial(
                 self._layer, positions=positions, is_global=bool(flags[i]),
                 rope_cs=rope_cs, kv_cache=c, cache_pos=cache_pos,
@@ -230,6 +233,9 @@ class DecoderLM:
                                   preserve_rng_state=False)
             else:
                 x, a = layer(x, p)
+            if paged:
+                caches.put(i, c)
+                del layer, c          # the views go before the next gather
             if is_moe:
                 aux = aux + a
         return x, caches, aux

@@ -244,6 +244,20 @@ class PagedKVAdapter(CacheAdapter):
                 blk = self.pages.alloc()
         return blk
 
+    def _reclaim(self, slot_index: int, n_positions: int):
+        """Evict at once, and scrub in one pass, the prefix-cache entries
+        that backing ``n_positions`` of the slot needs beyond the free
+        list. ``_alloc_block`` alone would evict them one at a time, each
+        with a scrub as wide as a row (a long prompt's admission into a
+        full pool made one for every block); the same LRU entries go."""
+        if self.prefix is None:
+            return
+        row = self.pages.table_row(slot_index)
+        short = int((row[:self.pages.blocks_for(n_positions)]
+                     == PagePool.NULL).sum()) - self.pages.free_blocks()
+        if short > 0 and self.prefix.evict(short):
+            self._flush_freed()
+
     # -- admission ----------------------------------------------------------
 
     def expected_cached(self, req: Request) -> int:
@@ -276,6 +290,7 @@ class PagedKVAdapter(CacheAdapter):
         if matched:
             self.pages.map_shared(slot_index, matched)
         start = len(matched) * self.block_size
+        self._reclaim(slot_index, len(prompt))
         if not self.pages.ensure_capacity(slot_index, len(prompt),
                                           self._alloc_block):
             self.pages.release_slot(slot_index)

@@ -39,9 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.tracing import TraceStats, counting_call
-from repro_torch.models.common import (cache_slot_view, copy_cache_block,
-                                       mask_cache_tail, paged_gather,
-                                       paged_scatter_block, paged_scatter_slot,
+from repro_torch.models.common import (PagedLayers, cache_slot_view,
+                                       copy_cache_block, mask_cache_tail,
                                        reset_cache_blocks)
 from repro_torch.models.registry import abstract_params
 from repro_torch.parallel import comm
@@ -161,17 +160,17 @@ def make_slot_prefill(model, bucketed: bool = False):
 def make_paged_decode_step(model, greedy: bool = True):
     """Fused decode through block-table indirection.
 
-    The pool ([L, P, block, kvh, dh] leaves) is gathered into per-slot
-    contiguous views via ``tables`` ([B, NB] block ids), the model decodes
-    on the view, and only each slot's touched block is scattered back into
-    the pool (in place). Table *values* are data, so remaps (prefix
-    sharing, COW, lazy growth) never make a new signature. ``greedy``
-    changes nothing (module docstring).
+    The pool ([L, P, block, kvh, dh] leaves) is read through ``tables``
+    ([B, NB] block ids) one layer at a time (``PagedLayers``): each
+    layer's per-slot contiguous views are gathered, the layer decodes on
+    them, and only each slot's touched block is scattered back into the
+    pool (in place). Table *values* are data, so remaps (prefix sharing,
+    COW, lazy growth) never make a new signature. ``greedy`` changes
+    nothing (module docstring).
     """
     def paged_decode_step(params, tokens, pos, tables, pool):
-        view = paged_gather(pool, tables)
-        logits, view = model.decode_step(params, tokens, pos, view)
-        pool = paged_scatter_block(pool, view, tables, pos)
+        logits, _ = model.decode_step(params, tokens, pos,
+                                      PagedLayers(pool, tables, pos=pos))
         return _greedy(logits), logits, pool
     return paged_decode_step
 
@@ -184,25 +183,24 @@ def make_paged_slot_prefill(model, bucketed: bool = False):
     compute, the chunk attends causally over prefix + itself, and logits
     come from the chunk's (true) last token. Everything at or past
     ``start_pos + true_len`` is zeroed before the scatter so pad KV and
-    stale block contents never reach decode.
+    stale block contents never reach decode. The row's view is gathered
+    and scattered one layer at a time (``PagedLayers``).
     """
     if not bucketed:
         def paged_slot_prefill(params, tokens, start_pos, table_row, pool):
-            sub = paged_gather(pool, table_row[None, :])
-            logits, sub = model.prefill(params, {"tokens": tokens}, sub,
-                                        start_pos=start_pos)
-            sub = mask_cache_tail(sub, start_pos + tokens.shape[1])
-            pool = paged_scatter_slot(pool, sub, table_row)
+            logits, _ = model.prefill(
+                params, {"tokens": tokens}, PagedLayers(
+                    pool, table_row[None, :],
+                    keep=start_pos + tokens.shape[1]), start_pos=start_pos)
             return _greedy(logits), logits, pool
         return paged_slot_prefill
 
     def paged_bucketed_slot_prefill(params, tokens, true_len, start_pos,
                                     table_row, pool):
-        sub = paged_gather(pool, table_row[None, :])
-        logits, sub = model.prefill(params, {"tokens": tokens}, sub,
-                                    true_len=true_len, start_pos=start_pos)
-        sub = mask_cache_tail(sub, start_pos + true_len)
-        pool = paged_scatter_slot(pool, sub, table_row)
+        logits, _ = model.prefill(
+            params, {"tokens": tokens}, PagedLayers(
+                pool, table_row[None, :], keep=start_pos + true_len),
+            true_len=true_len, start_pos=start_pos)
         return _greedy(logits), logits, pool
     return paged_bucketed_slot_prefill
 

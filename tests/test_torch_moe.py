@@ -118,9 +118,12 @@ def test_config_and_param_tree(name):
 # ---------------------------------------------------------------------------
 # routing and combine on identical inputs
 
-# (tokens, capacity, seed, tied logits)
+# (tokens, capacity, seed, tied logits); 32768 tokens: serve_long's cold
+# prefill group, at the smoke config's capacity (``capacity_for``: 10240)
+# and at 4096, where choices drop
 ROUTE_CASES = [(16, 4, 0, False), (16, 2, 1, False), (5, 1, 2, False),
-               (24, 9, 3, False), (16, 3, 4, True), (7, 1, 5, True)]
+               (24, 9, 3, False), (16, 3, 4, True), (7, 1, 5, True),
+               (32768, 10240, 6, False), (32768, 4096, 7, False)]
 
 
 @pytest.mark.parametrize("case", ROUTE_CASES,
@@ -128,8 +131,35 @@ ROUTE_CASES = [(16, 4, 0, False), (16, 2, 1, False), (5, 1, 2, False),
                                        + ("-ties" if c[3] else ""))
 def test_route_and_combine_match_reference(case):
     t, capacity, seed, ties = case
-    cfg = tconfigs.get_smoke("deepseek-moe-16b")
-    jcfg = jconfigs.get_smoke("deepseek-moe-16b")
+    if t == 32768 and capacity != 4096:
+        assert tmoe.capacity_for(tconfigs.get_smoke("deepseek-moe-16b"),
+                                 t) == capacity
+    _route_and_combine(tconfigs.get_smoke("deepseek-moe-16b"),
+                       jconfigs.get_smoke("deepseek-moe-16b"), t, capacity,
+                       seed, ties)
+
+
+@pytest.mark.parametrize("t,capacity", [(32768, 3840), (16384, 1920)])
+def test_route_and_combine_at_deepseek_routing_shape(t, capacity):
+    """deepseek-moe-16b's routing shape on serve_long's groups: 64 experts,
+    top-6, a cold 32768-token bucket (capacity 3840) and a prefix hit's
+    16384-token tail (1920), the smoke config widened to that routing
+    (d 6): as the reference's, exactly."""
+    full = tconfigs.get("deepseek-moe-16b")
+    moe_keys = dict(num_experts=full.num_experts,
+                    experts_per_token=full.experts_per_token)
+    cfg = tconfigs.get_smoke("deepseek-moe-16b").replace(**moe_keys)
+    assert tmoe.capacity_for(full, t) == tmoe.capacity_for(cfg, t) == capacity
+    _route_and_combine(cfg, jconfigs.get_smoke("deepseek-moe-16b").replace(
+        **moe_keys), t, capacity, 8, False)
+
+
+def _route_and_combine(cfg, jcfg, t, capacity, seed, ties):
+    """``route`` and ``combine`` on ``t`` tokens of width 6 at ``capacity``
+    against the reference's ``_route_group`` and ``_combine_group``:
+    slots, source tokens, order, keep and the dispatch buffer equal, the
+    weights, aux and combine within ``ROUTE_TOL``; choices drop wherever
+    the capacity is short of ``t * k``."""
     e, k, d = cfg.num_experts, cfg.experts_per_token, 6
     rng = np.random.default_rng(seed)
     xg = rng.normal(size=(t, d)).astype(np.float32)
