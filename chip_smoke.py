@@ -64,7 +64,8 @@ Phases, each of which must pass (any failure exits non-zero):
               launched as the family's remat sites give,
               train_flash_launches: every checkpointed layer twice a step,
               windowed on gemma3's local layers), and step 3 again from a
-              checkpoint of step 2, bitwise.
+              checkpoint of step 2, bitwise (at 4096 tokens: after the
+              train phase, 11).
 5. serve    — granite-20b at its published width (bf16 weights made on the
               card from a seed) through ContinuousEngine: 8 requests, batch
               4, max_seq 512, 32 new tokens each, four sharing a 128-token
@@ -208,9 +209,31 @@ Phases, each of which must pass (any failure exits non-zero):
               same): zamba2-1.2b whole (38 layers, 8 x 512, 4 steps),
               whisper-small whole (12 + 12 layers, 8 x 448 tokens over
               1500 frames), xlstm-1.3b whole (48 layers: the dry-run's
-              count fits 80 GB; 3 steps), deepseek-moe-16b cut to 4 of 28
-              layers and internvl2-76b to 1 of 80 (4 x 256 patches + 256
-              tokens).
+              count fits 80 GB; 2 steps, no profiled step), deepseek-moe-16b
+              cut to 4 of 28 layers and internvl2-76b to 1 of 80 (4 x 256
+              patches + 256 tokens). After its 512 run and profile, each
+              of granite-20b, zamba2-1.2b, whisper-small and
+              deepseek-moe-16b trains at train_4k's sequence (TRAIN_4K:
+              batch 2 x 4096 in 2 microbatches, one row a microbatch, 3
+              steps) from the same masters, its AdamW moments zeroed:
+              first the dry-run's count of one such step at its depth
+              (the train_4k_card cell, counted in a worker process from
+              serve_long on) must leave 5 % of 80 GB free, then
+              the same gates through its own step, tracer and loop, the
+              loop's max_memory_allocated within 10 % of the count and
+              under 76 GB, the flash launches at exactly the 4096 shapes
+              (whisper's encoder over its frames beside them), and
+              deepseek-moe-16b's routing one group of the row's 4096
+              tokens with 480 slots an expert in every MoE layer of
+              every microbatch; a profiled 4096 step of granite-20b and
+              of deepseek-moe-16b. Then the small phase's case at 4096:
+              for those four families one f32 step of the smoke model at
+              2 x 4096 tokens in 2 microbatches on the card against the
+              host (zamba2's SSD over 16 chunks, the flash Function's
+              backward over 8 query blocks, whisper's decoder past 448
+              positions; the host's half computed in the worker process
+              while the card's phases ran), with the small phase's gates
+              and the step again from a checkpoint of the initial state.
 11b. parallel — the port's parallel layer at one NCCL rank (a one-rank
               process group on a file:// store under build/,
               make_host_mesh(1, 1, 1, "cuda")): the train phase's
@@ -283,11 +306,14 @@ Phases, each of which must pass (any failure exits non-zero):
               one-row 32768-token prefill does not fit;
               the train phase's other families: zamba2-1.2b,
               whisper-small and xlstm-1.3b whole, deepseek-moe-16b at 4
-              layers, not 28, internvl2-76b at 1, not 2 or 80); (d) one production cell of each family on the 16 x 16
+              layers, not 28, internvl2-76b at 1, not 2 or 80); (d) one
+              production cell of each family on the 16 x 16
               mesh, each completing, granite-20b's train_4k fitting 80 GB
               a rank with useful >= 0.5, granite-20b's prefill_32k and
               decode_32k and deepseek-moe-16b's decode_32k (the sharded
-              serve step) fitting 80 GB a rank; (e) (after record_cli) the
+              serve step) fitting 80 GB a rank ((c) and (d) are counted
+              in a worker process from serve_long on); (e)
+              (after record_cli) the
               port's linter (repro_torch.analysis --project --baseline
               over its default paths, on the host: rc 0, each rule's
               count and the seconds logged), then the port's regression
@@ -319,7 +345,10 @@ Phases, each of which must pass (any failure exits non-zero):
               phase's other families gave flash under the gradient, at one
               microbatch (zamba2 [4,32,512,64], whisper's encoder
               [4,12,1500,64] and decoder [4,12,448,64], deepseek-moe
-              [4,16,512,128], internvl2 [2,64,512,128] over 8 KV heads),
+              [4,16,512,128], internvl2 [2,64,512,128] over 8 KV heads;
+              the train_4k runs' granite [1,48,4096,128] over one KV head,
+              zamba2 [1,32,4096,64], whisper's decoder [1,12,4096,64] and
+              deepseek-moe [1,16,4096,128], causal),
               serve_long's shapes over 32768 positions (granite-20b's cold
               q [1,48,32768,128] and its tail [1,48,16384,128] at
               q_offset 16384 over one KV head, gemma3-27b's global and
@@ -396,6 +425,13 @@ def smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def card_limit(free_share):
+    """The bytes a run on the card may count or peak at: all but
+    ``free_share`` of the dry-run's 80 GB card."""
+    from repro_torch.launch import dryrun
+    return (1 - free_share) * dryrun.H100_SXM.mem_gb * 1e9
 
 
 def alloc_counts():
@@ -1099,13 +1135,22 @@ def phase_small():
                              f"{wroutes}, {windowed} windowed")
     n_f32 = wroutes["ffma"]
     for arch in SMALL_TRAIN_ARCHS:
-        small_train(arch)
+        small_train(arch, SMALL_TRAIN, small_host_steps(arch, SMALL_TRAIN))
     # the first granite prefill's flash shape: q [1,H,29,D], kv [1,Hkv,64,D]
     return n_f32, (cfg.num_heads, cfg.num_kv_heads, 29, 64, cfg.head_dim)
 
 
-SMALL_TRAIN = dict(steps=3, batch=4, seq=48, seed=3,
+SMALL_TRAIN = dict(steps=3, batch=4, seq=48, micro=1, seed=3,
                    opt=dict(lr=1e-3, warmup_steps=2, total_steps=10))
+# the same at train_4k's sequence for TRAIN_4K's families: one step of 2
+# rows x 4096 in 2 microbatches (zamba2's SSD over 16 chunks, the flash
+# Function's backward over 8 query blocks, whisper's decoder past 448
+# positions); the checkpoint is then the initial state's. The host's half
+# (100-140 s of the card machine's host at 4 or more threads) runs in the
+# worker process (``start_host_work``) with ``host_threads`` threads, few,
+# beside the card's phases, and the card's half after the train phase
+SMALL_TRAIN_4K = dict(SMALL_TRAIN, steps=1, batch=2, seq=4096, micro=2,
+                      host_threads=2)
 # every family's smoke model: the dense two, the recurrent three, the MoE
 # and the VLM
 SMALL_TRAIN_ARCHS = ("granite-20b", "gemma3-27b", "zamba2-1.2b",
@@ -1121,87 +1166,123 @@ SMALL_TRAIN_ARCHS = ("granite-20b", "gemma3-27b", "zamba2-1.2b",
 SMALL_TRAIN_TOL = dict(rtol=1e-4, atol=2e-5, share=1e-4)
 
 
-def small_train(arch):
-    """The smoke model in f32, 3 train steps on the card and 3 on the host
-    from the same weights and batches (gemma3's local layers take the
-    flash kernel's window mode under the gradient; whisper's batches carry
-    frames, the VLM's patches); then a checkpoint of the card's state
-    written at step 2 and restored gives the same step 3."""
-    import tempfile
-    import numpy as np
+def small_setup(arch, c):
+    """(cfg, model, f32 params on the host made from ``c``'s seed, the
+    train step, the batches) of ``small_train``'s smoke model."""
     import torch
     from repro_torch import configs
-    from repro_torch.checkpoint import ckpt
-    from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
-                                           batch_to_device)
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.models import build_model
-    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
-                                             lr_schedule, tree_leaves)
-    from repro_torch.train.step import (StepConfig, TrainState,
-                                        make_train_step)
-    c, tol = SMALL_TRAIN, SMALL_TRAIN_TOL
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import StepConfig, make_train_step
     cfg = configs.get_smoke(arch).replace(dtype="float32")
     model = build_model(cfg)
     host = model.init(torch.Generator().manual_seed(c["seed"]), "cpu",
                       dtype=torch.float32)
-    card = _to_cuda(host)
-    step = make_train_step(model, OptConfig(**c["opt"]), StepConfig())
+    step = make_train_step(model, OptConfig(**c["opt"]),
+                           StepConfig(num_microbatches=c["micro"]))
     data = SyntheticTokens(DataConfig(seed=c["seed"],
                                       vocab_size=cfg.vocab_size,
                                       seq_len=c["seq"],
                                       global_batch=c["batch"]), cfg)
-    batches = [data.batch(i) for i in range(c["steps"])]
-    runs = {}
+    return cfg, model, host, step, [data.batch(i) for i in range(c["steps"])]
+
+
+def small_host_steps(arch, c):
+    """The host's half of ``small_train``: ([(loss, grad norm)] a step,
+    the parameters after the last step, seconds). Device-free, so it may
+    run in the worker process (``start_host_work``), with
+    ``c["host_threads"]`` intra-op threads where ``c`` names them."""
+    import torch
+    from repro_torch.data.pipeline import batch_to_device
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import TrainState
+    if "host_threads" in c:
+        torch.set_num_threads(c["host_threads"])
+    t0 = time.perf_counter()
+    _, _, params, step, batches = small_setup(arch, c)
+    state = TrainState(params, init_opt_state(params))
+    hist = []
+    for b in batches:
+        state, m = step(state, batch_to_device(b, "cpu"))
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+    return hist, state.params, time.perf_counter() - t0
+
+
+def small_train(arch, c, host):
+    """The smoke model in f32, ``c``'s train steps on the card and on the
+    host from the same weights and batches (gemma3's local layers take the
+    flash kernel's window mode under the gradient; whisper's batches carry
+    frames, the VLM's patches); then a checkpoint of the card's state
+    written before the last step and restored gives the same last step.
+    ``host``: the host's half, what ``small_host_steps`` returned."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import batch_to_device
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             lr_schedule, tree_leaves)
+    from repro_torch.train.step import TrainState
+    tol = SMALL_TRAIN_TOL
+    cfg, model, params, step, batches = small_setup(arch, c)
+    card = _to_cuda(params)
+    del params
     with tempfile.TemporaryDirectory() as tmp:
-        for dev, params in (("cpu", host), ("cuda", card)):
-            state = TrainState(params, init_opt_state(params))
-            if dev == "cuda":
-                zero_flash_counts()              # the card's steps start
-            hist = []
-            for i, b in enumerate(batches):
-                if dev == "cuda" and i == c["steps"] - 1:
-                    ckpt.save(state, tmp, i)
-                state, m = step(state, batch_to_device(b, dev))
-                hist.append((float(m["loss"]), float(m["grad_norm"])))
-            runs[dev] = (hist, state)
+        state = TrainState(card, init_opt_state(card))
+        zero_flash_counts()                      # the card's steps start
+        ch = []
+        for i, b in enumerate(batches):
+            if i == c["steps"] - 1:
+                ckpt.save(state, tmp, i)
+            state, m = step(state, batch_to_device(b, "cuda"))
+            ch.append((float(m["loss"]), float(m["grad_norm"])))
         n, routes, windowed = flash_counts()      # ... and end here
         like = TrainState(card, init_opt_state(card))
         restored, manifest = ckpt.restore(like, tmp)
         again, m = step(restored, batch_to_device(batches[-1], "cuda"))
-    (hh, hs), (ch, cs) = runs["cpu"], runs["cuda"]
+    hh, host_params, host_s = host
     hist_err = max(abs(a - b) / max(abs(a), 1e-30)
                    for x, y in zip(hh, ch) for a, b in zip(x, y))
     diffs = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(
-        tree_leaves(cs.params), tree_leaves(hs.params))])
+        tree_leaves(state.params), tree_leaves(host_params))])
     lr_sum = sum(float(lr_schedule(OptConfig(**c["opt"]), torch.tensor(i)))
                  for i in range(1, c["steps"] + 1))
     over = (diffs > tol["atol"]).float().mean().item()
     replay = [float(m["loss"]), float(m["grad_norm"])]
     replay_same = replay == list(ch[-1]) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(again.params),
-                                          tree_leaves(cs.params)))
+                                          tree_leaves(state.params)))
     n_local = int((~layer_flags(cfg)).sum())
-    want_flash = train_flash_launches(cfg, model, 1, c["steps"])
-    log(f"[small] {cfg.name} f32, {c['steps']} train steps, card vs host: "
-        f"losses / grad norms card {ch}, host {hh}: max rel err "
+    want_flash = train_flash_launches(cfg, model, c["micro"], c["steps"])
+    last = c["steps"]
+    what = arch if c is SMALL_TRAIN else (
+        f"{arch} at {c['batch']} x {c['seq']} in {c['micro']} microbatches")
+    log(f"[small] {cfg.name} f32, {c['steps']} train steps at "
+        f"{c['batch']} x {c['seq']} in {c['micro']} microbatches, card vs "
+        f"host: losses / grad norms card {ch}, host {hh}: max rel err "
         f"{hist_err:.3e} (tol {tol['rtol']:g}); params max|err| "
         f"{diffs.max().item():.3e} (all within {2 * lr_sum:.3e}), share "
         f"over {tol['atol']:g} {over:.2e} (limit {tol['share']:g}); "
-        f"flash launches {n} by route {routes}, windowed {windowed}; step 3 "
-        f"after restoring the step-2 checkpoint (manifest step "
-        f"{manifest['step']}) {replay}: the same bitwise {replay_same}")
+        f"flash launches {n} by route {routes}, windowed {windowed}; step "
+        f"{last} after restoring the step-{last - 1} checkpoint (manifest "
+        f"step {manifest['step']}) {replay}: the same bitwise {replay_same}; "
+        f"the host's steps in {host_s:.1f} s"
+        + (f" at {c['host_threads']} threads" if "host_threads" in c
+           else ""))
     check_all("small", {
-        f"{arch}: train losses and grad norms, card == host (1e-4)": (
+        f"{what}: train losses and grad norms, card == host (1e-4)": (
             hist_err <= tol["rtol"]
             and all(np.isfinite(x) for r in ch for x in r)),
-        f"{arch}: train params, card == host": (
+        f"{what}: train params, card == host": (
             diffs.max().item() <= 2 * lr_sum and over <= tol["share"]),
-        f"{arch}: flash launches == {want_flash} (train_flash_launches: "
+        f"{what}: flash launches == {want_flash} (train_flash_launches: "
         f"{cfg.family}, {c['steps']} steps), all ffma": (
             n == want_flash and routes == {"ffma": n, "wgmma": 0}),
-        f"{arch}: windowed launches == local layers x steps x 2": (
-            windowed == n_local * c["steps"] * 2),
-        f"{arch}: step 3 from the step-2 checkpoint == step 3": replay_same,
+        f"{what}: windowed launches == local layers x microbatches x "
+        f"steps x 2": (windowed == n_local * c["micro"] * c["steps"] * 2),
+        f"{what}: step {last} from the step-{last - 1} checkpoint == step "
+        f"{last}": replay_same,
     })
 
 
@@ -1935,7 +2016,7 @@ def long_counts(arch):
     from repro_torch.models.registry import serving_caps
     c = SERVE_LONG
     cfg = configs.get(arch)
-    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
+    limit = card_limit(c["free_share"])
     if arch == "zamba2-1.2b":
         n = dryrun.recurrent_serve_count(
             cfg, batch=c["batch"], max_seq=c["max_seq"], prompt=c["prompt"])
@@ -2146,7 +2227,7 @@ def serve_long500k_zamba2(card):
     from repro_torch.serve.engine import Request
     from repro_torch.serve.step import capped_chunks
     c = SERVE_500K
-    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
+    limit = card_limit(c["free_share"])
     t0 = time.perf_counter()
     count = dryrun.recurrent_serve_count(
         configs.get(c["arch"]), batch=c["batch"], max_seq=c["max_seq"],
@@ -2686,7 +2767,7 @@ def serve_long_moe(card, cfg, model, params, label, profile=False):
     from repro_torch.models import moe
     from repro_torch.serve.step import bucket_for, pad_to_bucket
     c, m = SERVE_LONG, SERVE_LONG_MOE
-    limit = (1 - c["free_share"]) * dryrun.H100_SXM.mem_gb * 1e9
+    limit = card_limit(c["free_share"])
     batch, peaks = long_counts(cfg.name)
     if batch is None:
         check_all(label, {
@@ -3088,7 +3169,7 @@ def phase_vlm(card):
 # at full depth), bf16 compute: batch 8 x 512 tokens in 2 microbatches,
 # 6 steps through train.loop.run
 TRAIN = dict(arch="granite-20b", layers=4, batch=8, seq=512, micro=2,
-             steps=6, lr=3e-4, seed=0)
+             steps=6, lr=3e-4, seed=0, profile=True)
 # the train phase's other configurations, after granite-20b's and in this
 # order: each family at its published width through the same loop and
 # gates, f32 masters made on the card from the seed; the depth cut (layers,
@@ -3096,14 +3177,34 @@ TRAIN = dict(arch="granite-20b", layers=4, batch=8, seq=512, micro=2,
 # model's train state does not fit 80 GB: deepseek-moe-16b is 262 GB of
 # state whole, internvl2-76b 62.1 GB at 2 layers before its activations.
 # whisper-small trains on its released models' 448-token text context over
-# 1500 frames a row, internvl2-76b on 256 patches + 256 tokens a row
+# 1500 frames a row, internvl2-76b on 256 patches + 256 tokens a row.
+# xlstm-1.3b takes 2 steps (the median reads step 2) and no profiled step:
+# its step is 14-18 s of sLSTM token loop, and its profile (560k kernels,
+# PERF.md §5) stands while models/xlstm.py is unchanged; the script's time
+# budget, for the train_4k runs
 TRAIN_FAMILIES = (
     dict(TRAIN, arch="zamba2-1.2b", layers=None, steps=4),
     dict(TRAIN, arch="whisper-small", layers=None, seq=448, steps=4),
-    dict(TRAIN, arch="xlstm-1.3b", layers=None, steps=3),
+    dict(TRAIN, arch="xlstm-1.3b", layers=None, steps=2, profile=False),
     dict(TRAIN, arch="deepseek-moe-16b", layers=4, steps=4),
     dict(TRAIN, arch="internvl2-76b", layers=1, batch=4, seq=256, steps=4),
 )
+# train_4k's sequence on the card (configs/base.py SHAPES: 256 rows x 4096
+# tokens in 16 microbatches, the batch cut to 2 x 4096 in 2 microbatches,
+# one row a microbatch), 3 steps from the masters the family's run above
+# left (its AdamW moments zeroed), for these families at their train
+# phase's depth (granite-20b at 4 of 52 layers, deepseek-moe-16b at 4 of
+# 28, the other two whole; xlstm-1.3b waits on its sLSTM token loop,
+# internvl2-76b's one layer is the dense decoder granite's run covers).
+# Each is first counted on the meta device (the train_4k_card cell), and
+# runs only where the count leaves 5 % of 80 GB free; its loop's peak
+# must read within DRYRUN["peak_rel"] of that count. A profiled step for
+# ``profiled``
+TRAIN_4K = dict(batch=2, seq=4096, micro=2, steps=3, lr=3e-4, seed=0,
+                free_share=0.05,
+                archs=("granite-20b", "zamba2-1.2b", "whisper-small",
+                       "deepseek-moe-16b"),
+                profiled=("granite-20b", "deepseek-moe-16b"))
 
 
 def train_flash_launches(cfg, model, micro, steps):
@@ -3164,34 +3265,116 @@ def _named(tree, prefix=""):
         yield prefix[:-1], tree
 
 
-def phase_train(card, c=TRAIN):
-    """The port's trainer on the card for one configuration of TRAIN or
-    TRAIN_FAMILIES: f32 master parameters made on the card from a seed,
-    train.step.make_train_step under counting_call, through train.loop.run
-    with a tracer and a registry. Step 1's gradients are read once before
-    the loop (every leaf nonzero: the flash kernel's Function carries wq,
-    wk and wv a gradient); the flash counts and the host syncs are zeroed
-    just before the loop and read just after. Then a profiled step
-    (granite-20b's also in its two halves)."""
+def count_train_4k(arch, layers):
+    """The dry-run's count of one step of ``arch`` cut to ``layers`` (None:
+    whole) at train_4k's sequence (the ``train_4k_card`` cell:
+    ``TRAIN_4K``'s batch in its microbatches) on a one-device mesh, on the
+    meta device: {peak, arguments, params, layers, seconds}. Device-free."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    t0 = time.perf_counter()
+    rec, _ = dryrun.analyze_cell(arch, phase_cells()["train_4k_card"],
+                                 ONE_DEVICE, {"n_micro": TRAIN_4K["micro"]},
+                                 cfg)
+    return dict(peak=rec["analysis"]["peak_bytes"],
+                arguments=rec["analysis"]["memory"]["argument_bytes"],
+                params=rec["n_params"], layers=cfg.num_layers,
+                seconds=time.perf_counter() - t0)
+
+
+def count_train_4k_runs():
+    """{arch: ``count_train_4k``'s record} for each run of
+    ``TRAIN_4K["archs"]`` at its train phase's depth."""
+    return {c["arch"]: count_train_4k(c["arch"], c["layers"])
+            for c in (TRAIN, *TRAIN_FAMILIES)
+            if c["arch"] in TRAIN_4K["archs"]}
+
+
+def start_host_work():
+    """(pool, counts, {arch: host steps}, sizes): the script's device-free
+    work as futures of one spawned worker process (no CUDA there), so that
+    it overlaps the card's device-bound phases: first the dry-run's count
+    of each train_4k run (``count_train_4k_runs``, 40-60 s of the card
+    machine's host, zamba2-1.2b's SSD loop the most), then the host's half
+    of each 4096 smoke step (``small_host_steps`` with
+    ``SMALL_TRAIN_4K["host_threads"]`` threads, 100-140 s at 4), then the
+    dryrun phase's (c) and (d) (``dryrun_size_records``, 80-105 s). The
+    caller starts it after the phases whose readings are host-bound and
+    shuts the pool down."""
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    counts = pool.submit(count_train_4k_runs)
+    hosts = {arch: pool.submit(small_host_steps, arch, SMALL_TRAIN_4K)
+             for arch in TRAIN_4K["archs"]}
+    return pool, counts, hosts, pool.submit(dryrun_size_records)
+
+
+def gate_train_4k_fit(c, card, r):
+    """Logs ``r``, the dry-run's count of a train_4k run of ``c``
+    (``count_train_4k``), before the run, and fails the phase with its
+    reason where the count leaves less than ``TRAIN_4K["free_share"]`` of
+    the card free: 4096 is the cell, so nothing runs at a shorter
+    sequence. Returns the counted peak in bytes."""
+    peak, limit = r["peak"], card_limit(TRAIN_4K["free_share"])
+    log(f"[train_4k {c['arch']}] the dry-run's count of one step, "
+        f"{r['layers']} layers, batch {TRAIN_4K['batch']} x "
+        f"{TRAIN_4K['seq']} in {TRAIN_4K['micro']} microbatches "
+        f"(train_4k_card, one device): {r['params'] / 1e9:.3f} B params, "
+        f"peak {peak / 1e9:.2f} GB (arguments {r['arguments'] / 1e9:.2f} "
+        f"GB) against {limit / 1e9:.0f} GB "
+        f"({TRAIN_4K['free_share']:.0%} of 80 GB free), counted in "
+        f"{r['seconds']:.1f} s; card: {card}")
+    check_all(f"train_4k {c['arch']}", {
+        f"the count ({peak / 1e9:.2f} GB) fits {limit / 1e9:.0f} GB":
+            peak <= limit})
+    return peak
+
+
+def train_4k_shapes(cfg, model, c):
+    """{flash shape (B, H, Hkv, S, T, D, causal, window, q_offset):
+    launches} a loop of ``c`` gives the kernel, from where each family
+    runs attention under its remat (``train_flash_launches``): one row a
+    microbatch at S = T = ``c["seq"]``, causal; whisper's encoder over its
+    frames, non-causal, beside its decoder."""
+    b, n = c["batch"] // c["micro"], c["micro"] * c["steps"]
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dec = (b, h, hkv, c["seq"], c["seq"], d, True, None, 0)
+    if cfg.family == "audio":
+        return {(b, h, hkv, cfg.enc_seq, cfg.enc_seq, d, False, None, 0):
+                2 * cfg.enc_layers * n, dec: 2 * cfg.num_layers * n}
+    return {dec: train_flash_launches(cfg, model, c["micro"], c["steps"])}
+
+
+def train_run(label, cfg, model, state, c, card, count=None):
+    """One loop of the configuration ``c`` from ``state``: train.step.
+    make_train_step under counting_call, through train.loop.run with a
+    tracer and a registry, over SyntheticTokens at ``c``'s batch and
+    sequence. Step 1's gradients are read once before the loop (every
+    leaf nonzero: the flash kernel's Function carries wq, wk and wv a
+    gradient; an MoE's read twice, bitwise the same); the flash counts
+    and the host syncs are zeroed just before the loop and read just
+    after. ``count`` (train_4k's runs): the dry-run's peak, against which
+    the loop's max_memory_allocated is held; the flash launches must then
+    come at exactly ``train_4k_shapes`` and an MoE's routing at one group
+    of the row's tokens in every MoE layer of every microbatch. Returns
+    (state, the run's readings, its data, step and configs)."""
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.core.tracing import TraceStats, counting_call
     from repro_torch.data.pipeline import (DataConfig, SyntheticTokens,
                                            batch_to_device)
+    from repro_torch.models import moe
     from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.train import loop as loop_mod
-    from repro_torch.train.optimizer import (OptConfig, adamw_update,
-                                             init_opt_state, tree_leaves)
-    from repro_torch.train.step import (StepConfig, TrainState,
-                                        make_grad_fn, make_train_step)
-    label = "train" if c is TRAIN else f"train {c['arch']}"
-    t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    cfg, model, params = make_model(c["arch"], c["seed"], c["layers"],
-                                    dtype=torch.float32)
-    state = TrainState(params, init_opt_state(params))
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    from repro_torch.train.step import (StepConfig, make_grad_fn,
+                                        make_train_step)
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
     tokens = c["batch"] * c["seq"]
     opt_cfg = OptConfig(lr=c["lr"], warmup_steps=min(20, c["steps"] // 5),
                         total_steps=c["steps"])
@@ -3200,8 +3383,6 @@ def phase_train(card, c=TRAIN):
                                       vocab_size=cfg.vocab_size,
                                       seq_len=c["seq"],
                                       global_batch=c["batch"]), cfg)
-    log(f"[{label}] state (f32 params, m, v) "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     # step 1's gradients, read once (this also warms up the forward and
     # backward shapes before the loop)
     t0 = time.perf_counter()
@@ -3230,13 +3411,26 @@ def phase_train(card, c=TRAIN):
         # the phase's peak is the step's, not the two gradient sets'
         torch.cuda.reset_peak_memory_stats()
     del grads, leaves
+    other = 0
+    if count is not None:
+        # the loop's own peak, held against the count of one step: the
+        # state is among the count's arguments, anything else on the card
+        # is beside it
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - sum(
+            x.numel() * x.element_size() for x in tree_leaves(dict(
+                p=state.params, m=state.opt.m, v=state.opt.v,
+                step=state.opt.step)))
+        torch.cuda.reset_peak_memory_stats()
     stats = TraceStats()
     step = make_train_step(model, opt_cfg, step_cfg)
     counted = counting_call(step, "train_step", stats)
     tracer, registry = Tracer(), MetricsRegistry()
     loop_cfg = loop_mod.LoopConfig(total_steps=c["steps"],
                                    ckpt_every=c["steps"] + 1)
-    with flash_shapes() as shapes:
+    watch = count is not None and cfg.is_moe
+    with flash_shapes() as shapes, (
+            moe_drops() if watch else contextlib.nullcontext({})) as routed:
         (state, history, summary), wall, n_syncs, (n_flash, routes,
                                                    windowed) = \
             counted_path(lambda: loop_mod.run(
@@ -3245,7 +3439,7 @@ def phase_train(card, c=TRAIN):
     peak = torch.cuda.max_memory_allocated()
     walls = [r["wall_s"] for r in history]
     med = float(np.median(walls[1:]))
-    model_flop, flop_what = train_model_flop(cfg, params, c)
+    model_flop, flop_what = train_model_flop(cfg, state.params, c)
     by_tag = summary["energy_by_tag"]
     for r in history:
         log(f"[{label}] step {r['step']}: loss {r['loss']:.4f}, grad norm "
@@ -3261,16 +3455,20 @@ def phase_train(card, c=TRAIN):
         f"{model_flop / 1e12:.2f} TFLOP a step (the remat recompute not "
         f"counted): {model_flop / med / 1e12:.1f} TFLOP/s, "
         f"{model_flop / med / PEAK_OPS['bfloat16']:.1%} of 989; "
-        f"peak memory {peak / 1e9:.2f} GB; modeled energy "
-        f"{summary['energy_j']:.3f} J, {summary['j_per_token']:.6f} J/token "
-        f"(H100_SXM power model at utilization 1.0 through the probe's "
-        f"240 W clip); tags {by_tag}; host syncs {n_syncs}; "
-        f"train_step_compiles {stats.compiles('train_step')}; flash "
-        f"launches {n_flash} by route {routes}, windowed {windowed}, by "
-        f"shape (B, H, Hkv, S, T, D, causal, window, q_offset) "
-        f"{dict(shapes)}; card: {card}")
+        f"peak memory {peak / 1e9:.2f} GB"
+        + ("" if count is None else
+           f" (the loop's; the dry-run's count {count / 1e9:.2f} GB with "
+           f"{other / 1e9:.3f} GB of other allocations beside it: "
+           f"{peak / (count + other) - 1:+.2%})")
+        + f"; modeled energy {summary['energy_j']:.3f} J, "
+        f"{summary['j_per_token']:.6f} J/token (H100_SXM power model at "
+        f"utilization 1.0 through the probe's 240 W clip); tags {by_tag}; "
+        f"host syncs {n_syncs}; train_step_compiles "
+        f"{stats.compiles('train_step')}; flash launches {n_flash} by route "
+        f"{routes}, windowed {windowed}, by shape (B, H, Hkv, S, T, D, "
+        f"causal, window, q_offset) {dict(shapes)}; card: {card}")
     want_flash = train_flash_launches(cfg, model, c["micro"], c["steps"])
-    check_all(label, {
+    checks |= {
         "every loss and grad norm finite": all(
             np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
             for r in history) and len(history) == c["steps"],
@@ -3285,36 +3483,107 @@ def phase_train(card, c=TRAIN):
             n_flash == want_flash and routes == {"wgmma": n_flash,
                                                  "ffma": 0}
             and windowed == 0),
-        **checks,
-    })
+    }
+    if count is not None:
+        limit = card_limit(TRAIN_4K["free_share"])
+        checks |= {
+            f"peak within {DRYRUN['peak_rel']:.0%} of the count": abs(
+                count + other - peak) <= DRYRUN["peak_rel"] * peak,
+            f"peak under {limit / 1e9:.0f} GB": peak <= limit,
+            "flash at exactly the 4096 shapes": dict(shapes)
+            == train_4k_shapes(cfg, model, c),
+        }
+    if watch:
+        # every MoE layer routes each microbatch's row as one group, in the
+        # forward and again in its remat recompute
+        group = (1, c["seq"], moe.capacity_for(cfg, c["seq"]))
+        calls = ((cfg.num_layers - cfg.first_k_dense) * c["micro"]
+                 * c["steps"] * 2)
+        seen = {k: (n, int(d)) for k, (n, d) in routed.items()}
+        log(f"[{label}] routing by (groups, tokens, capacity): " + ", ".join(
+            f"{k} {n} choices, {d / n:.1%} dropped"
+            for k, (n, d) in seen.items()))
+        checks[f"routing at exactly {group}, {calls} calls"] = (
+            set(seen) == {group} and seen[group][0]
+            == calls * c["seq"] * cfg.experts_per_token)
+    check_all(label, checks)
+    return state, dict(arch=c["arch"], launches=n_flash, step_ms=med * 1e3,
+                       peak_gb=peak / 1e9, shapes=dict(shapes)), dict(
+        data=data, step=step, step_cfg=step_cfg, opt_cfg=opt_cfg)
+
+
+def phase_train(card, c, count=None):
+    """The port's trainer on the card for one configuration of TRAIN or
+    TRAIN_FAMILIES: f32 master parameters made on the card from a seed,
+    through ``train_run``'s loop and gates, then a profiled step
+    (granite-20b's also in its two halves). A family of
+    ``TRAIN_4K["archs"]`` then trains at train_4k's sequence from the same
+    masters (its AdamW moments zeroed): ``count``, its dry-run count
+    (``count_train_4k``), gated first (``gate_train_4k_fit``), then
+    ``train_run`` held to it, and a profiled step for
+    ``TRAIN_4K["profiled"]``."""
+    import torch
+    from repro_torch.data.pipeline import batch_to_device
+    from repro_torch.train.optimizer import (adamw_update, init_opt_state,
+                                             tree_leaves)
+    from repro_torch.train.step import TrainState, make_grad_fn
+    label = "train" if c is TRAIN else f"train {c['arch']}"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params = make_model(c["arch"], c["seed"], c["layers"],
+                                    dtype=torch.float32)
+    box = [TrainState(params, init_opt_state(params))]
+    del params
+    log(f"[{label}] state (f32 params, m, v) "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    box[0], out, run = train_run(label, cfg, model, box[0], c, card)
     # a step, and (granite-20b's) its two halves apart: the forward and
     # backward of both microbatches (grad_fn), and the AdamW update on one
     # set of gradients
-    batch = batch_to_device(data.batch(c["steps"]), "cuda")
-    box = [state]
-    grad_fn = make_grad_fn(model, step_cfg)
+    batch = batch_to_device(run["data"].batch(c["steps"]), "cuda")
 
     def one_step():
-        box[0], _ = step(box[0], batch)
+        box[0], _ = run["step"](box[0], batch)
 
-    prof = profile_steps(label, {"train step": one_step},
-                         **({} if c is TRAIN else dict(n=1, warm=False))
-                         )["train step"]
+    if c["profile"]:
+        out["profile"] = profile_steps(
+            label, {"train step": one_step},
+            **({} if c is TRAIN else dict(n=1, warm=False)))["train step"]
     if c is TRAIN:
+        grad_fn = make_grad_fn(model, run["step_cfg"])
         _, grads = grad_fn(box[0].params, batch)
         profile_steps("train", {
             "forward and backward (2 microbatches)": lambda: grad_fn(
                 box[0].params, batch),
-            "AdamW update": lambda: adamw_update(opt_cfg, box[0].params,
-                                                 grads, box[0].opt),
+            "AdamW update": lambda: adamw_update(
+                run["opt_cfg"], box[0].params, grads, box[0].opt),
         })
         del grads
-    del state, box, params
+    del batch, run
+    if c["arch"] in TRAIN_4K["archs"]:
+        c4 = dict(c, **{k: TRAIN_4K[k] for k in ("batch", "seq", "micro",
+                                                 "steps", "lr", "seed")})
+        label4 = f"train_4k {c['arch']}"
+        peak4 = gate_train_4k_fit(c4, card, count)
+        for x in tree_leaves(box[0].opt._asdict()):
+            x.zero_()
+        box[0], out["train4k"], run = train_run(label4, cfg, model, box[0],
+                                                c4, card, peak4)
+        if c["arch"] in TRAIN_4K["profiled"]:
+            batch = batch_to_device(run["data"].batch(c4["steps"]), "cuda")
+
+            def one_step_4k():
+                box[0], _ = run["step"](box[0], batch)
+
+            out["train4k"]["profile"] = profile_steps(
+                label4, {"train step": one_step_4k}, n=1,
+                warm=False)["train step"]
+            del batch
+        del run
+    del box
     log(f"[{label}] phase in {time.perf_counter() - t_phase:.1f} s")
-    return dict(arch=c["arch"], launches=n_flash, step_ms=med * 1e3,
-                peak_gb=peak / 1e9, profile=prof, shapes=dict(shapes),
-                shape=(c["batch"] // c["micro"], cfg.num_heads,
-                       cfg.num_kv_heads, c["seq"], cfg.head_dim))
+    return dict(out, shape=(c["batch"] // c["micro"], cfg.num_heads,
+                            cfg.num_kv_heads, c["seq"], cfg.head_dim))
 
 
 # the parallel phase: the train phase's configuration for 3 steps through
@@ -4519,7 +4788,8 @@ DRYRUN = dict(
 def phase_cells():
     """The card phases' shapes as dry-run cells: the train phase (batch 8
     x 512; whisper-small's 8 x 448 over its frames, internvl2-76b's 4 x
-    256 after its 256 patches), the VLM phase's forward (256 patches + 256
+    256 after its 256 patches; train_4k's runs, 2 x 4096), the VLM
+    phase's forward (256 patches + 256
     tokens), the serve phase (batch 4, 512 positions), and serve_long's
     decode step (batch 4 over 32768 positions) and one-row 32768-token
     prefill."""
@@ -4534,6 +4804,8 @@ def phase_cells():
         "vlm_train": ShapeConfig(
             "vlm_train", "train", fam["internvl2-76b"]["seq"],
             fam["internvl2-76b"]["batch"]),
+        "train_4k_card": ShapeConfig("train_4k_card", "train",
+                                     TRAIN_4K["seq"], TRAIN_4K["batch"]),
         "vlm_phase": ShapeConfig("vlm_phase", "prefill", 256, 1),
         "serve_phase": ShapeConfig("serve_phase", "prefill",
                                    SERVE["max_seq"], SERVE["batch"]),
@@ -4709,15 +4981,18 @@ def dryrun_train(card, train):
                 memory_ms=rl["memory_s"] * 1e3, seconds=meta_s)
 
 
-def dryrun_sizes(card):
-    """(c) and (d), device-free: the depth cuts of PERF.md §4 on a
-    one-device mesh against 80 GB, and one production cell of each family
-    on the single (16 x 16) mesh, a line a cell."""
+def dryrun_size_records():
+    """The counts of (c) and (d), device-free, so that they may run in a
+    worker process beside the card's phases (``start_host_work``): ([(arch,
+    layers, cell, want fits, the count's layers, n_params, peak GB,
+    argument bytes, fits)] for the depth cuts of PERF.md §4 on a
+    one-device mesh, [(arch, shape, record)] for one production cell of
+    each family on the single (16 x 16) mesh, (c)'s seconds, (d)'s)."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     cells = phase_cells()
-    checks = {}
+    cuts = []
     for arch, layers, cell, want in DRYRUN["cuts"]:
         cfg = configs.get(arch)
         if layers is not None:
@@ -4726,20 +5001,37 @@ def dryrun_sizes(card):
         variant = {"n_micro": TRAIN["micro"]} if shape.kind == "train" \
             else None
         rec, _ = dryrun.analyze_cell(arch, shape, ONE_DEVICE, variant, cfg)
-        mem = rec["analysis"]["memory"]
-        log(f"[dryrun] (c) {arch} at {cfg.num_layers} layers, {cell} "
-            f"({shape.kind}, batch {shape.global_batch} x "
-            f"{shape.seq_len}): {rec['n_params'] / 1e9:.3f} B params; "
-            f"peak {rec['peak_gb']:.2f} GB (arguments "
-            f"{mem['argument_bytes'] / 1e9:.2f} GB) against "
-            f"{dryrun.H100_SXM.mem_gb} GB: fits {rec['fits']}")
-        checks[f"(c) {arch} at {cfg.num_layers} layers, {cell}: fits "
-               f"{want}"] = rec["fits"] is want
+        cuts.append((arch, layers, cell, want, cfg.num_layers,
+                     rec["n_params"], rec["peak_gb"],
+                     rec["analysis"]["memory"]["argument_bytes"],
+                     rec["fits"]))
     cuts_s = time.perf_counter() - t0
     out_dir = ROOT / "build" / "dryrun_phase"
-    for arch, shape in DRYRUN["cells"]:
-        rec = dryrun.run_cell(arch, shape, "single", force=True,
-                              out_dir=out_dir)
+    prod = [(arch, shape, dryrun.run_cell(arch, shape, "single", force=True,
+                                          out_dir=out_dir))
+            for arch, shape in DRYRUN["cells"]]
+    return cuts, prod, cuts_s, time.perf_counter() - t0 - cuts_s
+
+
+def dryrun_sizes(card, records):
+    """(c) and (d): the depth cuts of PERF.md §4 on a one-device mesh
+    against 80 GB, and one production cell of each family on the single
+    (16 x 16) mesh, a line a cell, from ``records``, what
+    ``dryrun_size_records`` returned. Returns the counts' seconds."""
+    from repro_torch.launch import dryrun
+    cuts, prod, cuts_s, prod_s = records
+    cells = phase_cells()
+    checks = {}
+    for arch, layers, cell, want, n_layers, n, peak_gb, args, fits in cuts:
+        shape = cells[cell]
+        log(f"[dryrun] (c) {arch} at {n_layers} layers, {cell} "
+            f"({shape.kind}, batch {shape.global_batch} x "
+            f"{shape.seq_len}): {n / 1e9:.3f} B params; "
+            f"peak {peak_gb:.2f} GB (arguments {args / 1e9:.2f} GB) against "
+            f"{dryrun.H100_SXM.mem_gb} GB: fits {fits}")
+        checks[f"(c) {arch} at {n_layers} layers, {cell}: fits "
+               f"{want}"] = fits is want
+    for arch, shape, rec in prod:
         if "error" in rec:
             log(rec["traceback"])
         else:
@@ -4761,10 +5053,10 @@ def dryrun_sizes(card):
         if (arch, shape) in DRYRUN["serve_fit"]:
             checks[f"(d) single/{arch}/{shape} fits 80 GB a rank"] = (
                 "error" not in rec and rec["fits"])
-    log(f"[dryrun] (c) in {cuts_s:.1f} s, (d) in "
-        f"{time.perf_counter() - t0 - cuts_s:.1f} s; card: {card}")
+    log(f"[dryrun] (c) in {cuts_s:.1f} s, (d) in {prod_s:.1f} s in a "
+        f"worker process; card: {card}")
     check_all("dryrun", checks)
-    return time.perf_counter() - t0
+    return cuts_s + prod_s
 
 
 def dryrun_lint():
@@ -5351,6 +5643,26 @@ def time_flash(b, h, hkv, s, d, win, what, t=None, off=0, causal=True,
     return row
 
 
+def timing_train_4k(trains):
+    """{row name: (launches, timing row)}: each train_4k run's flash shape
+    at 4096 (whisper-small's decoder: its encoder's launches are at the
+    whisper_small row's shape, one row over 1500 frames), timed at one
+    microbatch and counted over that run's loop; ``trains``: the train
+    phase's results."""
+    rows = {}
+    for r in trains:
+        if "train4k" not in r:
+            continue
+        (sh, n), = [(sh, n) for sh, n in r["train4k"]["shapes"].items()
+                    if sh[3] == TRAIN_4K["seq"]]
+        b, h, hkv, s, t, d, causal, win, off = sh
+        rows[f"flash_attention/wgmma/{r['arch'].split('-')[0]}_train4k"] = (
+            n, time_flash(b, h, hkv, s, d, win, f"{r['arch']}'s train_4k "
+                          f"run, one microbatch", t=t, off=off,
+                          causal=causal))
+    return rows
+
+
 def moe_long_specs():
     """The MoE models' (MHA 16:16, D 128, the same shapes on both) flash
     rows at serve_long's shapes, as ``time_long_rows`` takes them: the
@@ -5830,6 +6142,12 @@ def main() -> int:
     phase_serve_dense(card)
     free_card()
     mark("dense (qwen3-32b, deepseek-coder-33b whole)")
+    # the device-free work from here on, beside phases bound by the card
+    # (serve_long's 32k prefills first), so that the host-bound readings
+    # above (the bench's launch latency, the 512 serves' tok/s and decode
+    # host ms) are taken on an otherwise idle host
+    host_pool, counts_4k, hosts_4k, sizes = start_host_work()
+    sizes.add_done_callback(lambda _: mark("the worker's device-free work"))
     long_serves = phase_serve_long(card)
     mark("serve_long")
     mcfg, mmodel, mparams, meng, moe_launches, mshapes = phase_serve_moe(
@@ -5868,16 +6186,21 @@ def main() -> int:
     vlm_launches, vlm_shape = phase_vlm(card)
     free_card()
     mark("vlm")
-    train = phase_train(card)
+    counts_4k = counts_4k.result()
+    train = phase_train(card, TRAIN, counts_4k.get(TRAIN["arch"]))
     free_card()
     mark("train granite-20b")
     trains = []
     for c in TRAIN_FAMILIES:
-        trains.append(phase_train(card, c))
+        trains.append(phase_train(card, c, counts_4k.get(c["arch"])))
         free_card()
         mark(f"train {c['arch']}")
+    for arch in TRAIN_4K["archs"]:
+        small_train(arch, SMALL_TRAIN_4K, hosts_4k[arch].result())
+    mark("small at 4096")
     dry_a = dryrun_train(card, train)
-    dry_s = dryrun_sizes(card)
+    dry_s = dryrun_sizes(card, sizes.result())
+    host_pool.shutdown()
     mark("dryrun (a), (c), (d)")
     par = phase_parallel(card)
     mark("parallel")
@@ -5945,6 +6268,10 @@ def main() -> int:
                 b, h, hkv, s, d, win, f"{r['arch']}'s train step, one "
                 f"microbatch" + (f" ({part[1:]})" if part else ""), t=t,
                 off=off, causal=causal))
+    for name, row in timing_train_4k([train] + trains).items():
+        if name in train_rows:
+            raise AssertionError(f"two flash rows named {name}")
+        train_rows[name] = row
     # whisper-small's encoder (non-causal, 12:12, S = T = 1500) and
     # zamba2-1.2b's shared attention on a cold 256-token chunk (32:32 over
     # its 512-position cache row)
@@ -6141,8 +6468,9 @@ def main() -> int:
         })
     # the same wgmma route under the train phase's gradient for the other
     # families (zamba2-1.2b, whisper-small's encoder and decoder,
-    # deepseek-moe-16b, internvl2-76b; xlstm-1.3b launches none), each
-    # timed at one microbatch's shape and counted over its loop
+    # deepseek-moe-16b, internvl2-76b; xlstm-1.3b launches none) and for
+    # the train_4k runs at 4096, each timed at one microbatch's shape and
+    # counted over its loop
     for name, (n, row) in train_rows.items():
         kernels.append({
             "name": name,

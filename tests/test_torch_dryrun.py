@@ -239,6 +239,24 @@ VLM_PHASE = ShapeConfig("vlm_phase", "prefill", 256, 1)
 SERVE_PHASE = ShapeConfig("serve_phase", "prefill", 512, 4)
 LONG_PHASE = ShapeConfig("long_phase", "decode", 32768, 4)
 LONG_PREFILL = ShapeConfig("long_prefill", "prefill", 32768, 1)
+# train_4k's sequence on the card: its 256 rows cut to 2, in 2 microbatches
+TRAIN_4K_CARD = ShapeConfig("train_4k_card", "train", 4096, 2)
+
+_COUNTS = {}
+
+
+def _count(arch, layers, shape):
+    """The dry-run's record of one step of ``arch`` cut to ``layers`` (None:
+    whole) at ``shape`` on one device (a train cell in 2 microbatches),
+    counted once a process."""
+    key = (arch, layers, shape.name)
+    if key not in _COUNTS:
+        cfg = tconfigs.get(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        variant = {"n_micro": 2} if shape.kind == "train" else None
+        _COUNTS[key] = dryrun.analyze_cell(arch, shape, ONE, variant, cfg)[0]
+    return _COUNTS[key]
 
 
 @pytest.mark.parametrize("arch,layers,shape,fits", [
@@ -256,13 +274,14 @@ LONG_PREFILL = ShapeConfig("long_prefill", "prefill", 32768, 1)
     # a row of 32768 positions: 74.1 GB of weights and cache before the
     # prefill's activations
     ("qwen3-32b", None, LONG_PREFILL, False),
+    # the train_4k runs, at the train phase's depth cuts
+    ("granite-20b", 4, TRAIN_4K_CARD, True),
+    ("zamba2-1.2b", None, TRAIN_4K_CARD, True),
+    ("whisper-small", None, TRAIN_4K_CARD, True),
+    ("deepseek-moe-16b", 4, TRAIN_4K_CARD, True),
 ])
 def test_the_depth_cuts_of_perf_md(arch, layers, shape, fits):
-    cfg = tconfigs.get(arch)
-    if layers is not None:
-        cfg = cfg.replace(num_layers=layers)
-    variant = {"n_micro": 2} if shape.kind == "train" else None
-    rec, _ = dryrun.analyze_cell(arch, shape, ONE, variant, cfg)
+    rec = _count(arch, layers, shape)
     assert rec["fits"] is fits
     n = rec["n_params"]
     args = rec["analysis"]["memory"]["argument_bytes"]
@@ -272,6 +291,24 @@ def test_the_depth_cuts_of_perf_md(arch, layers, shape, fits):
     else:
         assert args >= 2 * n
     assert np.isfinite(rec["roofline"]["compute_s"])
+
+
+@pytest.mark.parametrize("arch,layers", [
+    ("granite-20b", 4), ("zamba2-1.2b", None), ("whisper-small", None),
+    ("deepseek-moe-16b", 4)])
+def test_a_train_4k_card_count_holds_the_state_and_a_row_of_logits(
+        arch, layers):
+    """The rule behind a train run's count, not its bytes: the arguments
+    hold each parameter's f32 master, m and v (12 bytes); the peak holds
+    those, a full f32 gradient (16 bytes a parameter in all) and, beside
+    them, one microbatch row's f32 logits over the vocabulary."""
+    rec = _count(arch, layers, TRAIN_4K_CARD)
+    n = rec["n_params"]
+    cfg = tconfigs.get(arch)
+    logits = TRAIN_4K_CARD.seq_len * cfg.vocab_size * 4
+    assert rec["n_micro"] == 2
+    assert rec["analysis"]["memory"]["argument_bytes"] >= 12 * n
+    assert rec["analysis"]["peak_bytes"] >= 16 * n + logits
 
 
 # the stand-in mesh: a rank's collectives without a process group

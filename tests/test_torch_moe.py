@@ -23,6 +23,7 @@ them the margins at every routing and greedy decision.)
   unpadded one's and to the reference's padded model's: 1e-4.
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -318,13 +319,26 @@ def test_forward_logits_and_aux(name):
         assert float(gaux) > 0
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "internvl2-76b"])
-def test_train_loss_and_gradients_match_reference(name):
+# (arch, rows, seq): both at 2 x 12, and deepseek-moe-16b at train_4k's
+# sequence, one row of 4096 tokens: one routing group (``n_groups(1)``)
+# with ``capacity_for(cfg, 4096)`` slots an expert
+TRAIN_GRAD_CASES = [pytest.param(n, 2, 12, id=n) for n in (
+    "deepseek-moe-16b", "internvl2-76b")] + [
+    pytest.param("deepseek-moe-16b", 1, 4096, id="deepseek-moe-16b-seq4096")]
+
+
+@pytest.mark.parametrize("name,rows,seq", TRAIN_GRAD_CASES)
+def test_train_loss_and_gradients_match_reference(name, rows, seq):
     """The train step's loss (cross-entropy plus ``aux_loss_weight`` times
     the aux) and every parameter's gradient against ``jax.grad`` of the
-    reference's loss, remat on."""
+    reference's loss, remat on. At 4096 tokens the reference attends in
+    its default 512-row query blocks, and each MoE layer's routing is
+    watched: one group of the row's tokens with the capacity
+    ``capacity_for`` gives."""
     jcfg, jm, jp, tcfg, tm, _ = _models(name)
-    batch = _batch(jcfg, 2, 12, 7)
+    if seq > 512:
+        jm = jbuild(jcfg)
+    batch = _batch(jcfg, rows, seq, 7)
     labels = np.roll(batch["tokens"], -1, axis=1)
     labels[:, -1] = -1
     batch["labels"] = labels
@@ -335,9 +349,22 @@ def test_train_loss_and_gradients_match_reference(name):
     _, tp = both_trees(tcfg, 2)
     for x in topt.tree_leaves(tp):
         x.requires_grad_()
-    loss = tstep.make_loss_fn(tm, tstep.StepConfig(**scfg))(
-        tp, {k: _t(v) for k, v in batch.items()})
-    loss.backward()
+    route, groups = tmoe.route, []
+
+    def watch(xg, logits, cfg, capacity):
+        groups.append((xg.shape[0], xg.shape[1], capacity))
+        return route(xg, logits, cfg, capacity)
+
+    with mock.patch.object(tmoe, "route", watch):
+        loss = tstep.make_loss_fn(tm, tstep.StepConfig(**scfg))(
+            tp, {k: _t(v) for k, v in batch.items()})
+        loss.backward()
+    if jcfg.is_moe:
+        # each MoE layer routes in the forward and in its remat recompute
+        tokens = seq * rows // tmoe.n_groups(rows)
+        assert groups == [(tmoe.n_groups(rows), tokens,
+                           tmoe.capacity_for(tcfg, tokens))] * (
+            2 * (tcfg.num_layers - tcfg.first_k_dense))
     np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-4)
     jax.tree.map(lambda w, g: np.testing.assert_allclose(
         _np(g.grad), np.asarray(w), rtol=1e-4,

@@ -500,16 +500,31 @@ def _train_batches(cfg, n, batch, seq):
     return [data.batch(i) for i in range(n)]
 
 
-@pytest.mark.parametrize("name", ARCHES)
-def test_train_loss_and_gradients_match_reference(name):
+# (arch, rows, seq): every family at 2 x 24, and at train_4k's sequence
+# one row of 4096 tokens of zamba2-1.2b (its SSD carries the state over 16
+# chunks of 256) and whisper-small (its decoder past the released models'
+# 448 positions)
+TRAIN_GRAD_CASES = [pytest.param(n, 2, 24, id=n) for n in ARCHES] + [
+    pytest.param(n, 1, 4096, id=f"{n}-seq4096")
+    for n in ("zamba2-1.2b", "whisper-small")]
+
+
+@pytest.mark.parametrize("name,rows,seq", TRAIN_GRAD_CASES)
+def test_train_loss_and_gradients_match_reference(name, rows, seq):
     """The train step's loss and every parameter's gradient against
     ``jax.value_and_grad`` of the reference's loss, remat on (the mLSTM
     and Mamba2 layers and whisper's layers recomputed in the backward;
     xlstm's sLSTM token loop and zamba2's shared attention outside the
     checkpoint): every leaf within 1e-4 of the reference's gradient,
-    relative and of its max|g|, and nonzero."""
+    relative and of its max|g|, and nonzero. Past one SSD chunk the
+    reference runs its chunkwise form in 16-token chunks, the same
+    function: over its default 256-token chunks its gradient is NaN
+    (``test_chunkwise_gradients_over_a_long_chunk``); the port keeps its
+    default chunks."""
     jcfg, jm, jp, tcfg, tm, _ = _models(name)
-    (batch,) = _train_batches(jcfg, 1, 2, 24)
+    if jcfg.family == "hybrid" and seq > tmamba.CHUNK:
+        jm = jbuild(jcfg, chunk=16)
+    (batch,) = _train_batches(jcfg, 1, rows, seq)
     jloss = jstep.make_loss_fn(jm, jstep.StepConfig())
     want, wg = jax.value_and_grad(jloss)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})

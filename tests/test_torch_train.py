@@ -184,6 +184,8 @@ GRAD_CASES = [
     (1, 4, 2, 12, 40, 16, True, 9, 20, 4),         # window + q_offset
     (1, 4, 4, 20, 30, 16, False, None, 0, 7),      # not causal
     (1, 4, 4, 6, 10, 16, True, None, 0, 512),      # one block
+    # past two default blocks of 512 (train_4k's 4096 runs 8), MQA
+    (1, 2, 1, 1100, 1100, 16, True, None, 0, ops.BACKWARD_Q_BLOCK),
 ]
 
 
